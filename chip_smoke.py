@@ -1,0 +1,394 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (wrf_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises, so the exit code is
+not 0 and no result line is printed):
+
+1. environment: the card's name and power limit; a GPU is required;
+2. build: the port's CUDA kernels from ``wrf_tpu_torch/csrc`` (nvcc);
+3. K1 kernel vs its plain PyTorch version on the card, in the three modes
+   of the main path (reference call, scan substep, final substep) at
+   74x61x32 (specified, periodic and open lateral BCs) and 512x512x50,
+   held to rtol 2e-5, atol_scale 1e-6; both timed with CUDA events at
+   both sizes (the kernel table reports the scan substep at 512x512x50,
+   the main path's most frequent call);
+4. the reference's golden-file check: 5 plain-call steps at 74x61x32
+   through the kernel against the C++ oracle's golden outputs
+   (rtol 5e-5, atol_scale 2e-6);
+5. the slice through its entry point: ``wrf_tpu_torch.run_sim`` for 3
+   large steps at 512x512x50 (balanced fixture, amplitude 1e-2), which
+   must launch K1 exactly 21 times and stay finite; then one RK3 step at
+   74x61x32 against the oracle's RK3 golden (rtol 5e-5, atol_scale 2e-6).
+
+The last two lines of standard output are the kernel table
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  The script
+uses torch, the port and the jax-free modules of wrf_tpu (fixtures,
+comparators, the C++ oracle), and checks at the end that jax was never
+imported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REF_GRID = (74, 61, 32)      # the reference's fixture grid
+BIG_GRID = (512, 512, 50)    # the main path's benchmark grid
+KERNEL_TOL = dict(rtol=2e-5, atol_scale=1e-6)
+DEVICE_TOL = dict(rtol=5e-5, atol_scale=2e-6)
+#: lateral-BC variants checked at the reference grid (the window reaches
+#: the ring under open BCs and spans the i extent under periodic ones)
+BC_VARIANTS = {
+    "specified": dict(specified=True),
+    "periodic": dict(periodic_x=True, specified=True),
+    "open": dict(specified=False, nested=False),
+}
+MODES = {
+    "full": dict(),
+    "scan": dict(fuse_uv=True, lean=True, ww_mode="lite", with_tave=False),
+    "final": dict(fuse_uv=True, ww_mode="final", with_tave=True),
+}
+
+
+def phase_env():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke test needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s); device 0: {name}")
+    print(smi)
+    return name, smi
+
+
+def phase_build():
+    from wrf_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    path, log = _build.build(ptxas_info=True)
+    secs = time.perf_counter() - t0
+    print(f"[build] {path.name} in {secs:.1f} s")
+    for line in log.splitlines():
+        if re.search(r"registers|spill|Compiling entry", line):
+            print(f"[build]   {line.strip()}")
+    return secs
+
+
+def padded_inputs(case, device):
+    """The arrays one K1 call receives on the main path: ring-shaped
+    domain arrays, zero-padded by one cell, with the loop's window and
+    offsets (wrf_tpu_torch.models.small_step)."""
+    from wrf_tpu_torch.convert import arrays_from_numpy
+    from wrf_tpu_torch.models.small_step import pad_halo
+    from wrf_tpu_torch.parallel.sharded import (
+        FIELDS_1D, FIELDS_2D, FIELDS_3D, case_to_domain, domain_window,
+    )
+
+    dom = arrays_from_numpy(case_to_domain(case), device)
+    arr = {n: pad_halo(dom[n]) for n in FIELDS_3D + FIELDS_2D}
+    arr.update({n: dom[n] for n in FIELDS_1D})
+    b = case.bounds
+    i0, i1, j0, j1, k0, k1 = domain_window(b.ide, b.jde, b.kdim, case.flags)
+    static = dict(window=(i0, i1, j0, j1), offsets=(-1, -1), k0=k0, k1=k1,
+                  kde=b.kdim - 1, rdx=case.rdx, rdy=case.rdy, dts=case.dts,
+                  epssm=case.epssm)
+    return arr, static
+
+
+def mode_kwargs(mode, arr, static):
+    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
+
+    kw = dict(MODES[mode])
+    k0 = static["k0"]
+    if kw.get("fuse_uv"):
+        kw["cs2"] = DEFAULT_CS2
+    if kw.get("lean"):
+        kw.update(lean_kwargs(arr, static["rdx"], static["rdy"],
+                              static["dts"], k0, static["k1"]))
+    if kw.get("ww_mode") in ("lite", "final"):
+        kw["ww_row"] = (arr["ww"][:, k0, :]
+                        + 0.01 * arr["ww_1"][:, k0 + 1, :]).contiguous()
+    return kw
+
+
+def fresh(arr, mkw):
+    """Copies of what a call updates in place (t, t_ave, ww, ww_row)."""
+    arr = dict(arr)
+    for n in ("t", "t_ave", "ww"):
+        arr[n] = arr[n].clone()
+    mkw = dict(mkw)
+    if "ww_row" in mkw:
+        mkw["ww_row"] = mkw["ww_row"].clone()
+    return arr, mkw
+
+
+def cuda_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_pair(arr, static, mkw):
+    """CUDA-event ms per call of the kernel and of the plain version on the
+    same inputs, two readings each, taken in the order plain, kernel,
+    kernel, plain."""
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, advance_mu_t_fused_plain,
+    )
+
+    a_k, m_k = fresh(arr, mkw)
+    a_p, m_p = fresh(arr, mkw)
+
+    def kern():
+        advance_mu_t_fused(**a_k, **static, **m_k)
+
+    def plain():
+        advance_mu_t_fused_plain(**a_p, **static, **m_p)
+
+    out = {"cuda": [], "plain": []}
+    for name, fn, reps in (("plain", plain, 3), ("cuda", kern, 20),
+                           ("cuda", kern, 20), ("plain", plain, 3)):
+        out[name].append(cuda_ms(fn, reps))
+    return out
+
+
+def phase_kernel_vs_plain(
+        cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+               (REF_GRID, "open"), (BIG_GRID, "specified")),
+        time_grids=(REF_GRID, BIG_GRID), card=""):
+    import torch
+    from wrf_tpu.compare import compare
+    from wrf_tpu.grid import ConfigFlags
+    from wrf_tpu_torch.io.fixtures import make_case
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, advance_mu_t_fused_plain,
+    )
+
+    max_abs = 0.0
+    timings = {}
+    for grid, bc in cases:
+        case = make_case(*grid, halo=3, seed=2026,
+                         flags=ConfigFlags(**BC_VARIANTS[bc]))
+        arr, static = padded_inputs(case, "cuda")
+        J, K, I = arr["t"].shape
+        for mode in MODES:
+            mkw = mode_kwargs(mode, arr, static)
+            a_k, m_k = fresh(arr, mkw)
+            a_p, m_p = fresh(arr, mkw)
+            got = advance_mu_t_fused(**a_k, **static, **m_k)
+            want = advance_mu_t_fused_plain(**a_p, **static, **m_p)
+            torch.cuda.synchronize()
+            tag = f"{grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"K1 {tag}: outputs {sorted(got)}, "
+                                     f"plain version {sorted(want)}")
+            for name in sorted(want):
+                r = compare(got[name].cpu().numpy(), want[name].cpu().numpy(),
+                            name, **KERNEL_TOL)
+                print(f"[k1 {tag}] {name:7s} max_abs={r.max_abs_err:.3e} "
+                      f"max_rel={r.max_rel_err:.3e} "
+                      f"scaled={r.max_scaled_err:.3f} different={r.different}")
+                if not r.passed:
+                    raise AssertionError(f"K1 {tag}: {r}")
+                max_abs = max(max_abs, r.max_abs_err)
+            if grid in time_grids and bc == "specified":
+                timings[grid, mode] = time_pair(arr, static, mkw)
+                t = timings[grid, mode]
+                print(f"[k1 time {J}x{K}x{I} {mode}] kernel "
+                      f"{t['cuda'][0]:.4f} / {t['cuda'][1]:.4f} ms, plain "
+                      f"{t['plain'][0]:.3f} / {t['plain'][1]:.3f} ms "
+                      f"(order plain, kernel, kernel, plain; {card})")
+        del arr
+        torch.cuda.empty_cache()
+    return max_abs, timings
+
+
+def phase_golden_file(tmp: Path):
+    import torch
+    from wrf_tpu.compare import compare
+    from wrf_tpu.io import fixtures
+    from wrf_tpu_torch.convert import arrays_from_numpy
+    from wrf_tpu_torch.io.fixtures import make_case
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
+
+    d = fixtures.write_case(make_case(*REF_GRID), tmp / "ref", steps=5)
+    case, steps = fixtures.read_case(d)
+    golden = fixtures.read_golden(d, case.bounds)
+    kw = case.kernel_kwargs()
+    arr = arrays_from_numpy({k: v for k, v in kw.items()
+                             if hasattr(v, "ndim")}, "cuda")
+    b = case.bounds
+    i0, i1, j0, j1, k0, k1 = b.loop_bounds(case.flags)
+    static = dict(window=(i0, i1, j0, j1), k0=k0, k1=k1,
+                  kde=b.mem(b.kde, "k"),
+                  **{k: kw[k] for k in ("rdx", "rdy", "dts", "epssm")})
+    for _ in range(steps):
+        out = advance_mu_t_fused(**arr, **static)
+        arr.update({k: out[k] for k in ("ww", "mu", "t", "t_ave")})
+    torch.cuda.synchronize()
+    for name in ("ww", "t", "t_ave", "mu", "muave", "muts", "mudf"):
+        r = compare(out[name].cpu().numpy(), golden[name], name, **DEVICE_TOL)
+        print(f"[golden {steps} steps] {r}")
+        if not r.passed:
+            raise AssertionError(f"golden-file check: {r}")
+
+
+def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str):
+    """One RK3 large step on memory-window arrays with the C++ oracle's
+    wind and mu/t substeps — the structure of
+    ``wrf_tpu.models.rk3.rk3_golden`` (which lives in a jax module)."""
+    from wrf_tpu.native import advance_mu_t_native, advance_uv_native
+    from wrf_tpu_torch.models.rk3 import rk3_stages
+    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+
+    f0 = case.fields
+    start = {"u": f0["grid_u_2"], "v": f0["grid_v_2"], "t": f0["grid_t_2"],
+             "ww": f0["grid_ww"], "mu": f0["grid_mu_2"],
+             "t_ave": f0["t_2save"]}
+    out = None
+    for frac, n_sub in rk3_stages(acoustic_steps):
+        fields = dict(f0)
+        if snapshot == "stage":
+            fields.update(grid_u_save=start["u"], grid_v_save=start["v"],
+                          grid_t_save=start["t"], ww1=start["ww"])
+        kw = dataclasses.replace(case, fields=fields,
+                                 dts=(frac * dt) / n_sub).kernel_kwargs()
+        state = dict(start)
+        for _ in range(n_sub):
+            u, v = advance_uv_native(
+                u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
+                muv=kw["muv"], msfuy=kw["msfuy"],
+                msfvx_inv=kw["msfvx_inv"], rdx=kw["rdx"], rdy=kw["rdy"],
+                dts=kw["dts"], cs2=DEFAULT_CS2, flags=case.flags,
+                bounds=case.bounds)
+            out = advance_mu_t_native(**{**kw, **state, "u": u, "v": v})
+            state = {**{k: out[k] for k in ("ww", "mu", "t", "t_ave")},
+                     "u": u, "v": v}
+        out = {**out, "u": state["u"], "v": state["v"]}
+    return out
+
+
+def phase_slice(tmp: Path, case_big):
+    import numpy as np
+    import torch
+    from wrf_tpu.compare import compare
+    from wrf_tpu.io import checkpoint, fixtures
+    from wrf_tpu_torch import run_sim
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.io.fixtures import make_case
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.parallel.sharded import case_to_domain, embed_outputs
+
+    fx = fixtures.write_case(case_big, tmp / "big", steps=1)
+    buf = io.StringIO()
+    k1.LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        rc = run_sim.main([str(fx), "--steps", "3", "--device", "cuda",
+                           "--diagnostics", "--checkpoint-dir",
+                           str(tmp / "ck"), "--checkpoint-every", "3"])
+    launches = k1.LAUNCHES
+    for line in buf.getvalue().splitlines():
+        print(f"[run_sim] {line}")
+    if rc != 0:
+        raise AssertionError(f"run_sim returned {rc}")
+    if launches != 3 * (1 + 2 + 4):
+        raise AssertionError(f"run_sim launched K1 {launches} times, "
+                             "expected 21")
+    state, step, _ = checkpoint.load_checkpoint(tmp / "ck" / "step_000003")
+    if step != 3 or not all(np.isfinite(v).all() for v in state.values()):
+        raise AssertionError("run_sim's final state is not finite")
+    checksum = float(np.sum(state["t"], dtype=np.float64))
+    step_ms = [float(m.group(1)) for m in
+               re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
+    print(f"[slice] run_sim 3 large steps at {BIG_GRID}: K1 launches "
+          f"{launches}, checksum {checksum:.6e}, step ms {step_ms}")
+
+    case = make_case(*REF_GRID, halo=3, seed=2026)
+    b = case.bounds
+    dt = case.dts * 4
+    rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags, acoustic_steps=4,
+                        kernel="cuda", snapshot="stage", device="cuda")
+    before = k1.LAUNCHES
+    out = rk3.step(rk3.prepare(case_to_domain(case)), case.rdx, case.rdy,
+                   dt, case.epssm)
+    torch.cuda.synchronize()
+    if k1.LAUNCHES - before != 7:
+        raise AssertionError(f"one RK3 step launched K1 "
+                             f"{k1.LAUNCHES - before} times, expected 7")
+    got = embed_outputs(case, arrays_to_numpy(out))
+    gold = rk3_golden_native(case, 4, dt, "stage")
+    for name in sorted(got):
+        r = compare(got[name], gold[name], name, **DEVICE_TOL)
+        print(f"[rk3 vs oracle] {r}")
+        if not r.passed:
+            raise AssertionError(f"RK3 step vs oracle: {r}")
+    return launches, step_ms
+
+
+def main() -> int:
+    import torch
+
+    name, smi = phase_env()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import wrf_tpu_torch  # noqa: F401  (fails outside the repository)
+    from wrf_tpu_torch.io.fixtures import make_case
+
+    phase_build()
+    max_abs, timings = phase_kernel_vs_plain(card=smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_golden_file(Path(tmp))
+        # the repo's long-horizon fixture (balanced, calm): the degenerate
+        # stage-snapshot shell run_sim drives amplifies the state ~5e4x
+        # per large step, and the noise fixture overflows by step 3
+        launches, _ = phase_slice(Path(tmp), make_case(
+            *BIG_GRID, halo=3, seed=2026, amplitude=1e-2, balanced=True))
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(json.dumps({"kernels": [{
+        "name": "advance_mu_t_fused",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t.cu",
+        "replaces": "wrf_tpu/ops/advance_mu_t_pallas.py:114",
+        "launches": launches,
+        "max_abs_err": max_abs,
+        "ms": sum(timings[BIG_GRID, "scan"]["cuda"]) / 2,
+        "plain_ms": sum(timings[BIG_GRID, "scan"]["plain"]) / 2,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""K1 in the port: the plain PyTorch substep (what advance_mu_t_fused runs
+on CPU tensors) against the JAX package's Pallas kernel, run in interpret
+mode on the CPU as tests/test_pallas.py runs it.  Same numpy inputs to
+both; tolerance rtol 2e-5, atol_scale 1e-6 (assert_outputs_allclose's
+defaults: the two differ only in the order of the dmdt column sum)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import outputs_allclose
+from wrf_tpu.ops import advance_mu_t_pallas as pallas_mod
+from wrf_tpu.ops.advance_uv import DEFAULT_CS2
+from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+from wrf_tpu_torch.models.small_step import DEFAULT_CS2 as PORT_CS2
+
+torch.set_num_threads(1)
+
+MODES = {
+    # the reference's single call
+    "full": dict(),
+    # SmallStepLoop scan substep
+    "scan": dict(fuse_uv=True, lean=True, ww_mode="lite", with_tave=False),
+    # SmallStepLoop final substep
+    "final": dict(fuse_uv=True, ww_mode="final", with_tave=True),
+}
+
+
+def _inputs(case):
+    """Memory-window numpy arrays, scalars and static kwargs of one call."""
+    kw = case.kernel_kwargs()
+    arr = {k: np.asarray(v, np.float32) for k, v in kw.items()
+           if hasattr(v, "ndim")}
+    b = case.bounds
+    i0, i1, j0, j1, k0, k1_ = b.loop_bounds(case.flags)
+    static = dict(window=(i0, i1, j0, j1), k0=k0, k1=k1_,
+                  kde=b.mem(b.kde, "k"))
+    sc = {k: kw[k] for k in ("rdx", "rdy", "dts", "epssm")}
+    return arr, sc, static
+
+
+def _mode_kwargs(mode, arr, sc, static):
+    """Mode flags plus the scan-seed row (a perturbed ww(k0), so that the
+    seed and ww really differ) for lite/final."""
+    kw = dict(MODES[mode])
+    if kw.get("fuse_uv"):
+        kw["cs2"] = DEFAULT_CS2
+    if kw.get("ww_mode") in ("lite", "final"):
+        k0 = static["k0"]
+        kw["ww_row"] = (arr["ww"][:, k0, :]
+                        + np.float32(0.01) * arr["ww_1"][:, k0 + 1, :])
+    return kw
+
+
+def _run_jax(arr, sc, static, mkw):
+    mkw = dict(mkw)
+    if mkw.get("lean"):
+        mkw.update(pallas_mod.lean_kwargs(
+            {k: jnp.asarray(v) for k, v in arr.items()},
+            sc["rdx"], sc["rdy"], sc["dts"], static["k0"], static["k1"]))
+    out = pallas_mod.advance_mu_t_pallas(**arr, **sc, **static, **mkw,
+                                         interpret=True)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _run_torch(arr, sc, static, mkw):
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    mkw = {k: (torch.tensor(v) if isinstance(v, np.ndarray) else v)
+           for k, v in mkw.items()}
+    if mkw.get("lean"):
+        mkw.update(k1.lean_kwargs(tarr, sc["rdx"], sc["rdy"], sc["dts"],
+                                  static["k0"], static["k1"]))
+    out = k1.advance_mu_t_fused(**tarr, **sc, **static, **mkw)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case_name",
+                         ["small_case", "periodic_case", "open_bc_case"])
+def test_plain_matches_pallas(case_name, mode, request):
+    case = request.getfixturevalue(case_name)
+    arr, sc, static = _inputs(case)
+    mkw = _mode_kwargs(mode, arr, sc, static)
+    want = _run_jax(arr, sc, static, mkw)
+    got = _run_torch(arr, sc, static, mkw)
+    assert sorted(got) == sorted(want)
+    outputs_allclose(got, want)
+
+
+@pytest.mark.parametrize("case_name", ["small_case", "open_bc_case"])
+def test_lean_constants_match_jax(case_name, request):
+    case = request.getfixturevalue(case_name)
+    arr, sc, static = _inputs(case)
+    want = pallas_mod.lean_kwargs(
+        {k: jnp.asarray(v) for k, v in arr.items()},
+        sc["rdx"], sc["rdy"], sc["dts"], static["k0"], static["k1"])
+    got = k1.lean_kwargs({k: torch.tensor(v) for k, v in arr.items()},
+                         sc["rdx"], sc["rdy"], sc["dts"], static["k0"],
+                         static["k1"])
+    outputs_allclose({k: v.numpy() for k, v in got.items()},
+                     {k: np.asarray(v) for k, v in want.items()})
+
+
+@pytest.mark.parametrize("mode", ["full", "final"])
+def test_edge_rows_never_computed(small_case, mode):
+    """Rows 0 and J-1 pass the state through and zero the diagnostics even
+    when the window covers them (tj divides J-2, so the TPU kernel's
+    tiles leave exactly those rows alone)."""
+    arr, sc, static = _inputs(small_case)
+    J, _, I = arr["t"].shape
+    assert (J - 2) % 4 == 0
+    static = {**static, "window": (0, I - 1, 0, J - 1)}
+    mkw = _mode_kwargs(mode, arr, sc, static)
+    want = pallas_mod.advance_mu_t_pallas(**arr, **sc, **static, **mkw,
+                                          tj=4, interpret=True)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    got = _run_torch(arr, sc, static, mkw)
+    outputs_allclose(got, want)
+    for edge in (0, J - 1):
+        assert (got["t"][edge] == arr["t"][edge]).all()
+        assert (got["mu"][edge] == arr["mu"][edge]).all()
+        assert (got["muave"][edge] == 0).all()
+
+
+def test_in_place_contract(small_case):
+    """t, t_ave and ww are updated in place and returned; mu is fresh and
+    the caller's numpy arrays are never written through."""
+    arr, sc, static = _inputs(small_case)
+    before = {k: v.copy() for k, v in arr.items()}
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    out = k1.advance_mu_t_fused(**tarr, **sc, **static)
+    assert out["t"] is tarr["t"] and out["ww"] is tarr["ww"]
+    assert out["t_ave"] is tarr["t_ave"]
+    assert out["mu"] is not tarr["mu"]
+    assert (tarr["mu"].numpy() == before["mu"]).all()
+    assert all((arr[k] == before[k]).all() for k in arr)
+    assert not (tarr["t"].numpy() == before["t"]).all()
+
+
+@pytest.mark.parametrize("unported", [
+    dict(fuse_w=True), dict(smdiv=0.1, fuse_uv=True), dict(capture=True),
+    dict(overlap={"axis_name": "j"}), dict(wind_scale=1.5),
+])
+def test_unported_modes_raise(small_case, unported):
+    arr, sc, static = _inputs(small_case)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k1.advance_mu_t_fused(**tarr, **sc, **static, **unported)
+
+
+def test_bf16_inputs_raise(small_case):
+    arr, sc, static = _inputs(small_case)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    tarr["t_1"] = tarr["t_1"].to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        k1.advance_mu_t_fused(**tarr, **sc, **static)
+
+
+def test_block_width_and_cs2():
+    assert k1.block_width(50) == 128
+    assert k1.block_width(200) == 32
+    with pytest.raises(ValueError):
+        k1.block_width(1000)
+    assert PORT_CS2 == DEFAULT_CS2

@@ -1,0 +1,106 @@
+"""The port never imports jax, and its CUDA-requesting paths fail loudly
+where there is no GPU or no nvcc.
+
+tests/conftest.py imports jax into this process, so the import checks run
+in a fresh interpreter."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from wrf_tpu.io import fixtures
+from wrf_tpu_torch import _build
+from wrf_tpu_torch.io import fixtures as port_fixtures
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+_CHILD = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import torch
+    torch.set_num_threads(1)
+    import wrf_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(wrf_tpu_torch.__path__,
+                                                   "wrf_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    from wrf_tpu_torch.io.fixtures import make_case
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+    case = make_case(12, 10, 6, halo=2, seed=3)
+    loop = SmallStepLoop(case.bounds.ide, case.bounds.jde, case.bounds.kdim,
+                         case.flags, n_steps=2, kernel="plain", device="cpu")
+    out = loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy,
+               case.dts, case.epssm)
+    assert torch.isfinite(out["t"]).all()
+    assert "jax" not in sys.modules, "jax was imported"
+    print("MODULES", len(names))
+""")
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split("MODULES")[1])
+    assert n >= 10
+
+
+def test_port_sources_import_no_jax_modules():
+    """No module of the port names jax or a jax-importing wrf_tpu module."""
+    banned = ("import jax", "from jax", "wrf_tpu.parallel", "wrf_tpu.models",
+              "wrf_tpu.ops.advance", "wrf_tpu.ops import advance")
+    for src in (REPO / "wrf_tpu_torch").rglob("*.py"):
+        if "_build" in src.relative_to(REPO).parts:
+            continue   # build outputs, not the package's modules
+        text = src.read_text()
+        for pat in banned:
+            code = [ln for ln in text.splitlines()
+                    if pat in ln and ln.lstrip().startswith(("import",
+                                                             "from"))]
+            assert not code, f"{src}: {code}"
+
+
+def test_make_case_matches_jax_package():
+    a = port_fixtures.make_case(12, 10, 6, halo=2, seed=3, balanced=True)
+    b = fixtures.make_case(12, 10, 6, halo=2, seed=3, balanced=True)
+    assert a.fields.keys() == b.fields.keys()
+    assert all(np.array_equal(a.fields[k], b.fields[k]) for k in a.fields)
+    assert (a.rdx, a.rdy, a.dts, a.epssm, a.bounds, a.flags) == \
+        (b.rdx, b.rdy, b.dts, b.epssm, b.bounds, b.flags)
+    # the stand-in is bound only during the call
+    from wrf_tpu.ops import advance_w
+    assert sys.modules["wrf_tpu.ops.advance_w"] is advance_w
+
+
+def test_run_sim_device_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU path cannot be shown")
+    from wrf_tpu_torch import run_sim
+    with pytest.raises(SystemExit, match="is_available"):
+        run_sim.main([str(tmp_path / "fx"), "--device", "cuda"])
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("the CUDA toolkit is installed: nvcc cannot be hidden")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_name_tracks_sources():
+    p = _build.library_path()
+    assert p.parent == _build.BUILD_DIR
+    assert p.name.startswith("libwrf_tpu_torch_") and p.suffix == ".so"
+    assert p == _build.library_path()
+    assert [s.name for s in _build.sources()] == ["advance_mu_t.cu"]

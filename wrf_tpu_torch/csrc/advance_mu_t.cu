@@ -1,0 +1,325 @@
+// K1 — one fused acoustic substep (advance_mu_t) on NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel wrf_tpu/ops/advance_mu_t_pallas.py::_kernel,
+// launched there by advance_mu_t_pallas.  It computes what that kernel
+// computes, in the modes the port's main path uses:
+//   * optional fused wind update (FUSE_UV): p = cs2*mu,
+//     u += dts*(muu/msfuy)*(-rdx)*(p - p(i-1)),
+//     v += dts*(muv*msfvx_inv)*(-rdy)*(p - p(j-1));
+//   * mass-flux divergence dvdxi and its column sum dmdt;
+//   * mu, mudf, muts and muave with epssm off-centering;
+//   * the seeded k-ascending ww scan (WW_MODE full / lite / final);
+//   * the theta update, and t_ave when WITH_TAVE;
+//   * LEAN: the u_1/v_1 static fluxes and the ft / ww_1 theta terms arrive
+//     folded into two precomputed fields (dvdxi_const, tconst).
+// The plain PyTorch version of the same arithmetic is
+// advance_mu_t_fused_plain in wrf_tpu_torch/ops/advance_mu_t_cuda.py.
+//
+// Geometry: one thread per (j, i) column of the padded local block.
+// threadIdx.x runs along i, the contiguous axis, so a warp's loads at one
+// level k are 32 neighbouring floats; each thread runs its column's k loops
+// itself (the reference CUDA kernel's geometry).  Two k passes per column:
+//   pass 1 forms dvdxi(k) for k0..k1, keeps it in shared memory (a K-long
+//          slice per thread, laid out [k][threadIdx.x] so a warp hits 32
+//          banks; kept rather than recomputed in pass 2), sums dmdt in k
+//          order (the oracle's order) and writes the updated winds;
+//   pass 2 runs the ww scan from the seed and the theta update with one
+//          level of look-ahead, since vert(k) needs wdtn(k+1).
+//
+// Buffers: u, v and mu are read at neighbour columns and rows, and GPU
+// blocks run in no fixed order, so their updates go to fresh output
+// buffers; the caller hands those back as the next substep's inputs
+// (nothing is copied).  t, t_ave, ww and ww_row are read only at the
+// thread's own column, so they are updated in place.
+//
+// Edges: rows 0 and J-1 are never computed.  There, and in every column
+// outside the compute window, the state passes through and muave, muts
+// and mudf are zero — the TPU kernel's contract.  The i-1 / i+1
+// neighbours wrap around the row as the TPU kernel's lane rolls do; the
+// window masks make the wrapped values unused.
+//
+// Bound: memory.  The lean scan substep streams nine 3-D float32 field
+// passes (reads u, v, t, t_1, tconst, dvdxi_const; writes u, v, t) and does
+// a few dozen flops per cell; pass 2 re-reads u, v and the t_1 neighbours,
+// which the design leaves to the L1/L2 caches.  Times on the card are in
+// PERF.md.
+//
+// Numerics: built with -fmad=false (no multiply-add contraction) and IEEE
+// division.  Every expression, and the k order of the dmdt column sum,
+// follows the plain version, so the two agree bit for bit (measured on the
+// card in all three modes: PERF.md).
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+enum WwMode { kFull = 0, kLite = 1, kFinal = 2 };
+
+struct Args {
+  // 3-D fields (J, K, I)
+  float* ww;
+  const float* ww_1;
+  const float* u;
+  const float* u_1;
+  const float* v;
+  const float* v_1;
+  float* t;
+  const float* t_1;
+  float* t_ave;
+  const float* ft;
+  const float* tconst;
+  const float* dvdxi_const;
+  // 2-D fields (J, I)
+  const float* mu;
+  const float* mut;
+  const float* muu;
+  const float* muv;
+  const float* mu_tend;
+  const float* msfuy;
+  const float* msfvx_inv;
+  const float* msftx;
+  const float* msfty;
+  float* ww_row;
+  const float* ww1_k0;
+  // vertical vectors (K)
+  const float* dnw;
+  const float* fnm;
+  const float* fnp;
+  const float* rdnw;
+  // fresh outputs
+  float* mu_out;
+  float* muave;
+  float* muts;
+  float* mudf;
+  float* u_out;
+  float* v_out;
+  float rdx, rdy, dts, epssm, cs2;
+  int J, K, I;
+  int i0, i1, j0, j1;  // compute window, global coordinates
+  int j_off, i_off;    // global index of local row / column 0
+  int k0, k1;
+};
+
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE>
+__global__ void __launch_bounds__(128)
+advance_mu_t_kernel(const Args a) {
+  extern __shared__ float s_dvdxi[];  // [K][blockDim.x]
+  const int tx = threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + tx;
+  const int j = blockIdx.y;
+  const int I = a.I, K = a.K;
+  if (i >= I) return;  // no block-wide barrier below
+
+  const size_t row = (size_t)K * I;            // one j row of a 3-D field
+  const size_t col = (size_t)j * row + i;      // (j, k=0, i); level k adds k*I
+  const int c = j * I + i;                     // (j, i) of a 2-D field
+  const int ig = i + a.i_off, jg = j + a.j_off;
+  const bool i_in = ig >= a.i0 && ig <= a.i1;
+  const bool j_in = jg >= a.j0 && jg <= a.j1;
+
+  if (!(j >= 1 && j <= a.J - 2 && i_in && j_in)) {
+    // edge row or outside the window: pass-through / zero
+    a.mu_out[c] = a.mu[c];
+    a.muave[c] = 0.f;
+    a.muts[c] = 0.f;
+    a.mudf[c] = 0.f;
+    if (FUSE_UV) {
+      for (int k = 0; k < K; ++k) {
+        const size_t x = col + (size_t)k * I;
+        a.u_out[x] = a.u[x];
+        a.v_out[x] = a.v[x];
+      }
+    }
+    return;
+  }
+
+  const int ip = (i + 1 == I) ? 0 : i + 1;  // east neighbour, wrapping
+  const int im = (i == 0) ? I - 1 : i - 1;  // west neighbour, wrapping
+  const int ce = j * I + ip, cw = j * I + im;
+  const float rdx = a.rdx, rdy = a.rdy, dts = a.dts;
+  const float msft2 = a.msftx[c] * a.msfty[c];
+  const float muu_msfuy_c = a.muu[c] / a.msfuy[c];
+  const float muu_msfuy_e = a.muu[ce] / a.msfuy[ce];
+  const float muv_msfvxi_c = a.muv[c] * a.msfvx_inv[c];
+  const float muv_msfvxi_n = a.muv[c + I] * a.msfvx_inv[c + I];
+
+  // Wind increments of this column's u(i), u(i+1), v(j), v(j+1): each
+  // thread recomputes its neighbours' updated winds instead of reading
+  // them, with the u/v window evaluated at the neighbour.
+  float du_c = 0.f, du_e = 0.f, dv_c = 0.f, dv_n = 0.f;
+  if (FUSE_UV) {
+    const float cs2 = a.cs2;
+    const float p_c = cs2 * a.mu[c];
+    const float p_w = cs2 * a.mu[cw];
+    const float p_e = cs2 * a.mu[ce];
+    const float p_s = cs2 * a.mu[c - I];
+    const float p_n = cs2 * a.mu[c + I];
+    const int ige = ip + a.i_off;
+    const int jgn = jg + 1;
+    if (ig >= a.i0 + 1 && ig <= a.i1)
+      du_c = ((dts * muu_msfuy_c) * (-rdx)) * (p_c - p_w);
+    if (ige >= a.i0 + 1 && ige <= a.i1)
+      du_e = ((dts * muu_msfuy_e) * (-rdx)) * (p_e - p_c);
+    if (jg >= a.j0 + 1)
+      dv_c = ((dts * muv_msfvxi_c) * (-rdy)) * (p_c - p_s);
+    if (jgn >= a.j0 + 1 && jgn <= a.j1)
+      dv_n = ((dts * muv_msfvxi_n) * (-rdy)) * (p_n - p_c);
+  }
+
+  // ---- pass 1: winds out, dvdxi(k) to shared memory, dmdt -------------
+  const int bdx = blockDim.x;
+  float* s = s_dvdxi + tx;  // level k at s[k * bdx]
+  const int k0 = a.k0, k1 = a.k1;
+  float dmdt = 0.f;
+  for (int k = FUSE_UV ? 0 : k0; k < (FUSE_UV ? K : k1 + 1); ++k) {
+    const size_t x = col + (size_t)k * I;
+    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x];
+    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x];
+    if (FUSE_UV) {
+      a.u_out[x] = u_c;
+      a.v_out[x] = v_c;
+      if (k < k0 || k > k1) continue;
+    }
+    const size_t xe = x - i + ip, xn = x + row;
+    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe];
+    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn];
+    float dvdxi;
+    if (LEAN) {
+      dvdxi = a.dvdxi_const[x] + msft2 * (rdy * (v_n - v_c) + rdx * (u_e - u_c));
+    } else {
+      const float vflux = v_c + muv_msfvxi_c * a.v_1[x];
+      const float vflux_n = v_n + muv_msfvxi_n * a.v_1[xn];
+      const float uflux = u_c + muu_msfuy_c * a.u_1[x];
+      const float uflux_e = u_e + muu_msfuy_e * a.u_1[xe];
+      dvdxi = msft2 * (rdy * (vflux_n - vflux) + rdx * (uflux_e - uflux));
+    }
+    s[k * bdx] = dvdxi;
+    dmdt += a.dnw[k] * dvdxi;
+  }
+
+  // ---- column mass -------------------------------------------------------
+  const float mu_c = a.mu[c];
+  const float mt = a.mu_tend[c];
+  const float tend = dmdt + mt;
+  const float mu_new = mu_c + dts * tend;
+  a.mu_out[c] = mu_new;
+  a.mudf[c] = tend;
+  a.muts[c] = a.mut[c] + mu_new;
+  a.muave[c] = 0.5f * ((1.0f + a.epssm) * mu_new + (1.0f - a.epssm) * mu_c);
+
+  // ---- pass 2: ww scan and theta, k ascending ----------------------------
+  const float msfty_c = a.msfty[c];
+  const float rmsfty = 1.0f / msfty_c;
+  const float dts_msfty = dts * msfty_c;
+  const float msftx_c = a.msftx[c];
+  const float hrdx = 0.5f * rdx, hrdy = 0.5f * rdy;
+  const size_t x0 = col + (size_t)k0 * I;
+  const float seed = (WW_MODE == kFull) ? a.ww[x0] : a.ww_row[c];
+  if (WW_MODE == kLite) {
+    // the next substep's seed; in lean mode ww_1 lives in tconst and
+    // the scan below carries the raw value
+    a.ww_row[c] = seed - (LEAN ? a.ww1_k0[c] : a.ww_1[x0]);
+  }
+  float scan = seed;       // raw scan value at level k
+  float wdtn = 0.f;        // wdtn(k0): no flux through the surface
+  float t1_k = a.t_1[x0];
+  for (int k = k0; k <= k1; ++k) {
+    const size_t x = col + (size_t)k * I;
+    if (WW_MODE != kLite) a.ww[x] = scan - a.ww_1[x];
+    float scan_up = 0.f, t1_up = 0.f, wdtn_up = 0.f;  // level k+1 (0 above k1)
+    if (k < k1) {
+      scan_up = scan + (-a.dnw[k] * ((dmdt + s[k * bdx]) + mt)) * rmsfty;
+      t1_up = a.t_1[x + I];
+      const float ww_up =
+          (WW_MODE == kLite && LEAN) ? scan_up : scan_up - a.ww_1[x + I];
+      wdtn_up = ww_up * (a.fnm[k + 1] * t1_up + a.fnp[k + 1] * t1_k);
+    }
+    const float vert = a.rdnw[k] * (wdtn_up - wdtn);
+
+    const float t_c = a.t[x];
+    if (WITH_TAVE) a.t_ave[x] = t_c;
+    const float t_half = LEAN ? t_c + a.tconst[x] : t_c + dts_msfty * a.ft[x];
+
+    const size_t xe = x - i + ip, xw = x - i + im, xn = x + row, xs = x - row;
+    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x];
+    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe];
+    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x];
+    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn];
+    const float fy = v_n * (a.t_1[xn] + t1_k) - v_c * (t1_k + a.t_1[xs]);
+    const float fx = u_e * (a.t_1[xe] + t1_k) - u_c * (t1_k + a.t_1[xw]);
+    const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
+    a.t[x] = t_half - dts_msfty * (horiz + vert);
+
+    scan = scan_up;
+    wdtn = wdtn_up;
+    t1_k = t1_up;
+  }
+}
+
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE>
+cudaError_t launch(const Args& a, int block_x, cudaStream_t stream) {
+  const dim3 block(block_x);
+  const dim3 grid((a.I + block_x - 1) / block_x, a.J);
+  const size_t smem = (size_t)a.K * block_x * sizeof(float);
+  advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE>
+      <<<grid, block, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool FUSE_UV>
+cudaError_t dispatch(const Args& a, int lean, int ww_mode, int with_tave,
+                     int block_x, cudaStream_t s) {
+  if (lean) {  // lean is a scan-substep mode: lite, no t_ave
+    if (ww_mode != kLite || with_tave) return cudaErrorInvalidValue;
+    return launch<FUSE_UV, true, kLite, false>(a, block_x, s);
+  }
+  switch (ww_mode * 2 + (with_tave ? 1 : 0)) {
+    case kFull * 2: return launch<FUSE_UV, false, kFull, false>(a, block_x, s);
+    case kFull * 2 + 1: return launch<FUSE_UV, false, kFull, true>(a, block_x, s);
+    case kLite * 2: return launch<FUSE_UV, false, kLite, false>(a, block_x, s);
+    case kLite * 2 + 1: return launch<FUSE_UV, false, kLite, true>(a, block_x, s);
+    case kFinal * 2: return launch<FUSE_UV, false, kFinal, false>(a, block_x, s);
+    case kFinal * 2 + 1: return launch<FUSE_UV, false, kFinal, true>(a, block_x, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C entry for ctypes.  Pointers the mode does not use may be NULL.
+// Launches on ``stream`` and returns cudaGetLastError() of the launch
+// (0 on success); it neither allocates nor synchronises.
+extern "C" int wrf_tpu_torch_advance_mu_t(
+    float* ww, const float* ww_1, const float* u, const float* u_1,
+    const float* v, const float* v_1, float* t, const float* t_1,
+    float* t_ave, const float* ft, const float* tconst,
+    const float* dvdxi_const,
+    const float* mu, const float* mut, const float* muu, const float* muv,
+    const float* mu_tend, const float* msfuy, const float* msfvx_inv,
+    const float* msftx, const float* msfty, float* ww_row,
+    const float* ww1_k0,
+    const float* dnw, const float* fnm, const float* fnp, const float* rdnw,
+    float* mu_out, float* muave, float* muts, float* mudf, float* u_out,
+    float* v_out,
+    float rdx, float rdy, float dts, float epssm, float cs2,
+    int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
+    int i_off, int k0, int k1,
+    int fuse_uv, int lean, int ww_mode, int with_tave, int block_x,
+    void* stream) {
+  if (J < 3 || K < 1 || I < 1 || k0 < 0 || k1 >= K || k0 > k1 ||
+      block_x < 1 || block_x > 128)
+    return cudaErrorInvalidValue;
+  const Args a{ww, ww_1, u, u_1, v, v_1, t, t_1, t_ave, ft, tconst,
+               dvdxi_const, mu, mut, muu, muv, mu_tend, msfuy, msfvx_inv,
+               msftx, msfty, ww_row, ww1_k0, dnw, fnm, fnp, rdnw,
+               mu_out, muave, muts, mudf, u_out, v_out,
+               rdx, rdy, dts, epssm, cs2, J, K, I, i0, i1, j0, j1,
+               j_off, i_off, k0, k1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      fuse_uv ? dispatch<true>(a, lean, ww_mode, with_tave, block_x, s)
+              : dispatch<false>(a, lean, ww_mode, with_tave, block_x, s);
+  return static_cast<int>(err);
+}

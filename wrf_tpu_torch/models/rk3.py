@@ -1,0 +1,87 @@
+"""RK3 large-step shell around the acoustic small-step loop, on one GPU.
+
+Port of ``wrf_tpu/models/rk3.py`` (``rk3_stages``, ``RK3Integrator``).  WRF
+integrates the large step with the Wicker–Skamarock three-stage
+Runge–Kutta scheme; each stage restarts from the large-step-start state and
+sub-cycles the acoustic loop over the stage interval:
+
+    stage 1: dt/3, 1 acoustic substep
+    stage 2: dt/2, ns/2 substeps
+    stage 3: dt,   ns substeps
+
+``snapshot="base"`` (the default) keeps the ``*_1`` advecting fields at
+the prepared base state; ``snapshot="stage"`` re-snapshots them from the
+stage-start state (``u_1 := u`` etc.), the degenerate shell ``run_sim``
+runs without a closure.  The slow-tendency hook (``tendency_fn``), the
+closures that use it and the device-resident ``multi_step`` are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from wrf_tpu.grid import ConfigFlags
+
+from .small_step import SmallStepLoop
+
+#: large-step fields re-snapshotted at every stage start in "stage" mode
+_STAGE_SNAPSHOT = {"u_1": "u", "v_1": "v", "t_1": "t", "ww_1": "ww"}
+
+
+def rk3_stages(acoustic_steps: int) -> tuple[tuple[float, int], ...]:
+    """(stage_dt_fraction, substeps) per stage, WRF convention."""
+    ns = max(2, acoustic_steps)
+    return ((1.0 / 3.0, 1), (0.5, max(1, ns // 2)), (1.0, ns))
+
+
+class RK3Integrator:
+    """One RK3 large step over the acoustic loop on one device; the slow
+    tendencies (``ft``, ``mu_tend``) keep their prepared values."""
+
+    #: large-step evolved state, written back into the ring interior
+    #: between steps (run_sim shares this list)
+    _EVOLVED = ("ww", "mu", "t", "t_ave", "u", "v", "w", "pp")
+
+    def __init__(self, nx, ny, nz, flags: ConfigFlags,
+                 acoustic_steps: int = 6, kernel: str = "cuda",
+                 snapshot: str = "base", device="cuda"):
+        if snapshot not in ("stage", "base"):
+            raise ValueError(f"bad snapshot mode {snapshot!r}")
+        self.snapshot = snapshot
+        self.stages = rk3_stages(acoustic_steps)
+        self.loops = [
+            SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
+                          device=device)
+            for (_, n_sub) in self.stages
+        ]
+        self.prepare = self.loops[0].prepare
+
+    def step(self, arrays, rdx, rdy, dt, epssm):
+        """Advance one large step dt; returns the stage-3 outputs
+        (domain-shaped).  ``arrays`` are prepared ring-shaped tensors; every
+        stage restarts from them and none is modified."""
+        out = None
+        for (frac, n_sub), loop in zip(self.stages, self.loops):
+            stage_arrays = dict(arrays)  # restart from step-start state
+            if self.snapshot == "stage":
+                for snap, src in _STAGE_SNAPSHOT.items():
+                    stage_arrays[snap] = arrays[src]
+            dts = (frac * dt) / n_sub
+            out = loop(stage_arrays, rdx, rdy, dts, epssm)
+        return out
+
+    def merge_evolved(self, arrays, out):
+        """Fold ``out``'s domain-shaped evolved fields back into the ring
+        interiors of ``arrays`` (returns a new dict of new tensors; works on
+        full prepared dicts and on evolved-only state dicts alike)."""
+        nx, ny, _ = self.loops[0].domain
+        new = dict(arrays)
+        for name in self._EVOLVED:
+            if name not in out or name not in arrays:
+                continue
+            merged = arrays[name].clone()
+            if merged.ndim == 3:
+                merged[1 : 1 + ny, :, 1 : 1 + nx] = out[name]
+            else:
+                merged[1 : 1 + ny, 1 : 1 + nx] = out[name]
+            new[name] = merged
+        return new

@@ -1,0 +1,426 @@
+"""K1: the fused acoustic substep (advance_mu_t), on the GPU and in plain PyTorch.
+
+The port of ``wrf_tpu/ops/advance_mu_t_pallas.py`` (kernel ``_kernel``,
+wrapper ``advance_mu_t_pallas``).  :func:`advance_mu_t_fused` keeps that
+wrapper's keyword contract and result dict for the modes ported so far:
+
+* ``fuse_uv`` — the wind substep (advance_uv) runs inside the kernel;
+* ``ww_mode`` "full" (the reference's single call), "lite" (scan substeps:
+  only the 2-D scan-seed row ``ww_row`` is carried) and "final" (the last
+  substep re-materializes ww);
+* ``lean`` — scan substeps read the precomputed ``tconst`` /
+  ``dvdxi_const`` / ``ww1_k0`` (:func:`lean_kwargs`) instead of ww_1, u_1,
+  v_1 and ft;
+* ``with_tave``.
+
+Dispatch is by the device of the tensors: CUDA tensors launch the
+hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
+:data:`LAUNCHES`; CPU tensors run :func:`advance_mu_t_fused_plain`, the
+whole-array transcription of the same arithmetic.  There is no fallback
+from one to the other.
+
+Buffers: ``t``, ``t_ave`` (with_tave), ``ww`` (full/final) and ``ww_row``
+(lite) are updated IN PLACE and returned — the TPU kernel donates them the
+same way — on both devices.  ``mu``, ``u`` and ``v`` are read at neighbour
+cells while they are updated, so their results are fresh tensors; a loop
+passes them back as the next substep's inputs, and PyTorch's caching
+allocator hands the freed buffers out again, so nothing is copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+
+#: CUDA kernel launches since import (one per launch, and only there)
+LAUNCHES = 0
+
+_WW_MODES = {"full": 0, "lite": 1, "final": 2}
+_SMEM_LIMIT = 48 * 1024   # static per-block shared memory, no opt-in needed
+_kernel_fn = None
+
+
+def _f32(x) -> float:
+    """A scalar rounded to float32 (kept as a Python float, which PyTorch
+    and ctypes pass on exactly)."""
+    return float(np.float32(x))
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"advance_mu_t_fused: {what} is not ported yet (ROADMAP.md, modules "
+        f"to port: {item})")
+
+
+def _check_modes(*, tensors, t_ave, wind_scale, mudf_in, smdiv, fuse_w,
+                 capture, overlap, with_tave, ww_mode, ww_row, ww, lean,
+                 tconst, dvdxi_const, ww1_k0):
+    """The TPU wrapper's argument checks, plus the modes not ported yet."""
+    if fuse_w:
+        raise _not_ported("fuse_w (the implicit w/pp solve)",
+                          "'SmallStepLoop on one GPU', K1 slice (c)")
+    if smdiv != 0.0 or mudf_in is not None:
+        raise _not_ported("divergence damping (smdiv / mudf_in)",
+                          "'SmallStepLoop on one GPU', K1 slice (d)")
+    if capture:
+        raise _not_ported("capture", "'Driver tier matrix and phase "
+                          "capture', K1 slice (e)")
+    if overlap is not None:
+        raise _not_ported("overlap", "'Multi-GPU decomposition and halo "
+                          "backends', K1 slice (f)")
+    if not (isinstance(wind_scale, (int, float)) and wind_scale == 1.0):
+        raise _not_ported("wind_scale != 1", "'mu/t temporal blocking'")
+    for x in tensors:
+        if x is not None and x.dtype == torch.bfloat16:
+            raise _not_ported("bf16 inputs", "'bf16 constant streams'")
+    if with_tave and t_ave is None:
+        raise ValueError("t_ave is required when with_tave=True")
+    if ww_mode not in _WW_MODES:
+        raise ValueError(f"bad ww_mode {ww_mode!r}")
+    if ww_mode != "full" and ww_row is None:
+        raise ValueError("ww_row is required in lite/final ww_mode")
+    if ww_mode != "lite" and ww is None:
+        raise ValueError("ww is required in full/final ww_mode")
+    if lean:
+        if ww_mode != "lite" or with_tave:
+            raise ValueError("lean mode requires ww_mode='lite' and "
+                             "with_tave=False")
+        if tconst is None or dvdxi_const is None or ww1_k0 is None:
+            raise ValueError("lean mode requires tconst, dvdxi_const, ww1_k0")
+
+
+def advance_mu_t_fused(
+    *,
+    ww, ww_1, u, u_1, v, v_1,
+    mu, mut, muu, muv,
+    t, t_1, ft, mu_tend,
+    rdx, rdy, dts, epssm,
+    dnw, fnm, fnp, rdnw,
+    msfuy, msfvx_inv, msftx, msfty,
+    window,                       # (i0, i1, j0, j1) in global coordinates
+    k0: int, k1: int, kde: int,   # vertical bounds (kde: API parity only)
+    t_ave=None,                   # required unless with_tave=False
+    offsets=(0, 0),               # (j_off, i_off): this block's global origin
+    wind_scale=1.0,
+    fuse_uv: bool = False,        # run the advance_uv wind substep in-kernel
+    cs2: float = 0.0,             # linearized sound speed^2 (fuse_uv only)
+    mudf_in=None, smdiv: float = 0.0,
+    fuse_w: bool = False,
+    w=None, pp=None, rdn=None, cw: float = 0.0, gw: float = 0.0,
+    with_tave: bool = True,       # update t_ave (skip inside scans)
+    ww_mode: str = "full",        # "full" | "lite" | "final"
+    ww_row=None,                  # (J, I) scan-seed row (lite/final)
+    lean: bool = False,           # scan substeps: folded constants
+    tconst=None, dvdxi_const=None, ww1_k0=None,
+    capture: bool = False,
+    overlap=None,
+):
+    """One fused acoustic substep; the contract of ``advance_mu_t_pallas``.
+
+    Arrays: 3-D ``(J, K, I)``, 2-D ``(J, I)``, vertical ``(K,)``, float32
+    tensors on one device.  Rows 0 and J-1 are never computed: state passes
+    through there and ``muave``/``muts``/``mudf`` are zero.  Returns
+    ``muave, muts, mudf, mu, t``, plus ``ww`` (full/final) or ``ww_row``
+    (lite), ``t_ave`` (with_tave) and ``u``/``v`` (fuse_uv).  See the
+    module docstring for which inputs are updated in place.
+    """
+    del kde, w, pp, rdn, cw, gw   # API parity (kde) / unported fuse_w state
+    _check_modes(tensors=(u, v, t, t_1, ww_1, u_1, v_1, ft, tconst,
+                          dvdxi_const),
+                 t_ave=t_ave, wind_scale=wind_scale, mudf_in=mudf_in,
+                 smdiv=smdiv, fuse_w=fuse_w, capture=capture,
+                 overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
+                 ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
+                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+    kw = dict(ww=ww, ww_1=ww_1, u=u, u_1=u_1, v=v, v_1=v_1, mu=mu, mut=mut,
+              muu=muu, muv=muv, t=t, t_1=t_1, ft=ft, mu_tend=mu_tend,
+              rdx=rdx, rdy=rdy, dts=dts, epssm=epssm, dnw=dnw, fnm=fnm,
+              fnp=fnp, rdnw=rdnw, msfuy=msfuy, msfvx_inv=msfvx_inv,
+              msftx=msftx, msfty=msfty, window=window, k0=k0, k1=k1,
+              t_ave=t_ave, offsets=offsets, fuse_uv=fuse_uv, cs2=cs2,
+              with_tave=with_tave, ww_mode=ww_mode, ww_row=ww_row, lean=lean,
+              tconst=tconst, dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+    if t.device.type == "cpu":
+        return advance_mu_t_fused_plain(**kw)
+    if t.device.type == "cuda":
+        return _launch(**kw)
+    raise ValueError(f"advance_mu_t_fused: unsupported device {t.device}")
+
+
+def advance_mu_t_fused_plain(
+    *, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft, mu_tend,
+    rdx, rdy, dts, epssm, dnw, fnm, fnp, rdnw,
+    msfuy, msfvx_inv, msftx, msfty, window, k0: int, k1: int,
+    kde: int | None = None,
+    t_ave=None, offsets=(0, 0), fuse_uv: bool = False, cs2: float = 0.0,
+    with_tave: bool = True, ww_mode: str = "full", ww_row=None,
+    lean: bool = False, tconst=None, dvdxi_const=None, ww1_k0=None,
+):
+    """Whole-array PyTorch version of the kernel, on any device.
+
+    A transcription of the TPU kernel's arithmetic, term for term and in
+    the same association: window masks from ``torch.arange`` + offsets,
+    ``torch.roll`` for the i, j and k neighbours (wrapping like the TPU
+    kernel's rolls; the masks make the wrapped values unused), and the
+    dmdt column sum and the ww scan as k loops.  The column sum runs in k
+    order (the oracle's and the CUDA kernel's order; the TPU kernel leaves
+    the order of its jnp.sum to the compiler).  Same in-place contract as
+    :func:`advance_mu_t_fused`.
+    """
+    del kde   # API parity
+    rdx, rdy, dts, epssm, cs2 = (_f32(s) for s in (rdx, rdy, dts, epssm, cs2))
+    J, K, I = t.shape
+    dev = t.device
+    i0, i1, j0, j1 = (int(x) for x in window)
+    j_off, i_off = (int(x) for x in offsets)
+
+    def col(x):  # (J, I) -> (J, 1, I), broadcasting over k
+        return x[:, None, :]
+
+    def lev(x):  # (K,) -> (1, K, 1)
+        return x.view(1, K, 1)
+
+    i_glob = torch.arange(I, device=dev).view(1, 1, I) + i_off
+    j_loc = torch.arange(J, device=dev).view(J, 1, 1)
+    j_glob = j_loc + j_off
+    i_in = (i_glob >= i0) & (i_glob <= i1)
+    j_in = (j_glob >= j0) & (j_glob <= j1)
+    computed = (j_loc >= 1) & (j_loc <= J - 2)   # edge rows pass through
+    mask = i_in & j_in & computed                # (J, 1, I)
+    kv = torch.arange(K, device=dev).view(1, K, 1)
+    kmask = (kv >= k0) & (kv <= k1)
+    upd = kmask & mask
+
+    mu3 = col(mu)
+    muu_over_msfuy = col(muu / msfuy)
+    muv_msfvxi = col(muv * msfvx_inv)
+    msftx3, msfty3 = col(msftx), col(msfty)
+
+    # ---- fused wind substep (advance_uv) ---------------------------------
+    u_in, v_in = u, v
+    if fuse_uv:
+        p = cs2 * mu3
+        u_mask = (i_glob >= i0 + 1) & (i_glob <= i1) & j_in
+        v_mask = i_in & (j_glob >= j0 + 1) & (j_glob <= j1)
+        du = (dts * muu_over_msfuy * (-rdx)) * (p - torch.roll(p, 1, 2))
+        dv = (dts * muv_msfvxi * (-rdy)) * (p - torch.roll(p, 1, 0))
+        u = u + torch.where(u_mask, du, 0.0)
+        v = v + torch.where(v_mask, dv, 0.0)
+
+    # ---- mass-flux divergence and column sum -------------------------------
+    msft2 = msftx3 * msfty3
+    v_p = torch.roll(v, -1, 0)
+    if lean:
+        dvdxi = dvdxi_const + msft2 * (
+            rdy * (v_p - v) + rdx * (torch.roll(u, -1, 2) - u))
+    else:
+        vflux = v + muv_msfvxi * v_1
+        uflux = u + muu_over_msfuy * u_1
+        dvdxi = msft2 * (
+            rdy * (torch.roll(vflux, -1, 0) - vflux)
+            + rdx * (torch.roll(uflux, -1, 2) - uflux))
+    dmdt = torch.zeros_like(mu3)   # column sum in k order, as the oracle
+    for k in range(k0, k1 + 1):
+        dmdt = dmdt + dnw[k] * dvdxi[:, k:k + 1, :]
+
+    # ---- mu with epsilon off-centering -----------------------------------
+    tend = dmdt + col(mu_tend)
+    mu_new = mu3 + dts * tend
+    mu_val = torch.where(mask, mu_new, mu3)
+    mudf = torch.where(mask, tend, 0.0)
+    muts = torch.where(mask, col(mut) + mu_new, 0.0)
+    muave = torch.where(
+        mask, 0.5 * (_f32(1.0 + epssm) * mu_new + _f32(1.0 - epssm) * mu3), 0.0)
+
+    # ---- ww scan, k ascending from the seed -------------------------------
+    steps = (-lev(dnw) * (dmdt + dvdxi + col(mu_tend))) * (1.0 / msfty3)
+    seed = ww[:, k0:k0 + 1, :] if ww_mode == "full" else col(ww_row)
+    scan = torch.roll(steps, 1, 1)   # level k holds step(k-1)
+    scan[:, k0:k0 + 1, :] = seed
+    for k in range(k0 + 1, k1 + 1):
+        scan[:, k, :] = scan[:, k - 1, :] + scan[:, k, :]
+    if ww_mode == "lite":
+        # lean: the -ww_1 part of the theta flux lives in tconst, so ww_new
+        # is the raw scan value; the carry is the next seed row
+        ww1k0 = col(ww1_k0) if lean else ww_1[:, k0:k0 + 1, :]
+        ww_new = torch.where(upd, scan if lean else scan - ww_1, 0.0)
+        ww_row_new = torch.where(mask, seed - ww1k0, seed)
+    else:
+        ww_new = torch.where(upd, scan - ww_1, ww)
+
+    # ---- theta ---------------------------------------------------------------
+    t_half = t + tconst if lean else t + (msfty3 * dts) * ft
+    kint = (kv >= k0 + 1) & (kv <= k1)
+    wdtn = ww_new * (lev(fnm) * t_1 + lev(fnp) * torch.roll(t_1, 1, 1))
+    wdtn = torch.where(kint, wdtn, 0.0)
+    vert = lev(rdnw) * (torch.roll(wdtn, -1, 1) - wdtn)
+    fy = (v_p * (torch.roll(t_1, -1, 0) + t_1)
+          - v * (t_1 + torch.roll(t_1, 1, 0)))
+    fx = (torch.roll(u, -1, 2) * (torch.roll(t_1, -1, 2) + t_1)
+          - u * (t_1 + torch.roll(t_1, 1, 2)))
+    horiz = msftx3 * (0.5 * rdy * fy + 0.5 * rdx * fx)
+    t_new = t_half - (dts * msfty3) * (horiz + vert)
+    t_full = torch.where(upd, t_new, t)
+
+    res = {"muave": muave[:, 0], "muts": muts[:, 0], "mudf": mudf[:, 0],
+           "mu": mu_val[:, 0]}
+    if with_tave:
+        res["t_ave"] = t_ave.copy_(torch.where(upd, t, t_ave))
+    res["t"] = t.copy_(t_full)
+    if ww_mode == "lite":
+        res["ww_row"] = ww_row.copy_(ww_row_new[:, 0])
+    else:
+        res["ww"] = ww.copy_(ww_new)
+    if fuse_uv:
+        res["u"] = torch.where(computed, u, u_in)
+        res["v"] = torch.where(computed, v, v_in)
+    return res
+
+
+# --------------------------------------------------------------------------
+# Lean-mode constants (computed once per loop call, as the TPU loop does)
+# --------------------------------------------------------------------------
+def lean_constants(*, ww_1, u_1, v_1, ft, t_1, fnm, fnp, rdnw,
+                   muu, muv, msfuy, msfvx_inv, msftx, msfty,
+                   rdx, rdy, dts, k0: int, k1: int):
+    """The lean-mode constants on (halo-padded) local blocks.
+
+    ``dvdxi_const`` is the u_1/v_1 static part of the mass-flux divergence;
+    ``tconst`` folds the slow theta tendency (ft) together with the ww_1
+    part of the vertical theta flux; ``ww1_k0`` is the seed-row recurrence
+    term (``advance_mu_t_pallas.lean_constants``, same arithmetic)."""
+    rdx, rdy, dts = _f32(rdx), _f32(rdy), _f32(dts)
+    K = t_1.shape[1]
+    kv = torch.arange(K, device=t_1.device)
+    kint = ((kv > k0) & (kv <= k1))[None, :, None]
+    fnm3, fnp3, rdnw3 = (x.view(1, K, 1) for x in (fnm, fnp, rdnw))
+
+    interp = fnm3 * t_1 + fnp3 * torch.roll(t_1, 1, 1)
+    wdtn1 = torch.where(kint, ww_1 * interp, 0.0)
+    vert1 = rdnw3 * (torch.roll(wdtn1, -1, 1) - wdtn1)
+    msfty3 = msfty[:, None, :]
+    tconst = (msfty3 * dts) * ft + (dts * msfty3) * vert1
+
+    c_u = (muu / msfuy)[:, None, :] * u_1
+    c_v = (muv * msfvx_inv)[:, None, :] * v_1
+    msft2 = (msftx * msfty)[:, None, :]
+    dvdxi_const = msft2 * (rdy * (torch.roll(c_v, -1, 0) - c_v)
+                           + rdx * (torch.roll(c_u, -1, 2) - c_u))
+    ww1_k0 = ww_1[:, k0, :].contiguous()
+    return tconst, dvdxi_const, ww1_k0
+
+
+def lean_kwargs(padded: dict, rdx, rdy, dts, k0: int, k1: int) -> dict:
+    """The lean-mode constants as :func:`advance_mu_t_fused` kwargs, from a
+    loop's padded local field dict."""
+    tconst, dvdxi_const, ww1_k0 = lean_constants(
+        ww_1=padded["ww_1"], u_1=padded["u_1"], v_1=padded["v_1"],
+        ft=padded["ft"], t_1=padded["t_1"], fnm=padded["fnm"],
+        fnp=padded["fnp"], rdnw=padded["rdnw"], muu=padded["muu"],
+        muv=padded["muv"], msfuy=padded["msfuy"],
+        msfvx_inv=padded["msfvx_inv"], msftx=padded["msftx"],
+        msfty=padded["msfty"], rdx=rdx, rdy=rdy, dts=dts, k0=k0, k1=k1,
+    )
+    return {"tconst": tconst, "dvdxi_const": dvdxi_const, "ww1_k0": ww1_k0}
+
+
+# --------------------------------------------------------------------------
+# The CUDA launch
+# --------------------------------------------------------------------------
+def _kernel():
+    """The C entry of csrc/advance_mu_t.cu (library built on first use)."""
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = _build.load().wrf_tpu_torch_advance_mu_t
+        fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_float] * 5
+                       + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def block_width(K: int) -> int:
+    """Threads per block along i: the widest of 128/64/32 whose per-thread
+    K-long dvdxi slices fit the static shared-memory limit."""
+    for bx in (128, 64, 32):
+        if K * bx * 4 <= _SMEM_LIMIT:
+            return bx
+    raise ValueError(f"K={K} levels exceed the kernel's shared-memory "
+                     f"column buffer ({_SMEM_LIMIT // (32 * 4)} levels max)")
+
+
+def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
+            mu_tend, rdx, rdy, dts, epssm, dnw, fnm, fnp, rdnw, msfuy,
+            msfvx_inv, msftx, msfty, window, k0, k1, t_ave, offsets,
+            fuse_uv, cs2, with_tave, ww_mode, ww_row, lean, tconst,
+            dvdxi_const, ww1_k0):
+    global LAUNCHES
+    J, K, I = t.shape
+    dev = t.device
+    if not (0 <= k0 <= k1 < K):
+        raise ValueError(f"bad vertical bounds k0={k0}, k1={k1} for K={K}")
+    shapes = {3: (J, K, I), 2: (J, I), 1: (K,)}
+    fields = dict(
+        ww=(ww, 3, ww_mode != "lite"), ww_1=(ww_1, 3, not lean),
+        u=(u, 3, True), u_1=(u_1, 3, not lean), v=(v, 3, True),
+        v_1=(v_1, 3, not lean), t=(t, 3, True), t_1=(t_1, 3, True),
+        t_ave=(t_ave, 3, with_tave), ft=(ft, 3, not lean),
+        tconst=(tconst, 3, lean), dvdxi_const=(dvdxi_const, 3, lean),
+        mu=(mu, 2, True), mut=(mut, 2, True), muu=(muu, 2, True),
+        muv=(muv, 2, True), mu_tend=(mu_tend, 2, True),
+        msfuy=(msfuy, 2, True), msfvx_inv=(msfvx_inv, 2, True),
+        msftx=(msftx, 2, True), msfty=(msfty, 2, True),
+        ww_row=(ww_row, 2, ww_mode != "full"), ww1_k0=(ww1_k0, 2, lean),
+        dnw=(dnw, 1, True), fnm=(fnm, 1, True), fnp=(fnp, 1, True),
+        rdnw=(rdnw, 1, True),
+    )
+    ptrs = []
+    for name, (x, ndim, used) in fields.items():
+        if not used:
+            ptrs.append(None)
+            continue
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError(f"{name}: expected a tensor on {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {x.dtype}")
+        if tuple(x.shape) != shapes[ndim]:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                             f"{shapes[ndim]}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        ptrs.append(x.data_ptr())
+
+    res = {n: torch.empty((J, I), dtype=torch.float32, device=dev)
+           for n in ("mu", "muave", "muts", "mudf")}
+    if fuse_uv:
+        res["u"] = torch.empty_like(u)
+        res["v"] = torch.empty_like(v)
+    outs = [res[n].data_ptr() if n in res else None
+            for n in ("mu", "muave", "muts", "mudf", "u", "v")]
+    i0, i1, j0, j1 = (int(x) for x in window)
+    j_off, i_off = (int(x) for x in offsets)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, *outs,
+                 _f32(rdx), _f32(rdy), _f32(dts), _f32(epssm), _f32(cs2),
+                 J, K, I, i0, i1, j0, j1, j_off, i_off, int(k0), int(k1),
+                 int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),
+                 block_width(K), stream)
+    if err != 0:
+        raise RuntimeError(f"advance_mu_t kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+
+    res["t"] = t
+    if ww_mode == "lite":
+        res["ww_row"] = ww_row
+    else:
+        res["ww"] = ww
+    if with_tave:
+        res["t_ave"] = t_ave
+    return res

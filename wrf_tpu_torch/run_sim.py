@@ -1,0 +1,211 @@
+"""Simulation driver on one GPU: namelist-configured RK3 integration with checkpoints.
+
+The port's counterpart of ``python -m wrf_tpu.run_sim``, for its default
+path:
+
+    python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
+        [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
+        [--device cuda|cpu]
+
+* the grid/state comes from a fixture directory (``wrf_tpu.io.fixtures``);
+* dynamics parameters come from the WRF namelist record (a JSON dict of
+  record fields or a namelist.input text file), else from the fixture;
+* each large step is one RK3 triple over the acoustic loop, whose every
+  substep is one launch of the fused CUDA kernel; the state stays on the
+  device and one scalar checksum syncs each step;
+* checkpoints use the fixture binary format (``wrf_tpu.io.checkpoint``)
+  and ``--resume`` continues from the newest one.
+
+``--device`` is explicit: ``cuda`` (the default) fails when there is no
+GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
+``wrf_tpu.run_sim`` that are not ported yet are accepted only at their
+defaults and otherwise stop with a "not yet ported" error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from wrf_tpu.config import GridConfigRecord, dynamics_params, read_namelist
+from wrf_tpu.io import checkpoint, fixtures
+
+from .convert import arrays_to_numpy
+from .models.rk3 import RK3Integrator
+from .parallel.sharded import case_to_domain
+
+#: the evolved large-step state — RK3Integrator is the source of truth
+_EVOLVED = RK3Integrator._EVOLVED
+
+#: options of wrf_tpu.run_sim not ported yet: (flag, default, ROADMAP item)
+_NOT_PORTED = (
+    ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
+    ("--with-w", False, "'SmallStepLoop on one GPU' (with_w)"),
+    ("--kernel", "pallas", "'Torch eager tier' (the xla tier)"),
+    ("--halo-backend", "ppermute",
+     "'Multi-GPU decomposition and halo backends'"),
+    ("--precision", "f32", "'bf16 constant streams'"),
+    ("--inner-steps", 1, "'Coupled trapezoid'"),
+    ("--fast", False, "'Coupled trapezoid'"),
+    ("--closure", "none", "'RK3, closure, run_sim and checkpoint'"),
+    ("--tau-steps", None, "'RK3, closure, run_sim and checkpoint'"),
+    ("--rayleigh-uv", None, "'RK3, closure, run_sim and checkpoint'"),
+    ("--steps-per-sync", 1, "'RK3, closure, run_sim and checkpoint'"),
+    ("--profile", None, "'Bench seam and ledger'"),
+)
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("fixture_dir")
+    p.add_argument("--namelist", default=None,
+                   help="GridConfigRecord overrides: a JSON dict, or a "
+                        "WRF Fortran namelist.input text file")
+    p.add_argument("--steps", type=int, default=1, help="RK3 large steps")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' requires a GPU (no fallback)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=1)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint in "
+                        "--checkpoint-dir")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="print per-step total dry mass and its drift")
+    for flag, default, _ in _NOT_PORTED:
+        if isinstance(default, bool):
+            p.add_argument(flag, action="store_true",
+                           help="not yet ported")
+        else:
+            p.add_argument(flag, default=default,
+                           type=type(default) if default is not None else str,
+                           help="not yet ported")
+    return p
+
+
+def _reject_not_ported(args) -> None:
+    for flag, default, item in _NOT_PORTED:
+        value = getattr(args, flag[2:].replace("-", "_"))
+        if flag == "--mesh" and value in ("1x1", None):
+            continue
+        if value != default:
+            raise SystemExit(f"run_sim: {flag} {value} is not yet ported to "
+                             f"wrf_tpu_torch (ROADMAP.md, {item})")
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    _reject_not_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("run_sim: --device cuda, but torch.cuda.is_available() "
+                         "is False (no GPU; pass --device cpu for the plain "
+                         "PyTorch path)")
+
+    case, _ = fixtures.read_case(args.fixture_dir)
+    if args.namelist:
+        text = Path(args.namelist).read_text()
+        if text.lstrip().startswith("{"):
+            rec = GridConfigRecord(**json.loads(text))
+        else:
+            rec = read_namelist(text)
+        dyn = dynamics_params(rec)
+        flags = dyn["flags"]
+        if dyn["smdiv"]:
+            raise SystemExit(
+                f"run_sim: smdiv={dyn['smdiv']} (divergence damping) is not "
+                "yet ported to wrf_tpu_torch (ROADMAP.md, 'SmallStepLoop on "
+                "one GPU', K1 slice (d))")
+    else:
+        dyn = dict(rdx=case.rdx, rdy=case.rdy, dts=case.dts,
+                   epssm=case.epssm, smdiv=0.0, acoustic_steps=4,
+                   flags=case.flags)
+        flags = case.flags
+    dt = dyn["dts"] * dyn["acoustic_steps"]
+
+    nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
+    rk3 = RK3Integrator(nx, ny, nz, flags,
+                        acoustic_steps=dyn["acoustic_steps"],
+                        snapshot="stage", device=device)
+
+    dom = {k: np.array(v, copy=True) for k, v in case_to_domain(case).items()}
+    start_step = 0
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
+    if args.resume:
+        def _step_no(p):
+            try:
+                return int(p.name.removeprefix("step_"))
+            except ValueError:
+                return None  # stray entry, not one of ours
+
+        cks = [(n, p) for p in Path(args.checkpoint_dir).glob("step_*")
+               if (n := _step_no(p)) is not None]
+        if cks:
+            newest = max(cks)[1]
+            state, start_step, _ = checkpoint.load_checkpoint(newest)
+            print(f"resuming from {newest} (step {start_step})")
+            expected = {n for n in _EVOLVED if n in dom}
+            missing = expected - state.keys()
+            extra = state.keys() - expected
+            if missing or extra:
+                raise SystemExit(
+                    f"checkpoint field set differs from the configured "
+                    f"state (missing from checkpoint: {sorted(missing)}; "
+                    f"not configured: {sorted(extra)})")
+            dom.update(state)
+
+    b = case.bounds
+    n_pts = (b.ide - b.ids) * (b.jde - b.jds) * b.kdim
+    n_sub = sum(n for _, n in rk3.stages)
+
+    # the state stays on the device across large steps; only a scalar
+    # checksum syncs each step (full readback at checkpoints only)
+    arrays = rk3.prepare(dom)
+    mass0 = None
+    for step in range(start_step, start_step + args.steps):
+        t0 = time.perf_counter()
+        out = rk3.step(arrays, dyn["rdx"], dyn["rdy"], dt, dyn["epssm"])
+        arrays = rk3.merge_evolved(arrays, out)
+        checksum = out["t"].sum().item()   # scalar readback = sync
+        dt_s = time.perf_counter() - t0
+        if not np.isfinite(checksum):
+            raise SystemExit(
+                f"non-finite state at step {step + 1} (NaN tripwire). "
+                "The degenerate RK3 shell (no closure) is unstable over many "
+                "large steps — the golden path diverges at the same step "
+                "(see wrf_tpu/models/rk3.py); integrate within a bounded "
+                "large-step horizon.")
+        per_sub = dt_s / n_sub
+        note = " (incl. compile)" if step == start_step else ""
+        print(f"step {step + 1}: {dt_s * 1e3:.1f} ms "
+              f"({per_sub * 1e3:.2f} ms/substep, "
+              f"{n_pts / per_sub:.3e} grid-points/s){note}", flush=True)
+        if args.diagnostics:
+            # total dry mass (mut + mu = muts summed over the domain):
+            # advance_mu_t IS the mass-conservation update, so relative
+            # drift beyond boundary fluxes indicates trouble
+            mass = out["muts"].sum(dtype=torch.float64).item()
+            pert = out["mu"].sum(dtype=torch.float64).item()
+            if mass0 is None:
+                mass0 = mass if mass else 1.0
+            print(f"  total dry mass {mass:.10e} "
+                  f"(drift {(mass - mass0) / abs(mass0):+.3e}), "
+                  f"mass perturbation sum {pert:+.6e}", flush=True)
+        if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
+            state = arrays_to_numpy({n: arrays[n] for n in _EVOLVED
+                                     if n in arrays})
+            d = checkpoint.save_checkpoint(
+                f"{args.checkpoint_dir}/step_{step + 1:06d}", state,
+                step=step + 1)
+            print(f"  checkpoint -> {d}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
