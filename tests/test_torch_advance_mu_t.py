@@ -140,13 +140,46 @@ def test_in_place_contract(small_case):
 
 @pytest.mark.parametrize("unported", [
     dict(fuse_w=True), dict(smdiv=0.1, fuse_uv=True), dict(capture=True),
-    dict(overlap={"axis_name": "j"}), dict(wind_scale=1.5),
+    dict(overlap={"axis_name": "j"}),
 ])
 def test_unported_modes_raise(small_case, unported):
     arr, sc, static = _inputs(small_case)
     tarr = {k: torch.tensor(v) for k, v in arr.items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         k1.advance_mu_t_fused(**tarr, **sc, **static, **unported)
+
+
+WIND_SCALE_MODES = {
+    # ShardedAdvanceMuT's scan substep and its final substep
+    "lite": dict(lean=True, ww_mode="lite", with_tave=False),
+    "final": dict(ww_mode="final", with_tave=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(WIND_SCALE_MODES))
+@pytest.mark.parametrize("case_name", ["small_case", "open_bc_case"])
+def test_wind_scale_matches_pallas(case_name, mode, request):
+    """The read-only winds scaled on load (the mu/t loop's ramp)."""
+    case = request.getfixturevalue(case_name)
+    arr, sc, static = _inputs(case)
+    k0 = static["k0"]
+    mkw = dict(WIND_SCALE_MODES[mode], wind_scale=1.5,
+               ww_row=arr["ww"][:, k0, :]
+               + np.float32(0.01) * arr["ww_1"][:, k0 + 1, :])
+    want = _run_jax(arr, sc, static, mkw)
+    got = _run_torch(arr, sc, static, mkw)
+    assert sorted(got) == sorted(want)
+    outputs_allclose(got, want)
+    unscaled = _run_torch(arr, sc, static, {**mkw, "wind_scale": 1.0})
+    assert not np.array_equal(got["t"], unscaled["t"])
+
+
+def test_fuse_uv_with_wind_scale_raises(small_case):
+    arr, sc, static = _inputs(small_case)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        k1.advance_mu_t_fused(**tarr, **sc, **static, fuse_uv=True,
+                              wind_scale=1.5)
 
 
 def test_bf16_inputs_raise(small_case):

@@ -1,0 +1,101 @@
+"""The port's verification driver, ``python -m wrf_tpu_torch.driver``, with
+``--device cpu`` (the kernels' plain PyTorch versions), against the
+goldens the C++ oracle writes into the fixture, at the driver's own gate
+(rtol 1e-4, atol_scale 1e-5)."""
+
+import numpy as np
+import pytest
+import torch
+
+from wrf_tpu.io import fixtures
+from wrf_tpu.models.small_step import small_step_golden as jax_golden_loop
+from wrf_tpu_torch import driver
+from wrf_tpu_torch.models.small_step import small_step_golden
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def fx9(tmp_path_factory, request):
+    """A 9-step small_case fixture: the blocked rows run whole K2 passes
+    (S=2: 4 passes; S=4: 2) before the single-step tail."""
+    case = request.getfixturevalue("small_case")
+    return fixtures.write_case(case, tmp_path_factory.mktemp("fx9"), steps=9)
+
+
+def _main(capsys, *argv):
+    rc = driver.main([*map(str, argv), "--device", "cpu"])
+    return rc, capsys.readouterr().out
+
+
+def test_numpy_tier_bit_exact(fx9, capsys):
+    rc, out = _main(capsys, fx9, "--tier", "numpy")
+    assert rc == 0
+    assert out.count("max_ulp=0") == 7
+    assert "grid-points/s" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("args", [
+    ("--tier", "eager"),
+    ("--tier", "cuda"),
+    ("--tier", "sharded-eager"),
+    ("--tier", "sharded-cuda", "--inner-steps", "2"),
+    ("--tier", "sharded-cuda", "--inner-steps", "2", "--fast"),
+    ("--tier", "coupled"),
+])
+def test_tier_passes(fx9, capsys, args):
+    rc, out = _main(capsys, fx9, *args)
+    assert rc == 0, out
+    assert "FAILED" not in out
+
+
+def test_coupled_native_bit_exact(fx9, capsys):
+    rc, out = _main(capsys, fx9, "--tier", "coupled-native")
+    lines = [ln for ln in out.splitlines() if "golden loop" in ln]
+    assert rc == 0
+    assert len(lines) == 9 and all("max_ulp=0" in ln for ln in lines), out
+
+
+def test_all_tiers(fx9, capsys):
+    rc, out = _main(capsys, fx9, "--tier", "all")
+    assert rc == 0, out
+    assert out.count("PASS") == len(driver.ALL_ROWS) == 10
+    assert "FAIL" not in out and "ERROR" not in out
+    for tier in ("numpy", "native"):
+        line = next(ln for ln in out.splitlines()
+                    if ln.strip().startswith(tier + ":"))
+        assert "max_abs=0.000e+00" in line
+
+
+def test_steps_override_fails(tmp_path, small_case, capsys):
+    """A wrong step count is caught by the comparators."""
+    d = fixtures.write_case(small_case, tmp_path / "fx", steps=3)
+    rc, out = _main(capsys, d, "--tier", "cuda", "--steps", "1")
+    assert rc == 1
+    assert "FAILED" in out
+
+
+def test_device_cuda_without_gpu_exits(fx9):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU path cannot be shown")
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        driver.main([str(fx9), "--tier", "cuda"])
+
+
+@pytest.mark.parametrize("args", [
+    ("--mesh", "2x2"), ("--with-w",), ("--precision", "bf16-const"),
+    ("--halo-backend", "rdma"), ("--dump-intermediates", "dump"),
+    ("--tier", "coupled", "--inner-steps", "2"),
+])
+def test_unported_options_exit(fx9, args):
+    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
+        driver.main([str(fx9), *args, "--device", "cpu"])
+
+
+def test_golden_loop_matches_jax_module(small_case):
+    """The port's jax-free golden loop is the JAX module's, bit for bit."""
+    got = small_step_golden(small_case, 3)
+    want = jax_golden_loop(small_case, 3)
+    assert sorted(got) == sorted(want)
+    for name in got:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)

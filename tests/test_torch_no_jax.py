@@ -103,4 +103,5 @@ def test_library_name_tracks_sources():
     assert p.parent == _build.BUILD_DIR
     assert p.name.startswith("libwrf_tpu_torch_") and p.suffix == ".so"
     assert p == _build.library_path()
-    assert [s.name for s in _build.sources()] == ["advance_mu_t.cu"]
+    assert [s.name for s in _build.sources()] == ["advance_mu_t.cu",
+                                                  "advance_mu_t_msteps.cu"]

@@ -6,6 +6,8 @@
 //   * optional fused wind update (FUSE_UV): p = cs2*mu,
 //     u += dts*(muu/msfuy)*(-rdx)*(p - p(i-1)),
 //     v += dts*(muv*msfvx_inv)*(-rdy)*(p - p(j-1));
+//     otherwise the read-only winds are multiplied by wind_scale on load,
+//     before any differencing (the TPU kernel's association; 1 is exact);
 //   * mass-flux divergence dvdxi and its column sum dmdt;
 //   * mu, mudf, muts and muave with epssm off-centering;
 //   * the seeded k-ascending ww scan (WW_MODE full / lite / final);
@@ -95,7 +97,7 @@ struct Args {
   float* mudf;
   float* u_out;
   float* v_out;
-  float rdx, rdy, dts, epssm, cs2;
+  float rdx, rdy, dts, epssm, cs2, wind_scale;
   int J, K, I;
   int i0, i1, j0, j1;  // compute window, global coordinates
   int j_off, i_off;    // global index of local row / column 0
@@ -139,6 +141,7 @@ advance_mu_t_kernel(const Args a) {
   const int im = (i == 0) ? I - 1 : i - 1;  // west neighbour, wrapping
   const int ce = j * I + ip, cw = j * I + im;
   const float rdx = a.rdx, rdy = a.rdy, dts = a.dts;
+  const float ws = a.wind_scale;  // 1 under FUSE_UV (the wrapper checks)
   const float msft2 = a.msftx[c] * a.msfty[c];
   const float muu_msfuy_c = a.muu[c] / a.msfuy[c];
   const float muu_msfuy_e = a.muu[ce] / a.msfuy[ce];
@@ -175,16 +178,16 @@ advance_mu_t_kernel(const Args a) {
   float dmdt = 0.f;
   for (int k = FUSE_UV ? 0 : k0; k < (FUSE_UV ? K : k1 + 1); ++k) {
     const size_t x = col + (size_t)k * I;
-    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x];
-    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x];
+    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x] * ws;
+    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x] * ws;
     if (FUSE_UV) {
       a.u_out[x] = u_c;
       a.v_out[x] = v_c;
       if (k < k0 || k > k1) continue;
     }
     const size_t xe = x - i + ip, xn = x + row;
-    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe];
-    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn];
+    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe] * ws;
+    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn] * ws;
     float dvdxi;
     if (LEAN) {
       dvdxi = a.dvdxi_const[x] + msft2 * (rdy * (v_n - v_c) + rdx * (u_e - u_c));
@@ -243,10 +246,10 @@ advance_mu_t_kernel(const Args a) {
     const float t_half = LEAN ? t_c + a.tconst[x] : t_c + dts_msfty * a.ft[x];
 
     const size_t xe = x - i + ip, xw = x - i + im, xn = x + row, xs = x - row;
-    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x];
-    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe];
-    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x];
-    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn];
+    const float u_c = FUSE_UV ? a.u[x] + du_c : a.u[x] * ws;
+    const float u_e = FUSE_UV ? a.u[xe] + du_e : a.u[xe] * ws;
+    const float v_c = FUSE_UV ? a.v[x] + dv_c : a.v[x] * ws;
+    const float v_n = FUSE_UV ? a.v[xn] + dv_n : a.v[xn] * ws;
     const float fy = v_n * (a.t_1[xn] + t1_k) - v_c * (t1_k + a.t_1[xs]);
     const float fx = u_e * (a.t_1[xe] + t1_k) - u_c * (t1_k + a.t_1[xw]);
     const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
@@ -304,6 +307,7 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
     float* mu_out, float* muave, float* muts, float* mudf, float* u_out,
     float* v_out,
     float rdx, float rdy, float dts, float epssm, float cs2,
+    float wind_scale,
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
     int i_off, int k0, int k1,
     int fuse_uv, int lean, int ww_mode, int with_tave, int block_x,
@@ -315,8 +319,8 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
                dvdxi_const, mu, mut, muu, muv, mu_tend, msfuy, msfvx_inv,
                msftx, msfty, ww_row, ww1_k0, dnw, fnm, fnp, rdnw,
                mu_out, muave, muts, mudf, u_out, v_out,
-               rdx, rdy, dts, epssm, cs2, J, K, I, i0, i1, j0, j1,
-               j_off, i_off, k0, k1};
+               rdx, rdy, dts, epssm, cs2, wind_scale,
+               J, K, I, i0, i1, j0, j1, j_off, i_off, k0, k1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       fuse_uv ? dispatch<true>(a, lean, ww_mode, with_tave, block_x, s)

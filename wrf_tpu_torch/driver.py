@@ -1,0 +1,312 @@
+"""CLI verification driver on one GPU: load a golden fixture, run a tier, diff, time.
+
+The port of ``wrf_tpu.driver``: read every input field from the fixture
+directory, run ``advance_mu_t`` for N small steps on the selected tier,
+print the timing line, then the per-field comparison report
+(``wrf_tpu.compare``), gated on the same element-wise tolerance.
+
+Usage:
+    python -m wrf_tpu_torch.driver FIXTURE_DIR [--steps N] [--tier T]
+        [--inner-steps S] [--fast] [--device cuda|cpu]
+
+Tiers (the JAX tier each replaces in brackets): numpy (golden path) and
+native (C++ oracle), both without torch; eager [xla] (whole-array PyTorch,
+``ops/advance_mu_t_eager.py``); cuda [pallas] (one K1 call per step on the
+memory-window arrays); sharded-eager / sharded-cuda [sharded-xla /
+sharded-pallas] (``ShardedAdvanceMuT`` on the 1x1 layout; sharded-cuda
+honours --inner-steps and --fast, running K2); coupled (the acoustic
+small-step loop, ``SmallStepLoop``) and coupled-native, both verified
+against the numpy golden loop; all (every tier side by side, plus the
+blocked rows sharded-cuda~blk and sharded-cuda~blkfast).
+
+``--device`` is explicit: ``cuda`` (the default) fails when there is no
+GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
+``wrf_tpu.driver`` that are not ported yet stop with a "not yet ported"
+error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import sys
+import time
+
+import torch
+
+from wrf_tpu import native
+from wrf_tpu.compare import compare
+from wrf_tpu.io import fixtures
+from wrf_tpu.ops.reference_numpy import advance_mu_t_numpy
+
+from .convert import arrays_from_numpy, arrays_to_numpy
+from .models.small_step import DEFAULT_CS2, SmallStepLoop, small_step_golden
+from .ops.advance_mu_t_cuda import advance_mu_t_fused
+from .ops.advance_mu_t_eager import advance_mu_t_core, window_masks
+from .parallel.sharded import ShardedAdvanceMuT, case_to_domain, embed_outputs
+
+#: output-field -> golden file name (reference driver naming)
+GOLDEN_FILES = {
+    "ww": "grid_ww_output.bin",
+    "t": "grid_t_2_output.bin",
+    "t_ave": "t_2save_output.bin",
+    "mu": "grid_mu_2_output.bin",
+    "muave": "muave_output.bin",
+    "muts": "grid_muts_output.bin",
+    "mudf": "grid_mudf_output.bin",
+}
+
+#: the acceptance gate: element-wise |a-g| <= atol + rtol*|g| with the
+#: absolute floor scaled per field (atol_scale * max|golden|), as
+#: ``wrf_tpu.driver``
+RTOL = 1e-4
+ATOL_SCALE = 1e-5
+
+TIERS = ("numpy", "native", "eager", "cuda", "sharded-eager",
+         "sharded-cuda", "coupled", "coupled-native")
+
+#: rows of --tier all: every tier, then the blocked loop (S=4), exact and
+#: fast
+ALL_ROWS = TIERS + ("sharded-cuda~blk", "sharded-cuda~blkfast")
+
+_STATE = ("ww", "mu", "t", "t_ave")
+
+#: options of wrf_tpu.driver not ported yet: (flag, default, ROADMAP item)
+_NOT_PORTED = (
+    ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
+    ("--with-w", False, "'SmallStepLoop on one GPU' (with_w)"),
+    ("--precision", "f32", "'bf16 constant streams'"),
+    ("--halo-backend", "ppermute",
+     "'Multi-GPU decomposition and halo backends'"),
+    ("--dump-intermediates", None,
+     "'Driver tier matrix and phase capture'"),
+)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
+             fast: bool = False):
+    """Run ``steps`` small steps on the chosen tier; returns
+    ``(outputs, seconds, golden_override)`` — ``golden_override`` is None
+    for tiers verified against the fixture goldens, or the numpy golden
+    loop's outputs for the coupled tiers.  Outputs are numpy arrays.
+
+    The timed window covers the step calls and the readback of the
+    outputs, after one untimed warm-up run (the first launch builds the
+    kernels and allocates), as ``wrf_tpu.driver`` times its tiers."""
+    device = torch.device(device)
+    kw = case.kernel_kwargs()
+
+    if tier == "coupled-native":
+        # the coupled loop on the C++ oracle: advance_uv + advance_mu_t per
+        # substep; bit-identical to the numpy golden loop by construction
+        state = {k: kw[k] for k in _STATE + ("u", "v")}
+        out = dict(state)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            u, v = native.advance_uv_native(
+                u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
+                muv=kw["muv"], msfuy=kw["msfuy"], msfvx_inv=kw["msfvx_inv"],
+                rdx=kw["rdx"], rdy=kw["rdy"], dts=kw["dts"], cs2=DEFAULT_CS2,
+                flags=case.flags, bounds=case.bounds)
+            out = native.advance_mu_t_native(
+                **{**kw, **state, "u": u, "v": v})
+            state = {**{k: out[k] for k in _STATE}, "u": u, "v": v}
+        dt = time.perf_counter() - t0
+        out = {**out, "u": state["u"], "v": state["v"]}
+        return out, dt, small_step_golden(case, steps)
+
+    if tier in ("numpy", "native"):
+        fn = (advance_mu_t_numpy if tier == "numpy"
+              else native.advance_mu_t_native)
+        state = {k: kw[k] for k in _STATE}
+        out = dict(state)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = fn(**{**kw, **state})
+            state = {k: out[k] for k in _STATE}
+        return out, time.perf_counter() - t0, None
+
+    nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
+    if tier == "coupled":
+        loop = SmallStepLoop(nx, ny, nz, case.flags, n_steps=steps,
+                             device=device)
+        gold = small_step_golden(case, steps)
+    elif tier.startswith("sharded"):
+        loop = ShardedAdvanceMuT(nx, ny, nz, case.flags, n_steps=steps,
+                                 kernel=tier.split("-", 1)[1],
+                                 inner_steps=inner_steps, fast=fast,
+                                 device=device)
+        gold = None
+    elif tier in ("eager", "cuda"):
+        return _run_single_tile(case, steps, tier, device)
+    else:
+        raise SystemExit(f"unknown tier {tier!r}")
+    run = functools.partial(loop, loop.prepare(case_to_domain(case)),
+                            case.rdx, case.rdy, case.dts, case.epssm)
+
+    # both loops leave the prepared arrays alone, so the warm-up run and
+    # the timed run start from the same state
+    run()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = arrays_to_numpy(run())
+    dt = time.perf_counter() - t0
+    return embed_outputs(case, out), dt, gold
+
+
+def _run_single_tile(case, steps, tier, device):
+    """eager / cuda: one advance_mu_t call per step on the memory-window
+    arrays (the reference's own call), state carried on the device."""
+    b, flags = case.bounds, case.flags
+    kw = case.kernel_kwargs()
+    i0, i1, j0, j1, k0, k1 = b.loop_bounds(flags)
+    sc = {k: kw[k] for k in ("rdx", "rdy", "dts", "epssm")}
+    arr = arrays_from_numpy({k: v for k, v in kw.items()
+                             if hasattr(v, "ndim")}, device)
+    if tier == "cuda":
+        def step(ins):
+            return advance_mu_t_fused(**ins, **sc, window=(i0, i1, j0, j1),
+                                      k0=k0, k1=k1, kde=b.mem(b.kde, "k"))
+    else:
+        i_mask, j_mask = (torch.as_tensor(m, device=device)
+                          for m in window_masks(b, flags))
+
+        def step(ins):
+            return advance_mu_t_core(**ins, **sc, i_mask=i_mask,
+                                     j_mask=j_mask, k0=k0, k1=k1,
+                                     kde=b.mem(b.kde, "k"))
+
+    # warm-up on copies: K1 updates t, t_ave and ww in place
+    step({**arr, **{k: arr[k].clone() for k in _STATE}})
+    _sync(device)
+    state = {k: arr[k] for k in _STATE}
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = step({**arr, **state})
+        state = {k: out[k] for k in _STATE}
+    out = arrays_to_numpy(out)
+    return out, time.perf_counter() - t0, None
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("fixture_dir")
+    p.add_argument("--steps", type=int, default=None,
+                   help="small steps (default: the fixture's steps.bin)")
+    p.add_argument("--tier", default="cuda", choices=TIERS + ("all",))
+    p.add_argument("--inner-steps", type=int, default=1,
+                   help="temporal blocking: substeps per K2 pass "
+                        "(sharded-cuda)")
+    p.add_argument("--fast", action="store_true",
+                   help="blocked tiers: K2's closed form (re-associated "
+                        "float32, the eager tier's tolerance class)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' requires a GPU (no fallback)")
+    for flag, default, _ in _NOT_PORTED:
+        if isinstance(default, bool):
+            p.add_argument(flag, action="store_true", help="not yet ported")
+        else:
+            p.add_argument(flag, default=default, help="not yet ported")
+    return p
+
+
+def _reject_not_ported(args) -> None:
+    for flag, default, item in _NOT_PORTED:
+        value = getattr(args, flag[2:].replace("-", "_"))
+        if flag == "--mesh" and value in ("1x1", None):
+            continue
+        if value != default:
+            raise SystemExit(f"driver: {flag} {value} is not yet ported to "
+                             f"wrf_tpu_torch (ROADMAP.md, {item})")
+    if args.tier == "coupled" and args.inner_steps > 1:
+        raise SystemExit("driver: coupled --inner-steps >1 (the coupled "
+                         "trapezoid, K3) is not yet ported to wrf_tpu_torch "
+                         "(ROADMAP.md, 'Coupled trapezoid')")
+
+
+def _row(case, steps, tier, golden, device) -> bool:
+    """One row of --tier all: the worst field against the goldens."""
+    fast = tier.endswith("~blkfast")
+    name = tier.split("~", 1)[0]
+    inner = 4 if "~blk" in tier else 1
+    try:
+        out, dt, gold_ov = run_tier(case, steps, name, device,
+                                    inner_steps=inner, fast=fast)
+    except Exception as e:  # report, keep the matrix going
+        print(f"{tier:>20}: ERROR {type(e).__name__}: {e}")
+        return False
+    gold = gold_ov if gold_ov is not None else golden
+    names = (sorted(gold.keys() & out.keys()) if gold_ov is not None
+             else list(GOLDEN_FILES))
+    results = [compare(out[n], gold[n], n, rtol=RTOL, atol_scale=ATOL_SCALE)
+               for n in names]
+    worst = max(results, key=lambda r: r.max_scaled_err)
+    ok = all(r.passed for r in results)
+    print(f"{tier:>20}: {dt / steps * 1e3:9.3f} ms/step   "
+          f"worst field {worst.name}: max_abs={worst.max_abs_err:.3e}"
+          f" scaled_err={worst.max_scaled_err:.3f}   "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    _reject_not_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("driver: --device cuda, but torch.cuda.is_available() "
+                         "is False (no GPU). Pass --device cpu to run the "
+                         "kernels' plain PyTorch versions (ROADMAP.md: every "
+                         "kernel has a plain twin for the CPU)")
+
+    case, fx_steps = fixtures.read_case(args.fixture_dir)
+    steps = args.steps if args.steps is not None else fx_steps
+
+    if args.tier == "all":
+        golden = fixtures.read_golden(args.fixture_dir, case.bounds)
+        print(f"device: {_device_name(device)}")
+        failures = sum(not _row(case, steps, tier, golden, device)
+                       for tier in ALL_ROWS)
+        if failures:
+            print(f"FAILED: {failures} tier(s)")
+        return 1 if failures else 0
+
+    out, dt, gold_override = run_tier(case, steps, args.tier, device,
+                                      inner_steps=args.inner_steps,
+                                      fast=args.fast)
+    b = case.bounds
+    n_pts = (b.ide - b.ids) * (b.jde - b.jds) * b.kdim * steps
+    print(f"advance_mu_t [{args.tier}]: {steps} step(s) in {dt * 1e3:.3f} ms "
+          f"({dt / steps * 1e3:.4f} ms/step, {n_pts / dt:.3e} grid-points/s) "
+          f"on {_device_name(device)}")
+
+    failures = 0
+    if gold_override is not None:
+        checks = [(n, gold_override[n], f"{n} (golden loop)")
+                  for n in sorted(gold_override.keys() & out.keys())]
+    else:
+        golden = fixtures.read_golden(args.fixture_dir, case.bounds)
+        checks = [(n, golden[n], f) for n, f in GOLDEN_FILES.items()]
+    for name, gold, label in checks:
+        r = compare(out[name], gold, label, rtol=RTOL, atol_scale=ATOL_SCALE)
+        print(r)
+        if not r.passed:
+            failures += 1
+    if failures:
+        print(f"FAILED: {failures} field(s) outside tolerance")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

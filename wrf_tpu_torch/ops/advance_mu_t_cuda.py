@@ -11,7 +11,10 @@ wrapper's keyword contract and result dict for the modes ported so far:
 * ``lean`` — scan substeps read the precomputed ``tconst`` /
   ``dvdxi_const`` / ``ww1_k0`` (:func:`lean_kwargs`) instead of ww_1, u_1,
   v_1 and ft;
-* ``with_tave``.
+* ``with_tave``;
+* ``wind_scale`` — the read-only winds (no ``fuse_uv``) are multiplied by
+  this scalar on load, before any differencing: the per-substep wind ramp
+  of the mu/t loop (``ShardedAdvanceMuT``).
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
 hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
@@ -56,8 +59,8 @@ def _not_ported(what: str, item: str):
         f"to port: {item})")
 
 
-def _check_modes(*, tensors, t_ave, wind_scale, mudf_in, smdiv, fuse_w,
-                 capture, overlap, with_tave, ww_mode, ww_row, ww, lean,
+def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in, smdiv,
+                 fuse_w, capture, overlap, with_tave, ww_mode, ww_row, ww, lean,
                  tconst, dvdxi_const, ww1_k0):
     """The TPU wrapper's argument checks, plus the modes not ported yet."""
     if fuse_w:
@@ -72,8 +75,11 @@ def _check_modes(*, tensors, t_ave, wind_scale, mudf_in, smdiv, fuse_w,
     if overlap is not None:
         raise _not_ported("overlap", "'Multi-GPU decomposition and halo "
                           "backends', K1 slice (f)")
-    if not (isinstance(wind_scale, (int, float)) and wind_scale == 1.0):
-        raise _not_ported("wind_scale != 1", "'mu/t temporal blocking'")
+    if fuse_uv and wind_scale != 1.0:
+        # both model the wind->mass coupling; combined, the scaled winds
+        # would be written back out and the scale compound every substep
+        raise ValueError("fuse_uv and wind_scale != 1 are mutually "
+                         "exclusive")
     for x in tensors:
         if x is not None and x.dtype == torch.bfloat16:
             raise _not_ported("bf16 inputs", "'bf16 constant streams'")
@@ -131,8 +137,8 @@ def advance_mu_t_fused(
     del kde, w, pp, rdn, cw, gw   # API parity (kde) / unported fuse_w state
     _check_modes(tensors=(u, v, t, t_1, ww_1, u_1, v_1, ft, tconst,
                           dvdxi_const),
-                 t_ave=t_ave, wind_scale=wind_scale, mudf_in=mudf_in,
-                 smdiv=smdiv, fuse_w=fuse_w, capture=capture,
+                 t_ave=t_ave, wind_scale=wind_scale, fuse_uv=fuse_uv,
+                 mudf_in=mudf_in, smdiv=smdiv, fuse_w=fuse_w, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
                  dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
@@ -141,8 +147,8 @@ def advance_mu_t_fused(
               rdx=rdx, rdy=rdy, dts=dts, epssm=epssm, dnw=dnw, fnm=fnm,
               fnp=fnp, rdnw=rdnw, msfuy=msfuy, msfvx_inv=msfvx_inv,
               msftx=msftx, msfty=msfty, window=window, k0=k0, k1=k1,
-              t_ave=t_ave, offsets=offsets, fuse_uv=fuse_uv, cs2=cs2,
-              with_tave=with_tave, ww_mode=ww_mode, ww_row=ww_row, lean=lean,
+              t_ave=t_ave, offsets=offsets, wind_scale=wind_scale,
+              fuse_uv=fuse_uv, cs2=cs2, with_tave=with_tave, ww_mode=ww_mode, ww_row=ww_row, lean=lean,
               tconst=tconst, dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
     if t.device.type == "cpu":
         return advance_mu_t_fused_plain(**kw)
@@ -156,7 +162,8 @@ def advance_mu_t_fused_plain(
     rdx, rdy, dts, epssm, dnw, fnm, fnp, rdnw,
     msfuy, msfvx_inv, msftx, msfty, window, k0: int, k1: int,
     kde: int | None = None,
-    t_ave=None, offsets=(0, 0), fuse_uv: bool = False, cs2: float = 0.0,
+    t_ave=None, offsets=(0, 0), wind_scale=1.0, fuse_uv: bool = False,
+    cs2: float = 0.0,
     with_tave: bool = True, ww_mode: str = "full", ww_row=None,
     lean: bool = False, tconst=None, dvdxi_const=None, ww1_k0=None,
 ):
@@ -172,7 +179,8 @@ def advance_mu_t_fused_plain(
     :func:`advance_mu_t_fused`.
     """
     del kde   # API parity
-    rdx, rdy, dts, epssm, cs2 = (_f32(s) for s in (rdx, rdy, dts, epssm, cs2))
+    rdx, rdy, dts, epssm, cs2, ws = (
+        _f32(s) for s in (rdx, rdy, dts, epssm, cs2, wind_scale))
     J, K, I = t.shape
     dev = t.device
     i0, i1, j0, j1 = (int(x) for x in window)
@@ -202,6 +210,8 @@ def advance_mu_t_fused_plain(
 
     # ---- fused wind substep (advance_uv) ---------------------------------
     u_in, v_in = u, v
+    if ws != 1.0:   # read-only winds, scaled on load (never with fuse_uv)
+        u, v = u * ws, v * ws
     if fuse_uv:
         p = cs2 * mu3
         u_mask = (i_glob >= i0 + 1) & (i_glob <= i1) & j_in
@@ -336,7 +346,7 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t
-        fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_float] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_float] * 6
                        + [ctypes.c_int] * 16 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
@@ -353,11 +363,34 @@ def block_width(K: int) -> int:
                      f"column buffer ({_SMEM_LIMIT // (32 * 4)} levels max)")
 
 
+def checked_pointers(fields: dict, shapes: dict, dev) -> list:
+    """``data_ptr()`` of each field the launch uses (None where unused),
+    after checking that it is a contiguous float32 tensor on ``dev`` of its
+    expected shape.  ``fields`` maps a name to ``(tensor, ndim, used)``;
+    ``shapes`` maps an ndim to the expected shape."""
+    ptrs = []
+    for name, (x, ndim, used) in fields.items():
+        if not used:
+            ptrs.append(None)
+            continue
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError(f"{name}: expected a tensor on {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {x.dtype}")
+        if tuple(x.shape) != shapes[ndim]:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                             f"{shapes[ndim]}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        ptrs.append(x.data_ptr())
+    return ptrs
+
+
 def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
             mu_tend, rdx, rdy, dts, epssm, dnw, fnm, fnp, rdnw, msfuy,
             msfvx_inv, msftx, msfty, window, k0, k1, t_ave, offsets,
-            fuse_uv, cs2, with_tave, ww_mode, ww_row, lean, tconst,
-            dvdxi_const, ww1_k0):
+            wind_scale, fuse_uv, cs2, with_tave, ww_mode, ww_row, lean,
+            tconst, dvdxi_const, ww1_k0):
     global LAUNCHES
     J, K, I = t.shape
     dev = t.device
@@ -378,21 +411,7 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         dnw=(dnw, 1, True), fnm=(fnm, 1, True), fnp=(fnp, 1, True),
         rdnw=(rdnw, 1, True),
     )
-    ptrs = []
-    for name, (x, ndim, used) in fields.items():
-        if not used:
-            ptrs.append(None)
-            continue
-        if not isinstance(x, torch.Tensor) or x.device != dev:
-            raise ValueError(f"{name}: expected a tensor on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {x.dtype}")
-        if tuple(x.shape) != shapes[ndim]:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
-                             f"{shapes[ndim]}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous")
-        ptrs.append(x.data_ptr())
+    ptrs = checked_pointers(fields, shapes, dev)
 
     res = {n: torch.empty((J, I), dtype=torch.float32, device=dev)
            for n in ("mu", "muave", "muts", "mudf")}
@@ -408,7 +427,8 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, *outs,
                  _f32(rdx), _f32(rdy), _f32(dts), _f32(epssm), _f32(cs2),
-                 J, K, I, i0, i1, j0, j1, j_off, i_off, int(k0), int(k1),
+                 _f32(wind_scale), J, K, I, i0, i1, j0, j1, j_off, i_off,
+                 int(k0), int(k1),
                  int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),
                  block_width(K), stream)
     if err != 0:
