@@ -22,35 +22,48 @@ not 0 and no result line is printed):
    S=8 and S=32 (rtol 2e-5, atol_scale 1e-6); exact S=8 and fast S=32
    timed at 512x512x50; then K2 exact S=8 against 8 K1 lite launches with
    the ramp's wind scales (bit-equality on t, mu and ww_row);
-5. the reference's golden-file check: 5 plain-call steps at 74x61x32
+5. K3, the coupled trapezoid, vs its plain version on the ring-S inputs
+   the blocked ``SmallStepLoop`` builds, at the same grids and BCs: exact
+   S=2, 4 and 8 (bit-equality) and fast S=4 (rtol 2e-5, atol_scale 1e-6),
+   and K4 (``coupled_two_step``, K3's S=2 instance) bit-equal to its plain
+   version; every mode timed at 512x512x50 (ms per substep); then K3 S=4
+   against 4 K1 fused-scan launches at 512x512x50 (rtol 2e-5, atol_scale
+   1e-6, with the ``different=`` counts);
+6. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
-6. the run_sim slice through its entry point: ``wrf_tpu_torch.run_sim``
-   for 3 large steps at 512x512x50 (balanced fixture, amplitude 1e-2),
-   which must launch K1 exactly 21 times and stay finite; then one RK3
-   step at 74x61x32 against the oracle's RK3 golden;
-7. the verification driver through its entry point,
+7. the run_sim slice through its entry point: ``wrf_tpu_torch.run_sim``
+   for 3 large steps at 512x512x50 (balanced fixture, amplitude 1e-2):
+   by default it must launch K1 exactly 21 times, with ``--inner-steps 2``
+   (and ``--fast``) K3 3 times and K1 15 times, and stay finite; then one
+   RK3 step at 74x61x32 against the oracle's RK3 golden, with and without
+   ``inner_steps=2`` (acoustic_steps 4 and 8);
+8. the verification driver through its entry point,
    ``wrf_tpu_torch.driver``: tiers cuda and sharded-cuda (S=1, S=8, S=8
-   --fast) at 74x61x32 for 1 and 100 steps under the three lateral BCs,
-   then the mu/t slice's main path, sharded-cuda --inner-steps 8 at
-   512x512x50 for 17 steps, which must launch K2 4 times and K1 twice;
-   every run against the C++ oracle's goldens at the driver's gate;
-8. the mu/t loop's marginal ms per substep (``ShardedAdvanceMuT``, two
-   step counts, as ``bench.py`` measures it): S=1 and exact S=8 at
-   n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
-   74x61x32.
+   --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
+   --fast) for 100 steps under the three lateral BCs, then the mu/t
+   slice's main path, sharded-cuda --inner-steps 8 at 512x512x50 for 17
+   steps (K2 4 launches, K1 2), and the coupled slice's, coupled
+   --inner-steps 4 for 9 steps (K3 4 launches, K1 2); every run against
+   the C++ oracle's goldens or the numpy golden loop at the driver's gate;
+9. the loops' marginal ms per substep (two step counts, as ``bench.py``
+   measures it): the mu/t loop (``ShardedAdvanceMuT``) S=1 and exact S=8
+   at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
+   74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
+   and fast S=4 at n=65/257 at 512x512x50.
 
-The last two lines of standard output are the kernel table
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  The script
-uses torch, the port and the jax-free modules of wrf_tpu (fixtures,
-comparators, the C++ oracle), and checks at the end that jax was never
-imported.
+The last three lines of standard output are the card's name and power
+limit (again), the kernel table ``{"kernels": [...]}`` and ``{"ok": true,
+"device": {...}}``.  The script uses torch, the port and the jax-free
+modules of wrf_tpu (fixtures, comparators, the C++ oracle), and checks at
+the end that jax was never imported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -91,6 +104,13 @@ K2_MODES = {
 }
 K2_TIMED = ("exact S=8", "fast S=32")
 DW = 1e-7   # the loop's wind ramp per substep
+#: K3's modes: (depth S, fast)
+K3_MODES = {
+    "exact S=2": (2, False),
+    "exact S=4": (4, False),
+    "exact S=8": (8, False),
+    "fast S=4": (4, True),
+}
 
 
 def phase_env():
@@ -122,6 +142,21 @@ def phase_build():
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"[build]   {line.strip()}")
     return secs
+
+
+@functools.lru_cache(maxsize=None)
+def case_at(grid, bc="specified", balanced=False):
+    """The phases' fixture case at ``grid`` under the lateral BC ``bc``
+    (seed 2026; ``balanced``: the calm long-horizon fixture, amplitude
+    1e-2), made once per run: a 512x512x50 case takes seconds to make,
+    and nothing writes to its arrays (the port copies them to the card,
+    the oracle copies what it updates)."""
+    from wrf_tpu.grid import ConfigFlags
+    from wrf_tpu_torch.io.fixtures import make_case
+
+    extra = dict(amplitude=1e-2, balanced=True) if balanced else {}
+    return make_case(*grid, halo=3, seed=2026,
+                     flags=ConfigFlags(**BC_VARIANTS[bc]), **extra)
 
 
 def padded_inputs(case, device):
@@ -217,8 +252,6 @@ def phase_kernel_vs_plain(
                (REF_GRID, "open"), (BIG_GRID, "specified")),
         time_grids=(REF_GRID, BIG_GRID), card=""):
     import torch
-    from wrf_tpu.grid import ConfigFlags
-    from wrf_tpu_torch.io.fixtures import make_case
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
         advance_mu_t_fused, advance_mu_t_fused_plain,
     )
@@ -226,9 +259,7 @@ def phase_kernel_vs_plain(
     max_abs = 0.0
     timings = {}
     for grid, bc in cases:
-        case = make_case(*grid, halo=3, seed=2026,
-                         flags=ConfigFlags(**BC_VARIANTS[bc]))
-        arr, static = padded_inputs(case, "cuda")
+        arr, static = padded_inputs(case_at(grid, bc), "cuda")
         J, K, I = arr["t"].shape
         for mode in MODES:
             mkw = mode_kwargs(mode, arr, static)
@@ -257,16 +288,19 @@ def phase_kernel_vs_plain(
     return max_abs, timings
 
 
-def check_fields(tag, got, want, bit_exact=False):
+def check_fields(tag, got, want, bit_exact=False, diffs=None):
     """Compare two dicts of CUDA tensors field by field at KERNEL_TOL (and
     to the bit with ``bit_exact``); prints one line per field and raises
-    on a failure.  Returns the largest max_abs error."""
+    on a failure.  Returns the largest max_abs error; ``diffs`` collects
+    each field's count of differing elements."""
     from wrf_tpu.compare import compare
 
     max_abs = 0.0
     for name in sorted(want):
         r = compare(got[name].cpu().numpy(), want[name].cpu().numpy(), name,
                     **KERNEL_TOL)
+        if diffs is not None:
+            diffs[name] = r.different
         print(f"[{tag}] {name:7s} max_abs={r.max_abs_err:.3e} "
               f"max_rel={r.max_rel_err:.3e} scaled={r.max_scaled_err:.3f} "
               f"different={r.different}")
@@ -301,8 +335,6 @@ def phase_k2_vs_plain(
         cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
     import torch
-    from wrf_tpu.grid import ConfigFlags
-    from wrf_tpu_torch.io.fixtures import make_case
     from wrf_tpu_torch.ops.advance_mu_t_msteps_cuda import (
         advance_mu_t_multistep, advance_mu_t_multistep_plain,
     )
@@ -310,9 +342,7 @@ def phase_k2_vs_plain(
     max_abs = 0.0
     timings = {}
     for grid, bc in cases:
-        case = make_case(*grid, halo=3, seed=2026,
-                         flags=ConfigFlags(**BC_VARIANTS[bc]))
-        arr, static = padded_inputs(case, "cuda")
+        arr, static = padded_inputs(case_at(grid, bc), "cuda")
         ins = k2_inputs(arr, static)
         J, K, I = arr["t"].shape
         for mode, mkw in K2_MODES.items():
@@ -350,13 +380,12 @@ def phase_k2_vs_k1(grid=BIG_GRID, n_inner=8, step0=16):
     """K2 exact against n_inner K1 lean/lite launches with the ramp's
     wind scales: the blocked loop's bit-compatibility contract."""
     import torch
-    from wrf_tpu_torch.io.fixtures import make_case
     from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
     from wrf_tpu_torch.ops.advance_mu_t_msteps_cuda import (
         advance_mu_t_multistep, wind_ramp,
     )
 
-    arr, static = padded_inputs(make_case(*grid, halo=3, seed=2026), "cuda")
+    arr, static = padded_inputs(case_at(grid), "cuda")
     ins = k2_inputs(arr, static)
     got = advance_mu_t_multistep(**fresh_state(ins), **static,
                                  n_inner=n_inner, wind_step0=step0,
@@ -373,6 +402,119 @@ def phase_k2_vs_k1(grid=BIG_GRID, n_inner=8, step0=16):
     torch.cuda.synchronize()
     check_fields(f"k2 vs {n_inner} k1 {grid[0]}x{grid[1]}x{grid[2]}",
                  got, state, bit_exact=True)
+
+
+def k3_inputs(arr, static, S):
+    """What one K3 launch of the blocked coupled loop receives: the padded
+    fields widened to ring S, the lean and coupled constants computed on
+    the widened fields, and a scan-seed row; plus its static arguments."""
+    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
+        coupled_lean_kwargs,
+    )
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
+    from wrf_tpu_torch.parallel.halo import widen_ring_to
+
+    k0, k1 = static["k0"], static["k1"]
+    sc = (static["rdx"], static["rdy"], static["dts"])
+    src = dict(arr, ww_row=(arr["ww"][:, k0, :]
+                            + 0.01 * arr["ww_1"][:, k0 + 1, :]).contiguous())
+    wide = {k: widen_ring_to(v, 0, S) if v.ndim > 1 else v
+            for k, v in src.items()}
+    ins = {k: wide[k] for k in ("u", "v", "t", "t_1", "mu", "mu_tend",
+                                "msftx", "msfty", "ww_row", "dnw", "fnm",
+                                "fnp", "rdnw")}
+    ins.update(lean_kwargs(wide, *sc, k0, k1))
+    ins.update(coupled_lean_kwargs(wide, *sc))
+    return ins, dict(static, cs2=DEFAULT_CS2)
+
+
+def fresh_k3(ins):
+    """A copy of K3's inputs with its own t and ww_row (updated in place)."""
+    return {**ins, **{n: ins[n].clone() for n in ("t", "ww_row")}}
+
+
+def phase_k3_vs_plain(
+        cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+               (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
+    """K3 (and K4, its S=2 instance) against the plain version; every mode
+    timed at the big grid, ms per substep (per launch / S) with CUDA
+    events in the order plain, kernel, kernel, plain."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
+        coupled_multistep, coupled_multistep_plain, coupled_two_step,
+    )
+
+    runs = {m: (coupled_multistep, S, dict(n_inner=S, fast=fast))
+            for m, (S, fast) in K3_MODES.items()}
+    runs["k4 pair"] = (coupled_two_step, 2, {})
+    max_abs = {"k3": 0.0, "k4": 0.0}
+    timings = {}
+    for grid, bc in cases:
+        arr, static = padded_inputs(case_at(grid, bc), "cuda")
+        for mode, (fn, S, mkw) in runs.items():
+            kern = "k4" if fn is coupled_two_step else "k3"
+            ins, st = k3_inputs(arr, static, S)
+            pkw = dict(mkw, n_inner=S)
+            got = fn(**fresh_k3(ins), **st, **mkw)
+            want = coupled_multistep_plain(**fresh_k3(ins), **st, **pkw)
+            torch.cuda.synchronize()
+            tag = f"k3 {grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
+            max_abs[kern] = max(max_abs[kern], check_fields(
+                tag, got, want, bit_exact=not mkw.get("fast")))
+            if grid == BIG_GRID:
+                a_k, a_p = fresh_k3(ins), fresh_k3(ins)
+                out = {"cuda": [], "plain": []}
+                for name, f, kw, reps in (
+                        ("plain", coupled_multistep_plain, pkw, 2),
+                        ("cuda", fn, mkw, 20), ("cuda", fn, mkw, 20),
+                        ("plain", coupled_multistep_plain, pkw, 2)):
+                    a = a_k if name == "cuda" else a_p
+                    out[name].append(cuda_ms(
+                        lambda: f(**a, **st, **kw), reps) / S)
+                timings[mode] = out
+                J, K, I = ins["t"].shape
+                print(f"[k3 time {J}x{K}x{I} {mode}] ms per substep: kernel "
+                      f"{out['cuda'][0]:.4f} / {out['cuda'][1]:.4f}, plain "
+                      f"{out['plain'][0]:.3f} / {out['plain'][1]:.3f} "
+                      f"(order plain, kernel, kernel, plain; {card})")
+            del ins, got, want
+        del arr
+        torch.cuda.empty_cache()
+    return max_abs, timings
+
+
+def phase_k3_vs_k1(grid=BIG_GRID, S=4):
+    """K3 exact against S K1 fused-scan launches (fuse_uv, lean, lite) on
+    the ring-1 layout: the blocked loop against the loop it replaces.
+    Held to KERNEL_TOL; bit-equality is the stretch goal, and the
+    different= counts say how far it is met.  Returns them."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import coupled_multistep
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, lean_kwargs,
+    )
+    from wrf_tpu_torch.parallel.halo import strip_ring
+
+    arr, static = padded_inputs(case_at(grid), "cuda")
+    ins, st = k3_inputs(arr, static, S)
+    got = coupled_multistep(**fresh_k3(ins), **st, n_inner=S)
+    got = {k: strip_ring(v, 0, S) for k, v in got.items()}
+    carry = ("ww_row", "mu", "t", "u", "v")
+    state = {k: strip_ring(ins[k], 0, S).clone() for k in carry}
+    const = {k: v for k, v in arr.items() if k not in carry}
+    lean = lean_kwargs(arr, static["rdx"], static["rdy"], static["dts"],
+                       static["k0"], static["k1"])
+    for _ in range(S):
+        out = advance_mu_t_fused(**const, **state, **lean, **st,
+                                 fuse_uv=True, with_tave=False,
+                                 ww_mode="lite", lean=True)
+        state = {k: out[k] for k in carry}
+    torch.cuda.synchronize()
+    diffs = {}
+    check_fields(f"k3 vs {S} k1 {grid[0]}x{grid[1]}x{grid[2]}", got, state,
+                 diffs=diffs)
+    return diffs
 
 
 def phase_golden_file(tmp: Path):
@@ -440,61 +582,103 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str):
     return out
 
 
-def phase_slice(tmp: Path, fx: Path):
+def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
+    """``python -m wrf_tpu_torch.run_sim`` for 3 large steps in this process,
+    with every launch count set to 0 just before; returns the K1, K3 and
+    K4 launches and the ms of each large step, after checking that the final
+    checkpoint is finite."""
     import numpy as np
-    import torch
-    from wrf_tpu.compare import compare
     from wrf_tpu.io import checkpoint
     from wrf_tpu_torch import run_sim
-    from wrf_tpu_torch.convert import arrays_to_numpy
-    from wrf_tpu_torch.io.fixtures import make_case
-    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
     from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
-    from wrf_tpu_torch.parallel.sharded import case_to_domain, embed_outputs
 
     buf = io.StringIO()
-    k1.LAUNCHES = 0
+    k1.LAUNCHES = k3.LAUNCHES = k3.PAIR_LAUNCHES = 0
     with contextlib.redirect_stdout(buf):
         rc = run_sim.main([str(fx), "--steps", "3", "--device", "cuda",
                            "--diagnostics", "--checkpoint-dir",
-                           str(tmp / "ck"), "--checkpoint-every", "3"])
-    launches = k1.LAUNCHES
+                           str(tmp / name), "--checkpoint-every", "3",
+                           *flags])
+    launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES,
+                "k4": k3.PAIR_LAUNCHES}
     for line in buf.getvalue().splitlines():
-        print(f"[run_sim] {line}")
+        print(f"[run_sim {name}] {line}")
     if rc != 0:
-        raise AssertionError(f"run_sim returned {rc}")
-    if launches != 3 * (1 + 2 + 4):
-        raise AssertionError(f"run_sim launched K1 {launches} times, "
-                             "expected 21")
-    state, step, _ = checkpoint.load_checkpoint(tmp / "ck" / "step_000003")
+        raise AssertionError(f"run_sim {name} returned {rc}")
+    state, step, _ = checkpoint.load_checkpoint(tmp / name / "step_000003")
     if step != 3 or not all(np.isfinite(v).all() for v in state.values()):
-        raise AssertionError("run_sim's final state is not finite")
+        raise AssertionError(f"run_sim {name}: final state is not finite")
     checksum = float(np.sum(state["t"], dtype=np.float64))
     step_ms = [float(m.group(1)) for m in
                re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
-    print(f"[slice] run_sim 3 large steps at {BIG_GRID}: K1 launches "
+    print(f"[slice] run_sim {name} 3 large steps at {BIG_GRID}: launches "
           f"{launches}, checksum {checksum:.6e}, step ms {step_ms}")
+    return launches, step_ms
 
-    case = make_case(*REF_GRID, halo=3, seed=2026)
+
+def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict):
+    """One RK3 step at the reference grid against the C++ oracle's RK3
+    golden, with the launches it must make."""
+    import torch
+    from wrf_tpu.compare import compare
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.parallel.sharded import case_to_domain, embed_outputs
+
+    case = case_at(REF_GRID)
     b = case.bounds
-    dt = case.dts * 4
-    rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags, acoustic_steps=4,
-                        kernel="cuda", snapshot="stage", device="cuda")
-    before = k1.LAUNCHES
-    out = rk3.step(rk3.prepare(case_to_domain(case)), case.rdx, case.rdy,
-                   dt, case.epssm)
+    dt = case.dts * acoustic_steps
+    rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
+                        acoustic_steps=acoustic_steps, kernel="cuda",
+                        snapshot="stage", device="cuda",
+                        inner_steps=inner_steps)
+    arrays = rk3.prepare(case_to_domain(case))
+    k1.LAUNCHES = k3.LAUNCHES = 0
+    out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm)
     torch.cuda.synchronize()
-    if k1.LAUNCHES - before != 7:
-        raise AssertionError(f"one RK3 step launched K1 "
-                             f"{k1.LAUNCHES - before} times, expected 7")
+    launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES}
+    tag = f"rk3 ns={acoustic_steps} S={inner_steps}"
+    if launches != expected:
+        raise AssertionError(f"{tag} launched {launches}, expected "
+                             f"{expected}")
     got = embed_outputs(case, arrays_to_numpy(out))
-    gold = rk3_golden_native(case, 4, dt, "stage")
+    gold = rk3_golden_native(case, acoustic_steps, dt, "stage")
     for name in sorted(got):
         r = compare(got[name], gold[name], name, **DEVICE_TOL)
-        print(f"[rk3 vs oracle] {r}")
+        print(f"[{tag} vs oracle] {r}")
         if not r.passed:
-            raise AssertionError(f"RK3 step vs oracle: {r}")
-    return launches, step_ms
+            raise AssertionError(f"{tag} vs oracle: {r}")
+
+
+def phase_slice(tmp: Path, fx: Path):
+    """run_sim at 512x512x50 through its entry point, by default and with
+    the coupled trapezoid (acoustic_steps=4: stages of 1, 2 and 4
+    substeps; at S=2 only the last blocks, one K3 launch, one lite and the
+    final K1 substep), then RK3 steps against the oracle.  Returns the
+    launches and ms per large step of each run."""
+    runs = {"S=1": ((), {"k1": 21, "k3": 0, "k4": 0}),
+            "S=2": (("--inner-steps", "2"), {"k1": 15, "k3": 3, "k4": 0}),
+            "S=2 fast": (("--inner-steps", "2", "--fast"),
+                         {"k1": 15, "k3": 3, "k4": 0})}
+    out = {}
+    for name, (flags, expected) in runs.items():
+        launches, step_ms = run_sim_launches(tmp, fx, name.replace(" ", "_"),
+                                             *flags)
+        if launches != expected:
+            raise AssertionError(f"run_sim {name} launched {launches}, "
+                                 f"expected {expected}")
+        out[name] = launches, step_ms
+    for name in runs:   # steps 2 and 3: step 1 includes the allocations
+        step_ms = out[name][1]
+        print(f"[slice] run_sim {name}: {sum(step_ms[1:]) / 2:.3f} ms per "
+              f"large step (mean of steps 2-3; step 3 alone {step_ms[2]:.3f})")
+    rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0})
+    # stages of 1, 4 and 8 substeps: K3 1 + 3, K1 1 + 2 + 2
+    rk3_vs_oracle(8, 2, {"k1": 5, "k3": 4})
+    return out
 
 
 def run_driver(tag, *argv):
@@ -521,49 +705,78 @@ DRIVER_TIERS = {
     "sharded-cuda S=8 fast": ("--tier", "sharded-cuda", "--inner-steps", "8",
                               "--fast"),
 }
+#: the coupled tiers, verified against the numpy golden loop (100 steps)
+COUPLED_TIERS = {
+    "coupled S=1": ("--tier", "coupled"),
+    "coupled S=2": ("--tier", "coupled", "--inner-steps", "2"),
+    "coupled S=4": ("--tier", "coupled", "--inner-steps", "4"),
+    "coupled S=4 fast": ("--tier", "coupled", "--inner-steps", "4", "--fast"),
+}
 
 
-def phase_driver(tmp: Path, fx_big: Path, big_steps: int):
-    """The driver's tiers against the oracle's goldens: 1 and 100 steps at
-    the reference grid under every lateral BC, then the mu/t slice's main
-    path at 512x512x50; returns the K1 and K2 launches of that run."""
-    from wrf_tpu.grid import ConfigFlags
+def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
+                 coupled_steps: int = 9):
+    """The driver's tiers at the reference grid under every lateral BC
+    (against the oracle's goldens, 1 and 100 steps; the coupled tiers
+    against the numpy golden loop, 100 steps), then the two blocked main
+    paths at 512x512x50: the mu/t loop (sharded-cuda S=8) and the coupled
+    loop (coupled S=4).  Returns the launches of each."""
     from wrf_tpu.io import fixtures
-    from wrf_tpu_torch.io.fixtures import make_case
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
     from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
     from wrf_tpu_torch.ops import advance_mu_t_msteps_cuda as k2
 
-    for bc, flags in BC_VARIANTS.items():
-        case = make_case(*REF_GRID, halo=3, seed=2026,
-                         flags=ConfigFlags(**flags))
+    t0 = time.perf_counter()
+    for bc in BC_VARIANTS:
+        case = case_at(REF_GRID, bc)
         for steps in (1, 100):
             fx = fixtures.write_case(case, tmp / f"ref_{bc}_{steps}",
                                      steps=steps)
-            for tier, args in DRIVER_TIERS.items():
+            tiers = {**DRIVER_TIERS, **(COUPLED_TIERS if steps == 100
+                                        else {})}
+            for tier, args in tiers.items():
                 run_driver(f"{bc} {steps} steps {tier}", fx, *args)
+    print(f"[time] driver at {REF_GRID}: {time.perf_counter() - t0:.1f} s")
 
-    k1.LAUNCHES = k2.LAUNCHES = 0
-    run_driver("x".join(map(str, BIG_GRID)) + f" {big_steps} steps "
-               "sharded-cuda S=8", fx_big, *DRIVER_TIERS["sharded-cuda S=8"])
-    launches = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES}
-    # a warm-up and a timed loop call, each (steps-1)//8 K2 passes, the
-    # remaining single substeps and the final substep on K1
-    expected = {"k1": 2 * (1 + (big_steps - 1) % 8),
-                "k2": 2 * ((big_steps - 1) // 8)}
-    if launches != expected:
-        raise AssertionError(f"the mu/t main path launched {launches}, "
-                             f"expected {expected}")
-    print(f"[driver] mu/t main path launches: {launches}")
-    return launches
+    big = "x".join(map(str, BIG_GRID))
+    paths = {
+        "mu/t": (f"{big} {big_steps} steps sharded-cuda S=8",
+                 DRIVER_TIERS["sharded-cuda S=8"], 8, big_steps),
+        "coupled": (f"{big} {coupled_steps} steps coupled S=4",
+                    COUPLED_TIERS["coupled S=4"]
+                    + ("--steps", str(coupled_steps)), 4, coupled_steps),
+    }
+    out = {}
+    for path, (tag, args, S, steps) in paths.items():
+        t0 = time.perf_counter()
+        k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+        run_driver(tag, fx_big, *args)
+        launches = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "k3": k3.LAUNCHES}
+        # a warm-up and a timed loop call, each (steps-1)//S blocked passes
+        # (K2 or K3), the remaining single substeps and the final substep
+        # on K1
+        blocked = 2 * ((steps - 1) // S)
+        expected = {"k1": 2 * (1 + (steps - 1) % S),
+                    "k2": blocked if path == "mu/t" else 0,
+                    "k3": blocked if path == "coupled" else 0}
+        if launches != expected:
+            raise AssertionError(f"the {path} main path launched "
+                                 f"{launches}, expected {expected}")
+        print(f"[driver] {path} main path launches: {launches} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        out[path] = launches
+    return out
 
 
-def loop_marginal_ms(case, counts, reps=5, **kw):
-    """ms per substep of ShardedAdvanceMuT by the difference of two step
-    counts (host clock around a call that ends in a synchronise; best of
-    ``reps``), so the per-call set-up cancels."""
+def loop_marginal_ms(case, counts, reps=5, coupled=False, **kw):
+    """ms per substep of ShardedAdvanceMuT (the coupled SmallStepLoop with
+    ``coupled``) by the difference of two step counts (host clock around a
+    call that ends in a synchronise; best of ``reps``), so the per-call
+    set-up cancels."""
     import math
 
     import torch
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.parallel.sharded import (
         ShardedAdvanceMuT, case_to_domain,
     )
@@ -571,9 +784,13 @@ def loop_marginal_ms(case, counts, reps=5, **kw):
     b = case.bounds
     best = {}
     for n in counts:
-        loop = ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags,
-                                 n_steps=n, vary_winds=True, device="cuda",
-                                 **kw)
+        if coupled:
+            loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=n,
+                                 device="cuda", **kw)
+        else:
+            loop = ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags,
+                                     n_steps=n, vary_winds=True,
+                                     device="cuda", **kw)
         arrays = loop.prepare(case_to_domain(case))
         checksum = float(loop(arrays, case.rdx, case.rdy, case.dts,
                               case.epssm)["t"].sum())
@@ -596,19 +813,30 @@ LOOP_ROWS = {
     "512x512x50 fast S=32": (BIG_GRID, (129, 513),
                              dict(inner_steps=32, fast=True)),
     "74x61x32 exact S=8": (REF_GRID, (65, 257), dict(inner_steps=8)),
+    "coupled 512x512x50 S=1": (BIG_GRID, (65, 257), dict(coupled=True)),
+    **{f"coupled 512x512x50 {m}": (BIG_GRID, (65, 257), dict(
+        coupled=True, inner_steps=S, fast=fast))
+       for m, (S, fast) in K3_MODES.items()},
 }
 
 
 def phase_loop_timings(card=""):
-    from wrf_tpu_torch.io.fixtures import make_case
 
-    cases = {g: make_case(*g, halo=3, seed=2026, amplitude=1e-2,
-                          balanced=True) for g in (BIG_GRID, REF_GRID)}
+    cases = {g: case_at(g, balanced=True) for g in (BIG_GRID, REF_GRID)}
     out = {}
     for name, (grid, counts, kw) in LOOP_ROWS.items():
         out[name] = loop_marginal_ms(cases[grid], counts, **kw)
         print(f"[loop {name}] n={counts[0]}/{counts[1]}: "
               f"{out[name]:.4f} ms per substep ({card})")
+    return out
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, printing its wall time (host clock) as
+    ``[time] name: N s``: where the script's run time goes."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -619,54 +847,94 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import wrf_tpu_torch  # noqa: F401  (fails outside the repository)
     from wrf_tpu.io import fixtures
-    from wrf_tpu_torch.io.fixtures import make_case
 
-    phase_build()
-    k1_abs, k1_times = phase_kernel_vs_plain(card=smi)
-    k2_abs, k2_times = phase_k2_vs_plain(card=smi)
-    phase_k2_vs_k1()
+    timed("build", phase_build)
+    k1_abs, k1_times = timed("k1 vs plain", phase_kernel_vs_plain, card=smi)
+    k2_abs, k2_times = timed("k2 vs plain", phase_k2_vs_plain, card=smi)
+    timed("k2 vs k1", phase_k2_vs_k1)
+    k3_abs, k3_times = timed("k3 vs plain", phase_k3_vs_plain, card=smi)
+    k3_vs_k1 = timed("k3 vs k1", phase_k3_vs_k1)
+    print(f"[k3 vs k1] different= counts: {k3_vs_k1}")
     big_steps = 17
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        phase_golden_file(tmp)
+        timed("golden file", phase_golden_file, tmp)
         # the repo's long-horizon fixture (balanced, calm): the degenerate
         # stage-snapshot shell run_sim drives amplifies the state ~5e4x
         # per large step, and the noise fixture overflows by step 3.  Its
         # goldens are the oracle's 17 small steps, for the driver.
-        fx_big = fixtures.write_case(make_case(
-            *BIG_GRID, halo=3, seed=2026, amplitude=1e-2, balanced=True),
-            tmp / "big", steps=big_steps)
-        sim_launches, _ = phase_slice(tmp, fx_big)
-        mut_launches = phase_driver(tmp, fx_big, big_steps)
-    phase_loop_timings(card=smi)
+        fx_big = timed("big fixture", fixtures.write_case,
+                       case_at(BIG_GRID, balanced=True), tmp / "big",
+                       steps=big_steps)
+        sim = timed("run_sim slice", phase_slice, tmp, fx_big)
+        drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
+    timed("loop timings", phase_loop_timings, card=smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     def mean(xs):
         return sum(xs) / len(xs)
 
+    def k3_ms(mode):
+        return {k: mean(v) for k, v in k3_times[mode].items()}
+
+    print(smi)   # again, close to the end: the log is long
     print(json.dumps({"kernels": [{
         "name": "advance_mu_t_fused",
         "route": "cuda",
         "source": "wrf_tpu_torch/csrc/advance_mu_t.cu",
         "replaces": "wrf_tpu/ops/advance_mu_t_pallas.py:114",
-        "launches": mut_launches["k1"],
-        "launches_by_path": {"run_sim": sim_launches,
-                             "driver sharded-cuda S=8": mut_launches["k1"]},
+        "launches": sim["S=1"][0]["k1"],
+        "launches_by_path": {
+            "run_sim": sim["S=1"][0]["k1"],
+            "run_sim --inner-steps 2": sim["S=2"][0]["k1"],
+            "driver sharded-cuda S=8": drv["mu/t"]["k1"],
+            "driver coupled S=4": drv["coupled"]["k1"]},
         "max_abs_err": k1_abs,
-        # ms per launch at 516x50x516: the mu/t loop's lite substep
-        "ms": mean(k1_times[BIG_GRID, "lite_ws"]["cuda"]),
-        "plain_ms": mean(k1_times[BIG_GRID, "lite_ws"]["plain"]),
+        # ms per launch at 516x50x516: run_sim's fused scan substep
+        "ms": mean(k1_times[BIG_GRID, "scan"]["cuda"]),
+        "plain_ms": mean(k1_times[BIG_GRID, "scan"]["plain"]),
     }, {
         "name": "advance_mu_t_multistep",
         "route": "cuda",
         "source": "wrf_tpu_torch/csrc/advance_mu_t_msteps.cu",
         "replaces": "wrf_tpu/ops/advance_mu_t_msteps.py:391",
-        "launches": mut_launches["k2"],
+        "launches": drv["mu/t"]["k2"],
+        "launches_by_path": {"driver sharded-cuda S=8": drv["mu/t"]["k2"]},
         "max_abs_err": k2_abs,
         # ms per substep at 516x50x516, exact S=8
         "ms": mean(k2_times["exact S=8"]["cuda"]),
         "plain_ms": mean(k2_times["exact S=8"]["plain"]),
+    }, {
+        "name": "coupled_multistep",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled.cu",
+        "replaces": "wrf_tpu/ops/advance_mu_t_msteps.py:1273",
+        "launches": sim["S=2"][0]["k3"],
+        "launches_by_path": {
+            "run_sim --inner-steps 2": sim["S=2"][0]["k3"],
+            "run_sim --inner-steps 2 --fast": sim["S=2 fast"][0]["k3"],
+            "driver coupled S=4": drv["coupled"]["k3"]},
+        "max_abs_err": k3_abs["k3"],
+        # ms per substep (per launch / S) at 512x512x50, exact S=2 (the
+        # run_sim path's depth); every mode in ms_by_mode
+        "ms": k3_ms("exact S=2")["cuda"],
+        "plain_ms": k3_ms("exact S=2")["plain"],
+        "ms_by_mode": {m: k3_ms(m) for m in K3_MODES},
+    }, {
+        "name": "coupled_two_step",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled.cu",
+        "replaces": "wrf_tpu/ops/advance_mu_t_msteps.py:818",
+        # no loop of the port calls it: the loop runs K3 at every depth,
+        # S=2 included (the same template instance), so this reads 0
+        "on_main_path": False,
+        "launches": sim["S=2"][0]["k4"],
+        "launches_by_path": {"run_sim --inner-steps 2": sim["S=2"][0]["k4"]},
+        "max_abs_err": k3_abs["k4"],
+        # ms per substep at 512x512x50
+        "ms": k3_ms("k4 pair")["cuda"],
+        "plain_ms": k3_ms("k4 pair")["plain"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

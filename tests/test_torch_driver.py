@@ -17,8 +17,8 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def fx9(tmp_path_factory, request):
-    """A 9-step small_case fixture: the blocked rows run whole K2 passes
-    (S=2: 4 passes; S=4: 2) before the single-step tail."""
+    """A 9-step small_case fixture: the blocked rows run whole K2 or K3
+    passes (S=2: 4 passes; S=4: 2) before the single-step tail."""
     case = request.getfixturevalue("small_case")
     return fixtures.write_case(case, tmp_path_factory.mktemp("fx9"), steps=9)
 
@@ -42,6 +42,9 @@ def test_numpy_tier_bit_exact(fx9, capsys):
     ("--tier", "sharded-cuda", "--inner-steps", "2"),
     ("--tier", "sharded-cuda", "--inner-steps", "2", "--fast"),
     ("--tier", "coupled"),
+    ("--tier", "coupled", "--inner-steps", "2"),
+    ("--tier", "coupled", "--inner-steps", "2", "--fast"),
+    ("--tier", "coupled", "--inner-steps", "3"),
 ])
 def test_tier_passes(fx9, capsys, args):
     rc, out = _main(capsys, fx9, *args)
@@ -59,7 +62,7 @@ def test_coupled_native_bit_exact(fx9, capsys):
 def test_all_tiers(fx9, capsys):
     rc, out = _main(capsys, fx9, "--tier", "all")
     assert rc == 0, out
-    assert out.count("PASS") == len(driver.ALL_ROWS) == 10
+    assert out.count("PASS") == len(driver.ALL_ROWS) == 12
     assert "FAIL" not in out and "ERROR" not in out
     for tier in ("numpy", "native"):
         line = next(ln for ln in out.splitlines()
@@ -85,7 +88,6 @@ def test_device_cuda_without_gpu_exits(fx9):
 @pytest.mark.parametrize("args", [
     ("--mesh", "2x2"), ("--with-w",), ("--precision", "bf16-const"),
     ("--halo-backend", "rdma"), ("--dump-intermediates", "dump"),
-    ("--tier", "coupled", "--inner-steps", "2"),
 ])
 def test_unported_options_exit(fx9, args):
     with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):

@@ -34,11 +34,13 @@ _CHILD = textwrap.dedent("""
     from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.parallel.sharded import case_to_domain
     case = make_case(12, 10, 6, halo=2, seed=3)
-    loop = SmallStepLoop(case.bounds.ide, case.bounds.jde, case.bounds.kdim,
-                         case.flags, n_steps=2, kernel="plain", device="cpu")
-    out = loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy,
-               case.dts, case.epssm)
-    assert torch.isfinite(out["t"]).all()
+    for inner in (1, 2):
+        loop = SmallStepLoop(case.bounds.ide, case.bounds.jde,
+                             case.bounds.kdim, case.flags, n_steps=3,
+                             kernel="plain", inner_steps=inner, device="cpu")
+        out = loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy,
+                   case.dts, case.epssm)
+        assert torch.isfinite(out["t"]).all()
     assert "jax" not in sys.modules, "jax was imported"
     print("MODULES", len(names))
 """)
@@ -103,5 +105,6 @@ def test_library_name_tracks_sources():
     assert p.parent == _build.BUILD_DIR
     assert p.name.startswith("libwrf_tpu_torch_") and p.suffix == ".so"
     assert p == _build.library_path()
-    assert [s.name for s in _build.sources()] == ["advance_mu_t.cu",
-                                                  "advance_mu_t_msteps.cu"]
+    assert [s.name for s in _build.sources()] == [
+        "advance_mu_t.cu", "advance_mu_t_coupled.cu",
+        "advance_mu_t_msteps.cu"]

@@ -141,7 +141,7 @@ def test_run_sim_resume_continues(tmp_path, small_case, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x2"], ["--with-w"], ["--inner-steps", "2"], ["--fast"],
+    ["--mesh", "2x2"], ["--with-w"],
     ["--precision", "bf16-const"], ["--halo-backend", "rdma"],
     ["--closure", "nudge"], ["--steps-per-sync", "2"],
     ["--profile", "trace"],
@@ -150,3 +150,27 @@ def test_run_sim_rejects_unported_flags(tmp_path, flags):
     """Checked before the fixture is read."""
     with pytest.raises(SystemExit, match="not yet ported"):
         run_sim.main([str(tmp_path / "fx"), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("extra", [[], ["--fast"]])
+def test_run_sim_blocked_runs(tmp_path, small_case, capsys, extra):
+    """--inner-steps 2 on the CPU: one large step at acoustic_steps=4 runs
+    one K3 block in its last stage; the checkpoint is finite and agrees
+    with the unblocked run at the loop tolerance."""
+    fx = str(fixtures.write_case(small_case, tmp_path / "fx", steps=1))
+    for name, flags in (("blk", ["--inner-steps", "2", *extra]), ("ref", [])):
+        assert run_sim.main([fx, "--device", "cpu", "--checkpoint-dir",
+                             str(tmp_path / name), *flags]) == 0
+    assert capsys.readouterr().out.count("grid-points/s") == 2
+    blk, step, _ = checkpoint.load_checkpoint(tmp_path / "blk" / "step_000001")
+    ref, _, _ = checkpoint.load_checkpoint(tmp_path / "ref" / "step_000001")
+    assert step == 1 and sorted(blk) == sorted(STATE)
+    assert all(np.isfinite(v).all() for v in blk.values())
+    outputs_allclose(blk, ref, **TOL)
+
+
+def test_run_sim_fast_requires_inner_steps(tmp_path, small_case):
+    """--fast alone fails as the loop's validation does."""
+    fx = str(fixtures.write_case(small_case, tmp_path / "fx", steps=1))
+    with pytest.raises(ValueError, match="inner_steps > 1"):
+        run_sim.main([fx, "--device", "cpu", "--fast"])

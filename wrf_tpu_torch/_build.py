@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds):
+interface (no PyTorch headers, so a build takes seconds).  The sources
+compile in parallel, one nvcc each, then link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o _build/libwrf_tpu_torch_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu       # per source
+    nvcc -shared -o _build/libwrf_tpu_torch_<hash>.so *.o
 
 The library lands in ``wrf_tpu_torch/_build/`` (git-ignored) at first use,
 named by a hash of the sources and flags, so a fresh checkout builds it
@@ -26,7 +28,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 
@@ -73,16 +75,38 @@ def build(ptxas_info: bool = False) -> tuple[Path, str]:
         return out, ""
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
+    objdir = out.with_name(f"{out.stem}.{os.getpid()}.objs")
+    objdir.mkdir()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_info else ()),
-           "-o", str(tmp), *(str(s) for s in sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
+    try:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = objdir / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS,
+                   *(("-Xptxas", "-v") if ptxas_info else ()),
+                   "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compile, then report the first failure
+        logs = [(cmd, proc, proc.communicate()[0]) for cmd, _, proc in jobs]
+        for cmd, proc, text in logs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        log = "".join(text for _, _, text in logs)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+        shutil.rmtree(objdir, ignore_errors=True)
+    return out, log + proc.stdout + proc.stderr
 
 
 def load() -> ctypes.CDLL:

@@ -15,9 +15,11 @@ native (C++ oracle), both without torch; eager [xla] (whole-array PyTorch,
 memory-window arrays); sharded-eager / sharded-cuda [sharded-xla /
 sharded-pallas] (``ShardedAdvanceMuT`` on the 1x1 layout; sharded-cuda
 honours --inner-steps and --fast, running K2); coupled (the acoustic
-small-step loop, ``SmallStepLoop``) and coupled-native, both verified
-against the numpy golden loop; all (every tier side by side, plus the
-blocked rows sharded-cuda~blk and sharded-cuda~blkfast).
+small-step loop, ``SmallStepLoop``; honours --inner-steps and --fast,
+running K3) and coupled-native, both verified against the numpy golden
+loop; all (every tier side by side, plus the blocked rows
+sharded-cuda~blk and sharded-cuda~blkfast at S=4, coupled~blk and
+coupled~blkfast at S=2).
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -65,9 +67,10 @@ ATOL_SCALE = 1e-5
 TIERS = ("numpy", "native", "eager", "cuda", "sharded-eager",
          "sharded-cuda", "coupled", "coupled-native")
 
-#: rows of --tier all: every tier, then the blocked loop (S=4), exact and
-#: fast
-ALL_ROWS = TIERS + ("sharded-cuda~blk", "sharded-cuda~blkfast")
+#: rows of --tier all: every tier, then the blocked loops, exact and fast
+#: (the mu/t loop at S=4, the coupled loop at S=2, as ``wrf_tpu.driver``)
+ALL_ROWS = TIERS + ("sharded-cuda~blk", "sharded-cuda~blkfast",
+                    "coupled~blk", "coupled~blkfast")
 
 _STATE = ("ww", "mu", "t", "t_ave")
 
@@ -134,6 +137,7 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     if tier == "coupled":
         loop = SmallStepLoop(nx, ny, nz, case.flags, n_steps=steps,
+                             inner_steps=inner_steps, fast=fast,
                              device=device)
         gold = small_step_golden(case, steps)
     elif tier.startswith("sharded"):
@@ -207,10 +211,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--tier", default="cuda", choices=TIERS + ("all",))
     p.add_argument("--inner-steps", type=int, default=1,
                    help="temporal blocking: substeps per K2 pass "
-                        "(sharded-cuda)")
+                        "(sharded-cuda) or K3 pass (coupled)")
     p.add_argument("--fast", action="store_true",
-                   help="blocked tiers: K2's closed form (re-associated "
-                        "float32, the eager tier's tolerance class)")
+                   help="blocked tiers: K2's closed form or K3's fast scan "
+                        "(re-associated float32, the eager tier's "
+                        "tolerance class)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' requires a GPU (no fallback)")
     for flag, default, _ in _NOT_PORTED:
@@ -229,17 +234,13 @@ def _reject_not_ported(args) -> None:
         if value != default:
             raise SystemExit(f"driver: {flag} {value} is not yet ported to "
                              f"wrf_tpu_torch (ROADMAP.md, {item})")
-    if args.tier == "coupled" and args.inner_steps > 1:
-        raise SystemExit("driver: coupled --inner-steps >1 (the coupled "
-                         "trapezoid, K3) is not yet ported to wrf_tpu_torch "
-                         "(ROADMAP.md, 'Coupled trapezoid')")
 
 
 def _row(case, steps, tier, golden, device) -> bool:
     """One row of --tier all: the worst field against the goldens."""
     fast = tier.endswith("~blkfast")
     name = tier.split("~", 1)[0]
-    inner = 4 if "~blk" in tier else 1
+    inner = (2 if name == "coupled" else 4) if "~blk" in tier else 1
     try:
         out, dt, gold_ov = run_tier(case, steps, name, device,
                                     inner_steps=inner, fast=fast)

@@ -12,9 +12,10 @@ sub-cycles the acoustic loop over the stage interval:
 ``snapshot="base"`` (the default) keeps the ``*_1`` advecting fields at
 the prepared base state; ``snapshot="stage"`` re-snapshots them from the
 stage-start state (``u_1 := u`` etc.), the degenerate shell ``run_sim``
-runs without a closure.  The slow-tendency hook (``tendency_fn``), the
-closures that use it and the device-resident ``multi_step`` are not
-ported yet.
+runs without a closure.  ``inner_steps`` and ``fast`` pass to every
+stage's loop (a stage too short to block runs K1 only).  The
+slow-tendency hook (``tendency_fn``), the closures that use it and the
+device-resident ``multi_step`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,14 +44,15 @@ class RK3Integrator:
 
     def __init__(self, nx, ny, nz, flags: ConfigFlags,
                  acoustic_steps: int = 6, kernel: str = "cuda",
-                 snapshot: str = "base", device="cuda"):
+                 snapshot: str = "base", device="cuda",
+                 inner_steps: int = 1, fast: bool = False):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
         self.snapshot = snapshot
         self.stages = rk3_stages(acoustic_steps)
         self.loops = [
             SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
-                          device=device)
+                          device=device, inner_steps=inner_steps, fast=fast)
             for (_, n_sub) in self.stages
         ]
         self.prepare = self.loops[0].prepare

@@ -1,0 +1,355 @@
+"""K3 (and K4): S coupled acoustic substeps per pass, on the GPU and in plain PyTorch.
+
+The port of ``wrf_tpu/ops/advance_mu_t_msteps.py``'s depth-S coupled
+trapezoid (kernel ``_coupled_ms_kernel``, wrapper
+``coupled_multistep_pallas``) and of its hand-unrolled S=2 pair (kernel
+``_coupled2_kernel``, wrapper ``coupled_two_step_pallas``).  Each substep
+is K1's fused scan substep (``fuse_uv`` + ``lean`` + ``lite``): the wind
+update from ``p = cs2*mu``, dvdxi and dmdt, the mu update, the seeded ww
+scan and theta.  Substeps couple through mu, u and v at neighbour cells,
+so substep s updates the winds and mu on rows extended by ``S-1-s`` on
+each side of the block's own rows, and theta and ww on its own rows only.
+
+Array contract (the Pallas wrappers'): 3-D ``(J2, K, I)``, 2-D
+``(J2, I)``, vertical ``(K,)``, float32 tensors in the ring-S layout of
+:func:`wrf_tpu_torch.parallel.halo.widen_ring_to` — the first and last S
+rows are ring rows, never computed; ``offsets`` maps local row S to
+global ring row ``j_off + 1``; i wraps.  ``cu``, ``cv`` and ``msft2`` come
+from :func:`coupled_lean_kwargs`, ``tconst``, ``dvdxi_const`` and
+``ww1_k0`` from :func:`~wrf_tpu_torch.ops.advance_mu_t_cuda.lean_kwargs`,
+both computed on the widened inputs.  Returns ``{"t", "mu", "ww_row",
+"u", "v"}``: t and ww_row are read only at their own column and are
+updated IN PLACE; u, v and mu are read at neighbour rows while other
+blocks update them, so they come back in fresh tensors whose S ring rows
+pass through from the inputs.
+
+Two modes: exact (the ww scan sequential in k) and ``fast`` (the scan as
+the TPU kernel's log-depth masked cumsum, a re-association).  The CUDA
+kernel scans sequentially in both, so its fast mode is its exact mode;
+its plain version keeps the cumsum.
+
+Dispatch is by the device of the tensors: CUDA tensors launch the
+hand-written kernel (``csrc/advance_mu_t_coupled.cu``) and count one in
+:data:`LAUNCHES` (:data:`PAIR_LAUNCHES` for :func:`coupled_two_step`);
+CPU tensors run :func:`coupled_multistep_plain`.  There is no fallback
+from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .advance_mu_t_cuda import _f32, checked_pointers
+
+#: CUDA launches of :func:`coupled_multistep` since import
+LAUNCHES = 0
+#: CUDA launches of :func:`coupled_two_step` since import
+PAIR_LAUNCHES = 0
+
+#: depths the CUDA kernel is instantiated for
+MAX_INNER = 8
+
+#: (rows, columns) of a thread block's own tile; the block also computes
+#: the trapezoid's S-1 extra cells on every side
+TILE = (16, 32)
+
+_kernel_fn = None
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"coupled_multistep: {what} is not ported yet (ROADMAP.md, {item})")
+
+
+def _check(*, tensors, n_inner, fuse_w, ti, overlap, J2):
+    """The Pallas wrapper's argument checks, plus the modes not ported."""
+    if n_inner < 2:
+        raise ValueError("n_inner must be >= 2 (use the single-step kernel "
+                         "for S=1)")
+    if fuse_w:
+        raise _not_ported("fuse_w (the implicit w/pp substep)",
+                          "modules to port: 'Coupled trapezoid', with_w")
+    if ti is not None:
+        raise _not_ported("ti (the TPU's 128-lane tiled layout; the CUDA "
+                          "kernel tiles (j, i) itself)", "§2, K3")
+    if overlap is not None:
+        raise _not_ported("overlap", "modules to port: 'Multi-GPU "
+                          "decomposition and halo backends'")
+    for x in tensors:
+        if x.dtype == torch.bfloat16:
+            raise _not_ported("bf16 inputs",
+                              "modules to port: 'bf16 constant streams'")
+    if J2 - 2 * n_inner < 1:
+        raise ValueError(f"J2={J2}: no row inside the ring-{n_inner} rows")
+
+
+def coupled_lean_kwargs(padded: dict, rdx, rdy, dts) -> dict:
+    """The 2-D wind and flux coefficients of the coupled substep, in K1's
+    association: ``cu = dts*(muu/msfuy)*(-rdx)``, ``cv =
+    dts*(muv*msfvx_inv)*(-rdy)``, ``msft2 = msftx*msfty`` (products only,
+    so computing them outside the kernel changes no bit)."""
+    rdx, rdy, dts = _f32(rdx), _f32(rdy), _f32(dts)
+    return {
+        "cu": dts * (padded["muu"] / padded["msfuy"]) * (-rdx),
+        "cv": dts * (padded["muv"] * padded["msfvx_inv"]) * (-rdy),
+        "msft2": padded["msftx"] * padded["msfty"],
+    }
+
+
+def coupled_multistep(
+    *,
+    u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row,
+    mu, mu_tend, msftx, msfty, cu, cv, msft2,
+    rdx, rdy, dts, cs2,
+    dnw, fnm, fnp, rdnw,
+    window, offsets=(0, 0),
+    k0: int, k1: int, kde: int,
+    n_inner: int = 2,
+    fuse_w: bool = False,
+    w=None, pp=None, rdn=None,
+    cw: float = 0.0, gw: float = 0.0, epssm=0.0,
+    fast: bool = False,
+    ti: int | None = None,
+    overlap: dict | None = None,
+):
+    """``n_inner`` coupled substeps in one pass over ring-``n_inner``
+    arrays; the contract of ``coupled_multistep_pallas`` without its TPU
+    tiling arguments (see the module docstring)."""
+    global LAUNCHES
+    del kde, w, pp, rdn, cw, gw, epssm   # API parity / unported fuse_w state
+    _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=n_inner,
+           fuse_w=fuse_w, ti=ti, overlap=overlap, J2=t.shape[0])
+    kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
+              ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
+              msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
+              rdy=rdy, dts=dts, cs2=cs2, dnw=dnw, fnm=fnm, fnp=fnp,
+              rdnw=rdnw, window=window, offsets=offsets, k0=k0, k1=k1,
+              n_inner=n_inner)
+    if t.device.type == "cpu":
+        return coupled_multistep_plain(**kw, fast=fast)
+    if t.device.type == "cuda":
+        out = _launch(**kw)
+        LAUNCHES += 1
+        return out
+    raise ValueError(f"coupled_multistep: unsupported device {t.device}")
+
+
+def coupled_two_step(
+    *,
+    u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row,
+    mu, mu_tend, msftx, msfty, cu, cv, msft2,
+    rdx, rdy, dts, cs2,
+    dnw, fnm, fnp, rdnw,
+    window, offsets=(0, 0),
+    k0: int, k1: int, kde: int,
+    fuse_w: bool = False,
+    w=None, pp=None, rdn=None,
+    cw: float = 0.0, gw: float = 0.0, epssm=0.0,
+    fast: bool = False,
+):
+    """Two coupled substeps over ring-2 arrays; the contract of
+    ``coupled_two_step_pallas`` without its TPU tiling arguments.  The
+    TPU's hand-unrolled pair computes what the depth-S trapezoid computes
+    at S=2, so this runs K3's S=2 instance (its own template instance of
+    the CUDA kernel; :func:`coupled_multistep_plain` with ``n_inner=2`` on
+    CPU tensors)."""
+    global PAIR_LAUNCHES
+    del kde, w, pp, rdn, cw, gw, epssm   # API parity / unported fuse_w state
+    _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=2,
+           fuse_w=fuse_w, ti=None, overlap=None, J2=t.shape[0])
+    kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
+              ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
+              msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
+              rdy=rdy, dts=dts, cs2=cs2, dnw=dnw, fnm=fnm, fnp=fnp,
+              rdnw=rdnw, window=window, offsets=offsets, k0=k0, k1=k1,
+              n_inner=2)
+    if t.device.type == "cpu":
+        return coupled_multistep_plain(**kw, fast=fast)
+    if t.device.type == "cuda":
+        out = _launch(**kw)
+        PAIR_LAUNCHES += 1
+        return out
+    raise ValueError(f"coupled_two_step: unsupported device {t.device}")
+
+
+def coupled_multistep_plain(
+    *, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu, mu_tend,
+    msftx, msfty, cu, cv, msft2, rdx, rdy, dts, cs2, dnw, fnm, fnp, rdnw,
+    window, k0: int, k1: int, offsets=(0, 0), n_inner: int = 2,
+    fast: bool = False, kde=None, epssm=None,
+):
+    """Whole-array PyTorch version of the kernel, on any device.
+
+    A transcription of the TPU kernel for ``fuse_w=False``: the same
+    extent-tracked row slicing (an array ``a`` with extent ``a_lo`` covers
+    rows ``[S - a_lo, J2 - S + a_lo)``), ``torch.roll`` for the i and k
+    neighbours, and K1's plain version's operations in its order (the
+    dmdt column sum in k order; exact mode's ww scan as a k loop).  Same
+    in-place contract as :func:`coupled_multistep`.
+    """
+    del kde, epssm   # API parity
+    rdx, rdy, dts, cs2 = (_f32(x) for x in (rdx, rdy, dts, cs2))
+    S = int(n_inner)
+    J2, K, I = t.shape
+    nc = J2 - 2 * S            # the rows the pass owns
+    dev = t.device
+    i0, i1, j0, j1 = (int(x) for x in window)
+    j_off, i_off = (int(x) for x in offsets)
+    c = slice(S, J2 - S)
+
+    def col(x):  # (J2, I) -> (J2, 1, I), broadcasting over k
+        return x[:, None, :]
+
+    def lev(x):  # (K,) -> (1, K, 1)
+        return x.view(1, K, 1)
+
+    def sl(a, a_lo, lo, hi):   # rows [-lo, nc + hi) of an extent-a_lo array
+        return a[a_lo - lo: a_lo + nc + hi]
+
+    # ---- masks on the full ring-S row range -----------------------------
+    i_glob = torch.arange(I, device=dev).view(1, 1, I) + i_off
+    j_glob = torch.arange(J2, device=dev).view(J2, 1, 1) + (j_off + 1 - S)
+    i_in = (i_glob >= i0) & (i_glob <= i1)
+    j_in = (j_glob >= j0) & (j_glob <= j1)
+    mask_f = i_in & j_in
+    u_mask_f = (i_glob >= i0 + 1) & (i_glob <= i1) & j_in
+    v_mask_f = i_in & (j_glob >= j0 + 1) & (j_glob <= j1)
+    mask_c = mask_f[c]
+    kv = torch.arange(K, device=dev).view(1, K, 1)
+    upd = (kv >= k0) & (kv <= k1) & mask_c
+    kint = (kv >= k0 + 1) & (kv <= k1)
+
+    # ---- once-per-pass centre constants (theta and ww) -------------------
+    t1c = t_1[c]
+    t1_jp, t1_jm = t_1[S + 1: J2 - S + 1], t_1[S - 1: J2 - S - 1]
+    t1_ip, t1_im = torch.roll(t1c, -1, 2), torch.roll(t1c, 1, 2)
+    interp = lev(fnm) * t1c + lev(fnp) * torch.roll(t1c, 1, 1)
+    msftx_c, msfty_c = col(msftx)[c], col(msfty)[c]
+    inv_msfty = 1.0 / msfty_c
+    mute, cu3, cv3, msft23 = col(mu_tend), col(cu), col(cv), col(msft2)
+    mutend_c, w1 = mute[c], col(ww1_k0)[c]
+    tcon = tconst[c]
+
+    def ww_scan(steps, seed):
+        if fast:   # log-depth masked cumsum (the TPU kernel's fast_scan)
+            y = torch.where(kint, torch.roll(steps, 1, 1), 0.0)
+            d = 1
+            while d < K:
+                y = y + torch.where(kv >= d, torch.roll(y, d, 1), 0.0)
+                d *= 2
+            return torch.where(upd, seed + y, 0.0)
+        scan = torch.roll(steps, 1, 1)   # level k holds step(k-1)
+        scan[:, k0:k0 + 1, :] = seed
+        for k in range(k0 + 1, k1 + 1):
+            scan[:, k, :] = scan[:, k - 1, :] + scan[:, k, :]
+        return torch.where(upd, scan, 0.0)
+
+    def theta(t_in, u_s, v_s, v_p, ww_new):
+        wdtn = torch.where(kint, ww_new * interp, 0.0)
+        vert = lev(rdnw) * (torch.roll(wdtn, -1, 1) - wdtn)
+        fy = v_p * (t1_jp + t1c) - v_s * (t1c + t1_jm)
+        fx = (torch.roll(u_s, -1, 2) * (t1_ip + t1c)
+              - u_s * (t1c + t1_im))
+        horiz = msftx_c * (0.5 * rdy * fy + 0.5 * rdx * fx)
+        return torch.where(upd, (t_in + tcon) - (dts * msfty_c)
+                           * (horiz + vert), t_in)
+
+    # ---- S substeps, extents shrinking ------------------------------------
+    mu_c, u_c, v_c = col(mu), u, v
+    mu_lo = u_lo = v_lo = S        # full arrays: extent S (v's hi is S too)
+    t_c, seed = t[c], col(ww_row)[c]
+    for s in range(S):
+        r = S - 1 - s
+        p = cs2 * mu_c                                   # extent +-(r+1)
+        pm = sl(p, mu_lo, r, r)
+        u_n = sl(u_c, u_lo, r, r) + torch.where(
+            sl(u_mask_f, S, r, r),
+            sl(cu3, S, r, r) * (pm - torch.roll(pm, 1, 2)), 0.0)
+        v_n = sl(v_c, v_lo, r, r + 1) + torch.where(
+            sl(v_mask_f, S, r, r + 1),
+            sl(cv3, S, r, r + 1)
+            * (sl(p, mu_lo, r, r + 1) - sl(p, mu_lo, r + 1, r)), 0.0)
+        dvdxi = sl(dvdxi_const, S, r, r) + sl(msft23, S, r, r) * (
+            rdy * (v_n[1:] - v_n[:-1])
+            + rdx * (torch.roll(u_n, -1, 2) - u_n))
+        dmdt = torch.zeros_like(pm)   # column sum in k order, as K1's
+        for k in range(k0, k1 + 1):
+            dmdt = dmdt + dnw[k] * dvdxi[:, k:k + 1, :]
+        mu_n = torch.where(sl(mask_f, S, r, r),
+                           sl(mu_c, mu_lo, r, r)
+                           + dts * (dmdt + sl(mute, S, r, r)),
+                           sl(mu_c, mu_lo, r, r))
+
+        steps = (-lev(dnw) * (sl(dmdt, r, 0, 0) + sl(dvdxi, r, 0, 0)
+                              + mutend_c)) * inv_msfty
+        ww_new = ww_scan(steps, seed)
+        seed = torch.where(mask_c, seed - w1, seed)
+        t_c = theta(t_c, sl(u_n, r, 0, 0), sl(v_n, r, 0, 0),
+                    v_n[r + 1: r + 1 + nc], ww_new)
+        mu_c, u_c, v_c = mu_n, u_n, v_n
+        mu_lo = u_lo = v_lo = r
+
+    t[c] = t_c
+    ww_row[c] = seed[:, 0]
+    u_out, v_out, mu_out = u.clone(), v.clone(), mu.clone()
+    u_out[c], v_out[c], mu_out[c] = u_c, v_c[:nc], mu_c[:, 0]
+    return {"t": t, "mu": mu_out, "ww_row": ww_row, "u": u_out, "v": v_out}
+
+
+# --------------------------------------------------------------------------
+# The CUDA launch
+# --------------------------------------------------------------------------
+def _kernel():
+    """The C entry of csrc/advance_mu_t_coupled.cu (library built on first
+    use)."""
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = _build.load().wrf_tpu_torch_coupled_multistep
+        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_float] * 4
+                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
+            mu_tend, msftx, msfty, cu, cv, msft2, rdx, rdy, dts, cs2, dnw,
+            fnm, fnp, rdnw, window, offsets, k0, k1, n_inner):
+    S = int(n_inner)
+    if S > MAX_INNER:
+        raise ValueError(f"n_inner={S}: the CUDA kernel is built for depths "
+                         f"2..{MAX_INNER}")
+    J2, K, I = t.shape
+    dev = t.device
+    if not (0 <= k0 <= k1 < K):
+        raise ValueError(f"bad vertical bounds k0={k0}, k1={k1} for K={K}")
+    fields = dict(
+        u=(u, 3, True), v=(v, 3, True), t=(t, 3, True), t_1=(t_1, 3, True),
+        tconst=(tconst, 3, True), dvdxi_const=(dvdxi_const, 3, True),
+        ww1_k0=(ww1_k0, 2, True), ww_row=(ww_row, 2, True), mu=(mu, 2, True),
+        mu_tend=(mu_tend, 2, True), msftx=(msftx, 2, True),
+        msfty=(msfty, 2, True), cu=(cu, 2, True), cv=(cv, 2, True),
+        msft2=(msft2, 2, True), dnw=(dnw, 1, True), fnm=(fnm, 1, True),
+        fnp=(fnp, 1, True), rdnw=(rdnw, 1, True),
+    )
+    ptrs = checked_pointers(fields, {3: (J2, K, I), 2: (J2, I), 1: (K,)}, dev)
+    res = {"u": torch.empty_like(u), "v": torch.empty_like(v),
+           "mu": torch.empty_like(mu)}
+    i0, i1, j0, j1 = (int(x) for x in window)
+    j_off, i_off = (int(x) for x in offsets)
+    tj, ti = TILE
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, res["u"].data_ptr(), res["v"].data_ptr(),
+                 res["mu"].data_ptr(), _f32(rdx), _f32(rdy), _f32(dts),
+                 _f32(cs2), J2, K, I, i0, i1, j0, j1, j_off, i_off, int(k0),
+                 int(k1), S, tj, ti, stream)
+    if err != 0:
+        raise RuntimeError(f"coupled_multistep kernel launch failed: CUDA "
+                           f"error {err}")
+    return {"t": t, "mu": res["mu"], "ww_row": ww_row, "u": res["u"],
+            "v": res["v"]}

@@ -5,14 +5,16 @@ path:
 
     python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
         [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
-        [--device cuda|cpu]
+        [--inner-steps S [--fast]] [--device cuda|cpu]
 
 * the grid/state comes from a fixture directory (``wrf_tpu.io.fixtures``);
 * dynamics parameters come from the WRF namelist record (a JSON dict of
   record fields or a namelist.input text file), else from the fixture;
 * each large step is one RK3 triple over the acoustic loop, whose every
-  substep is one launch of the fused CUDA kernel; the state stays on the
-  device and one scalar checksum syncs each step;
+  substep is one launch of the fused CUDA kernel (K1), or, with
+  ``--inner-steps S``, S scan substeps per launch of the coupled
+  trapezoid (K3); the state stays on the device and one scalar checksum
+  syncs each step;
 * checkpoints use the fixture binary format (``wrf_tpu.io.checkpoint``)
   and ``--resume`` continues from the newest one.
 
@@ -51,8 +53,6 @@ _NOT_PORTED = (
     ("--halo-backend", "ppermute",
      "'Multi-GPU decomposition and halo backends'"),
     ("--precision", "f32", "'bf16 constant streams'"),
-    ("--inner-steps", 1, "'Coupled trapezoid'"),
-    ("--fast", False, "'Coupled trapezoid'"),
     ("--closure", "none", "'RK3, closure, run_sim and checkpoint'"),
     ("--tau-steps", None, "'RK3, closure, run_sim and checkpoint'"),
     ("--rayleigh-uv", None, "'RK3, closure, run_sim and checkpoint'"),
@@ -77,6 +77,13 @@ def _parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir")
     p.add_argument("--diagnostics", action="store_true",
                    help="print per-step total dry mass and its drift")
+    p.add_argument("--inner-steps", type=int, default=1,
+                   help="temporal blocking: S coupled substeps per K3 "
+                        "launch (the depth-S trapezoid; a stage with fewer "
+                        "than S+1 substeps runs K1 only)")
+    p.add_argument("--fast", action="store_true",
+                   help="with --inner-steps: K3's fast mode (re-associated "
+                        "float32 ww scan; a tolerance, not bits)")
     for flag, default, _ in _NOT_PORTED:
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true",
@@ -131,7 +138,8 @@ def main(argv=None) -> int:
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     rk3 = RK3Integrator(nx, ny, nz, flags,
                         acoustic_steps=dyn["acoustic_steps"],
-                        snapshot="stage", device=device)
+                        snapshot="stage", device=device,
+                        inner_steps=args.inner_steps, fast=args.fast)
 
     dom = {k: np.array(v, copy=True) for k, v in case_to_domain(case).items()}
     start_step = 0
