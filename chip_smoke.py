@@ -16,7 +16,9 @@ not 0 and no result line is printed):
    scaled on load by ``wind_scale``) at 74x61x32 (specified, periodic and
    open lateral BCs) and 512x512x50, held to rtol 2e-5, atol_scale 1e-6,
    and the ``wind_scale`` modes to bit-equality; all timed with CUDA
-   events at both sizes;
+   events at both sizes.  Then the same three run_sim modes with
+   ``fuse_w`` (the w/pp solve), every output held to bit-equality, timed
+   at 512x512x50;
 4. K2 kernel vs its plain version at the same grids and BCs: exact S=2
    and S=8 with the wind ramp started at substep 16 (bit-equality), fast
    S=8 and S=32 (rtol 2e-5, atol_scale 1e-6); exact S=8 and fast S=32
@@ -26,37 +28,51 @@ not 0 and no result line is printed):
    the blocked ``SmallStepLoop`` builds, at the same grids and BCs: exact
    S=2, 4 and 8 (bit-equality) and fast S=4 (rtol 2e-5, atol_scale 1e-6),
    and K4 (``coupled_two_step``, K3's S=2 instance) bit-equal to its plain
-   version; every mode timed at 512x512x50 (ms per substep); then K3 S=4
-   against 4 K1 fused-scan launches at 512x512x50 (rtol 2e-5, atol_scale
-   1e-6, with the ``different=`` counts);
-6. the reference's golden-file check: 5 plain-call steps at 74x61x32
+   version; every mode timed at 512x512x50 (ms per substep); the same
+   with ``fuse_w``; then K3 S=4 against 4 K1 fused-scan launches at
+   512x512x50, without and with ``fuse_w`` (the ``different=`` counts,
+   counted on the card; a nonzero count is held to rtol 2e-5, atol_scale
+   1e-6);
+6. K6, the copy kernel: each probe (ab, ab_plus1, aliased) equal to its
+   plain version, also on an unaligned and on a ragged array; then the
+   copy ceiling at 512x50x514, 1024x50x1502 and 516x50x516 with every
+   probe's GB/s and ``Tensor.copy_`` on the same chain as the library
+   yardstick;
+7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
-7. the run_sim slice through its entry point: ``wrf_tpu_torch.run_sim``
+8. the run_sim slice through its entry point: ``wrf_tpu_torch.run_sim``
    for 3 large steps at 512x512x50 (balanced fixture, amplitude 1e-2):
    by default it must launch K1 exactly 21 times, with ``--inner-steps 2``
-   (and ``--fast``) K3 3 times and K1 15 times, and stay finite; then one
-   RK3 step at 74x61x32 against the oracle's RK3 golden, with and without
-   ``inner_steps=2`` (acoustic_steps 4 and 8);
-8. the verification driver through its entry point,
+   (and ``--fast``) K3 3 times and K1 15 times, the same counts with
+   ``--with-w`` and ``--with-w --inner-steps 2`` (whose checkpoints must
+   carry finite w and pp), and stay finite; then one RK3 step at 74x61x32
+   against the oracle's RK3 golden, with and without ``inner_steps=2``
+   (acoustic_steps 4 and 8) and with and without ``with_w`` (the oracle
+   composition advance_uv -> advance_mu_t -> advance_w);
+9. the verification driver through its entry point,
    ``wrf_tpu_torch.driver``: tiers cuda and sharded-cuda (S=1, S=8, S=8
    --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
-   --fast) for 100 steps under the three lateral BCs, then the mu/t
-   slice's main path, sharded-cuda --inner-steps 8 at 512x512x50 for 17
-   steps (K2 4 launches, K1 2), and the coupled slice's, coupled
-   --inner-steps 4 for 9 steps (K3 4 launches, K1 2); every run against
-   the C++ oracle's goldens or the numpy golden loop at the driver's gate;
-9. the loops' marginal ms per substep (two step counts, as ``bench.py``
-   measures it): the mu/t loop (``ShardedAdvanceMuT``) S=1 and exact S=8
-   at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
-   74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
-   and fast S=4 at n=65/257 at 512x512x50.
+   --fast) for 100 steps under the three lateral BCs, coupled --with-w
+   (S=1, 2, 4) and coupled-eager --with-w for 100 steps (specified BC),
+   then the blocked main paths at 512x512x50: sharded-cuda --inner-steps 8
+   for 17 steps (K2 4 launches, K1 2), coupled --inner-steps 4 for 9
+   steps (K3 4 launches, K1 2) and the same with --with-w; every run
+   against the C++ oracle's goldens or the numpy golden loop at the
+   driver's gate;
+10. the loops' marginal ms per substep (two step counts, as ``bench.py``
+    measures it): the mu/t loop (``ShardedAdvanceMuT``) S=1 and exact S=8
+    at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
+    74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
+    and fast S=4 at n=65/257 at 512x512x50, and with ``with_w`` S=1, 2, 4.
 
 The last three lines of standard output are the card's name and power
-limit (again), the kernel table ``{"kernels": [...]}`` and ``{"ok": true,
-"device": {...}}``.  The script uses torch, the port and the jax-free
-modules of wrf_tpu (fixtures, comparators, the C++ oracle), and checks at
-the end that jax was never imported.
+limit (again), the kernel table ``{"kernels": [...]}`` (five kernels, each
+with its launches on the main paths, its time, its plain version's time,
+its bound from the compulsory bytes at the data-sheet rate and, for K6,
+the library call's time) and ``{"ok": true, "device": {...}}``.  The
+script uses torch and the port alone, and checks at the end that neither
+jax nor any module of the JAX package was imported.
 """
 
 from __future__ import annotations
@@ -95,6 +111,9 @@ MODES = {
                     wind_scale=WS),
     "final_ws": dict(ww_mode="final", with_tave=True, wind_scale=WS),
 }
+#: K1's modes on the --with-w path (scan and final: run_sim's; full: the
+#: reference's single call), each with fuse_w
+W_MODES = ("scan", "final", "full")
 #: K2's modes: the ramp starts past 0, as in a loop's later passes
 K2_MODES = {
     "exact S=2": dict(n_inner=2, wind_step0=16),
@@ -151,7 +170,7 @@ def case_at(grid, bc="specified", balanced=False):
     1e-2), made once per run: a 512x512x50 case takes seconds to make,
     and nothing writes to its arrays (the port copies them to the card,
     the oracle copies what it updates)."""
-    from wrf_tpu.grid import ConfigFlags
+    from wrf_tpu_torch.grid import ConfigFlags
     from wrf_tpu_torch.io.fixtures import make_case
 
     extra = dict(amplitude=1e-2, balanced=True) if balanced else {}
@@ -159,29 +178,42 @@ def case_at(grid, bc="specified", balanced=False):
                      flags=ConfigFlags(**BC_VARIANTS[bc]), **extra)
 
 
-def padded_inputs(case, device):
+def padded_inputs(case, device, with_w=False):
     """The arrays one K1 call receives on the main path: ring-shaped
     domain arrays, zero-padded by one cell, with the loop's window and
-    offsets (wrf_tpu_torch.models.small_step)."""
+    offsets (wrf_tpu_torch.models.small_step).  ``with_w`` adds the w/pp
+    state, ``rdn`` and the ``fuse_w`` arguments of the --with-w path."""
     from wrf_tpu_torch.convert import arrays_from_numpy
     from wrf_tpu_torch.parallel.sharded import (
         FIELDS_1D, FIELDS_2D, FIELDS_3D, case_to_domain, domain_window,
         pad_halo,
     )
 
-    dom = arrays_from_numpy(case_to_domain(case), device)
-    arr = {n: pad_halo(dom[n]) for n in FIELDS_3D + FIELDS_2D}
-    arr.update({n: dom[n] for n in FIELDS_1D})
+    dom = arrays_from_numpy(case_to_domain(case, with_w=with_w), device)
+    arr = {n: pad_halo(x) for n, x in dom.items()}   # 1-D fields as they are
+    assert set(arr) >= set(FIELDS_3D + FIELDS_2D + FIELDS_1D)
     b = case.bounds
     i0, i1, j0, j1, k0, k1 = domain_window(b.ide, b.jde, b.kdim, case.flags)
     static = dict(window=(i0, i1, j0, j1), offsets=(-1, -1), k0=k0, k1=k1,
                   kde=b.kdim - 1, rdx=case.rdx, rdy=case.rdy, dts=case.dts,
                   epssm=case.epssm)
+    if with_w:
+        from wrf_tpu_torch.ops.advance_w import DEFAULT_CW, DEFAULT_GW
+        from wrf_tpu_torch.ops.thomas import thomas_vectors
+
+        # the loop computes the Thomas K-vectors once per call and hands
+        # them to every launch; so do the phases (fast: with the plain
+        # version's cumsum vectors)
+        static.update(fuse_w=True, cw=DEFAULT_CW, gw=DEFAULT_GW,
+                      thomas=thomas_vectors(
+                          rdn=arr["rdn"], rdnw=arr["rdnw"], dts=case.dts,
+                          epssm=case.epssm, cw=DEFAULT_CW, gw=DEFAULT_GW,
+                          k0=k0, k1=k1, fast=True))
     return arr, static
 
 
 def mode_kwargs(mode, arr, static):
-    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_uv import DEFAULT_CS2
     from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
 
     kw = dict(MODES[mode])
@@ -198,10 +230,12 @@ def mode_kwargs(mode, arr, static):
 
 
 def fresh(arr, mkw):
-    """Copies of what a call updates in place (t, t_ave, ww, ww_row)."""
+    """Copies of what a call updates in place (t, t_ave, ww, ww_row, and
+    w and pp where present)."""
     arr = dict(arr)
-    for n in ("t", "t_ave", "ww"):
-        arr[n] = arr[n].clone()
+    for n in ("t", "t_ave", "ww", "w", "pp"):
+        if n in arr:
+            arr[n] = arr[n].clone()
     mkw = dict(mkw)
     if "ww_row" in mkw:
         mkw["ww_row"] = mkw["ww_row"].clone()
@@ -250,7 +284,10 @@ def time_pair(arr, static, mkw):
 def phase_kernel_vs_plain(
         cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                (REF_GRID, "open"), (BIG_GRID, "specified")),
-        time_grids=(REF_GRID, BIG_GRID), card=""):
+        time_grids=(REF_GRID, BIG_GRID), card="", with_w=False):
+    """K1 against its plain version in every mode of MODES, timed beside
+    it; ``with_w``: in the three modes of W_MODES with ``fuse_w``, where
+    every output (w and pp included) must agree bit for bit."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
         advance_mu_t_fused, advance_mu_t_fused_plain,
@@ -258,10 +295,11 @@ def phase_kernel_vs_plain(
 
     max_abs = 0.0
     timings = {}
+    name = "k1+w" if with_w else "k1"
     for grid, bc in cases:
-        arr, static = padded_inputs(case_at(grid, bc), "cuda")
+        arr, static = padded_inputs(case_at(grid, bc), "cuda", with_w=with_w)
         J, K, I = arr["t"].shape
-        for mode in MODES:
+        for mode in (W_MODES if with_w else MODES):
             mkw = mode_kwargs(mode, arr, static)
             a_k, m_k = fresh(arr, mkw)
             a_p, m_p = fresh(arr, mkw)
@@ -269,17 +307,19 @@ def phase_kernel_vs_plain(
             want = advance_mu_t_fused_plain(**a_p, **static, **m_p)
             torch.cuda.synchronize()
             tag = f"{grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
-            if sorted(got) != sorted(want):
-                raise AssertionError(f"K1 {tag}: outputs {sorted(got)}, "
+            if sorted(got) != sorted(want) or (
+                    with_w and not {"w", "pp"} <= set(got)):
+                raise AssertionError(f"{name} {tag}: outputs {sorted(got)}, "
                                      f"plain version {sorted(want)}")
             # the mu/t loop's modes are held to bits: K2 exact must equal
-            # K1, and K1 its plain version
+            # K1, and K1 its plain version; so is every fuse_w mode
             max_abs = max(max_abs, check_fields(
-                f"k1 {tag}", got, want, bit_exact=mode.endswith("_ws")))
+                f"{name} {tag}", got, want,
+                bit_exact=with_w or mode.endswith("_ws")))
             if grid in time_grids and bc == "specified":
                 timings[grid, mode] = time_pair(arr, static, mkw)
                 t = timings[grid, mode]
-                print(f"[k1 time {J}x{K}x{I} {mode}] kernel "
+                print(f"[{name} time {J}x{K}x{I} {mode}] kernel "
                       f"{t['cuda'][0]:.4f} / {t['cuda'][1]:.4f} ms, plain "
                       f"{t['plain'][0]:.3f} / {t['plain'][1]:.3f} ms "
                       f"(order plain, kernel, kernel, plain; {card})")
@@ -288,13 +328,37 @@ def phase_kernel_vs_plain(
     return max_abs, timings
 
 
-def check_fields(tag, got, want, bit_exact=False, diffs=None):
-    """Compare two dicts of CUDA tensors field by field at KERNEL_TOL (and
-    to the bit with ``bit_exact``); prints one line per field and raises
-    on a failure.  Returns the largest max_abs error; ``diffs`` collects
-    each field's count of differing elements."""
-    from wrf_tpu.compare import compare
+def count_different(got, want):
+    """Elements of two CUDA tensors that differ (NaN equals NaN), counted
+    on the card."""
+    return int(((got != want) & ~(got.isnan() & want.isnan())).sum())
 
+
+def check_bits(tag, got, want):
+    """Two dicts of CUDA tensors must hold the same fields and agree bit
+    for bit; prints one ``different=`` line per field (counted on the
+    card) and raises on any difference."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag}: outputs {sorted(got)}, plain version "
+                             f"{sorted(want)}")
+    for name in sorted(want):
+        n = count_different(got[name], want[name])
+        print(f"[{tag}] {name:7s} different={n}")
+        if n:
+            raise AssertionError(f"{tag}: {name} differs in {n} elements")
+
+
+def check_fields(tag, got, want, bit_exact=False, diffs=None):
+    """Compare two dicts of CUDA tensors field by field at KERNEL_TOL, or
+    to the bit with ``bit_exact`` (:func:`check_bits`, on the card); prints
+    one line per field and raises on a failure.  Returns the largest
+    max_abs error; ``diffs`` collects each field's count of differing
+    elements."""
+    from wrf_tpu_torch.compare import compare
+
+    if bit_exact:
+        check_bits(tag, got, want)
+        return 0.0
     max_abs = 0.0
     for name in sorted(want):
         r = compare(got[name].cpu().numpy(), want[name].cpu().numpy(), name,
@@ -304,7 +368,7 @@ def check_fields(tag, got, want, bit_exact=False, diffs=None):
         print(f"[{tag}] {name:7s} max_abs={r.max_abs_err:.3e} "
               f"max_rel={r.max_rel_err:.3e} scaled={r.max_scaled_err:.3f} "
               f"different={r.different}")
-        if not r.passed or (bit_exact and r.different):
+        if not r.passed:
             raise AssertionError(f"{tag}: {r}")
         max_abs = max(max_abs, r.max_abs_err)
     return max_abs
@@ -408,7 +472,7 @@ def k3_inputs(arr, static, S):
     """What one K3 launch of the blocked coupled loop receives: the padded
     fields widened to ring S, the lean and coupled constants computed on
     the widened fields, and a scan-seed row; plus its static arguments."""
-    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_uv import DEFAULT_CS2
     from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
         coupled_lean_kwargs,
     )
@@ -426,20 +490,28 @@ def k3_inputs(arr, static, S):
                                 "fnp", "rdnw")}
     ins.update(lean_kwargs(wide, *sc, k0, k1))
     ins.update(coupled_lean_kwargs(wide, *sc))
+    if static.get("fuse_w"):
+        ins.update(w=wide["w"], pp=wide["pp"], rdn=wide["rdn"])
     return ins, dict(static, cs2=DEFAULT_CS2)
 
 
 def fresh_k3(ins):
-    """A copy of K3's inputs with its own t and ww_row (updated in place)."""
-    return {**ins, **{n: ins[n].clone() for n in ("t", "ww_row")}}
+    """A copy of K3's inputs with its own t and ww_row, and w and pp where
+    present (updated in place)."""
+    return {**ins, **{n: ins[n].clone() for n in ("t", "ww_row", "w", "pp")
+                      if n in ins}}
 
 
 def phase_k3_vs_plain(
         cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
-               (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
-    """K3 (and K4, its S=2 instance) against the plain version; every mode
-    timed at the big grid, ms per substep (per launch / S) with CUDA
-    events in the order plain, kernel, kernel, plain."""
+               (REF_GRID, "open"), (BIG_GRID, "specified")), card="",
+        with_w=False):
+    """K3 (and K4, its S=2 instance) against the plain version: exact modes
+    bit for bit, the fast mode at KERNEL_TOL (the plain version's fast
+    mode runs the log-depth cumsums, the kernel scans and solves
+    sequentially); every mode timed at the big grid, ms per substep (per
+    launch / S) with CUDA events in the order plain, kernel, kernel,
+    plain.  ``with_w``: the same with ``fuse_w``."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
         coupled_multistep, coupled_multistep_plain, coupled_two_step,
@@ -450,8 +522,9 @@ def phase_k3_vs_plain(
     runs["k4 pair"] = (coupled_two_step, 2, {})
     max_abs = {"k3": 0.0, "k4": 0.0}
     timings = {}
+    name = "k3+w" if with_w else "k3"
     for grid, bc in cases:
-        arr, static = padded_inputs(case_at(grid, bc), "cuda")
+        arr, static = padded_inputs(case_at(grid, bc), "cuda", with_w=with_w)
         for mode, (fn, S, mkw) in runs.items():
             kern = "k4" if fn is coupled_two_step else "k3"
             ins, st = k3_inputs(arr, static, S)
@@ -459,7 +532,7 @@ def phase_k3_vs_plain(
             got = fn(**fresh_k3(ins), **st, **mkw)
             want = coupled_multistep_plain(**fresh_k3(ins), **st, **pkw)
             torch.cuda.synchronize()
-            tag = f"k3 {grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
+            tag = f"{name} {grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
             max_abs[kern] = max(max_abs[kern], check_fields(
                 tag, got, want, bit_exact=not mkw.get("fast")))
             if grid == BIG_GRID:
@@ -474,7 +547,7 @@ def phase_k3_vs_plain(
                         lambda: f(**a, **st, **kw), reps) / S)
                 timings[mode] = out
                 J, K, I = ins["t"].shape
-                print(f"[k3 time {J}x{K}x{I} {mode}] ms per substep: kernel "
+                print(f"[{name} time {J}x{K}x{I} {mode}] ms per substep: kernel "
                       f"{out['cuda'][0]:.4f} / {out['cuda'][1]:.4f}, plain "
                       f"{out['plain'][0]:.3f} / {out['plain'][1]:.3f} "
                       f"(order plain, kernel, kernel, plain; {card})")
@@ -484,11 +557,12 @@ def phase_k3_vs_plain(
     return max_abs, timings
 
 
-def phase_k3_vs_k1(grid=BIG_GRID, S=4):
+def phase_k3_vs_k1(grid=BIG_GRID, S=4, with_w=False):
     """K3 exact against S K1 fused-scan launches (fuse_uv, lean, lite) on
-    the ring-1 layout: the blocked loop against the loop it replaces.
-    Held to KERNEL_TOL; bit-equality is the stretch goal, and the
-    different= counts say how far it is met.  Returns them."""
+    the ring-1 layout: the blocked loop against the loop it replaces;
+    ``with_w``: both with ``fuse_w``, w and pp compared too.  Bit-equality
+    is the goal: the ``different=`` counts (counted on the card) are
+    printed and returned, and a nonzero count is held to KERNEL_TOL."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import coupled_multistep
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
@@ -496,11 +570,11 @@ def phase_k3_vs_k1(grid=BIG_GRID, S=4):
     )
     from wrf_tpu_torch.parallel.halo import strip_ring
 
-    arr, static = padded_inputs(case_at(grid), "cuda")
+    arr, static = padded_inputs(case_at(grid), "cuda", with_w=with_w)
     ins, st = k3_inputs(arr, static, S)
     got = coupled_multistep(**fresh_k3(ins), **st, n_inner=S)
     got = {k: strip_ring(v, 0, S) for k, v in got.items()}
-    carry = ("ww_row", "mu", "t", "u", "v")
+    carry = ("ww_row", "mu", "t", "u", "v") + (("w", "pp") if with_w else ())
     state = {k: strip_ring(ins[k], 0, S).clone() for k in carry}
     const = {k: v for k, v in arr.items() if k not in carry}
     lean = lean_kwargs(arr, static["rdx"], static["rdy"], static["dts"],
@@ -511,17 +585,108 @@ def phase_k3_vs_k1(grid=BIG_GRID, S=4):
                                  ww_mode="lite", lean=True)
         state = {k: out[k] for k in carry}
     torch.cuda.synchronize()
-    diffs = {}
-    check_fields(f"k3 vs {S} k1 {grid[0]}x{grid[1]}x{grid[2]}", got, state,
-                 diffs=diffs)
+    w_tag = "+w" if with_w else ""
+    tag = f"k3{w_tag} vs {S} k1{w_tag} {grid[0]}x{grid[1]}x{grid[2]}"
+    diffs = {k: count_different(got[k], state[k]) for k in carry}
+    for k, n in diffs.items():
+        print(f"[{tag}] {k:7s} different={n}")
+    if any(diffs.values()):
+        check_fields(tag, got, state)
     return diffs
+
+
+def chain_marginal_ms(step, n1=20, n2=100, repeats=12):
+    """Marginal ms per call of ``step(i)`` between chains of n1 and n2
+    calls (CUDA events, best of ``repeats`` each): the method of
+    ``measure_copy_gbps``, for the library yardstick."""
+    import torch
+
+    def chain(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            step(i)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    chain(2)
+    best = {n: min(chain(n) for _ in range(repeats)) for n in (n1, n2)}
+    return (best[n2] - best[n1]) / (n2 - n1)
+
+
+def phase_copy_ceiling(card=""):
+    """K6: every probe against its plain version (exactly; also on an
+    unaligned odd-sized array, which takes the scalar path), then the
+    copy ceiling at the three shapes with every probe printed, and
+    ``Tensor.copy_`` on the same ping-pong chain as the library yardstick.
+    Returns per shape the ceiling, its probe, each probe's GB/s and the
+    library's GB/s, plus the launches the ceiling measurement made."""
+    import torch
+    from wrf_tpu_torch.utils import copy_ceiling as k6
+
+    g = torch.Generator(device="cuda").manual_seed(2026)
+    base = torch.randn(105 + 516 * 50 * 516 + 3, device="cuda", generator=g)
+    views = {"516x50x516": base[:516 * 50 * 516].view(516, 50, 516),
+             "unaligned 7x5x3": base[1:106].view(7, 5, 3),
+             "tail 1x1x1027": base[4:1031].view(1, 1, 1027)}
+    for vname, x in views.items():
+        for probe, (plus1, in_place) in k6.PROBES.items():
+            xa, xb = x.clone(), x.clone()
+            if vname.startswith("unaligned"):   # clone() realigns: re-offset
+                pad_a = torch.empty(x.numel() + 1, device="cuda")
+                pad_b = torch.empty(x.numel() + 1, device="cuda")
+                xa = pad_a[1:].view(x.shape).copy_(x)
+                xb = pad_b[1:].view(x.shape).copy_(x)
+                assert xa.data_ptr() % 16 != 0
+            got = k6.copy_probe(xa, xa if in_place else torch.empty_like(xa),
+                                plus1)
+            want = k6.copy_probe_plain(
+                xb, xb if in_place else torch.empty_like(xb), plus1)
+            torch.cuda.synchronize()
+            n = count_different(got, want)
+            print(f"[k6 {vname} {probe}] different={n}")
+            if n or not torch.equal(want, x + 1 if plus1 else x):
+                raise AssertionError(f"k6 {vname} {probe}: {n} elements "
+                                     f"differ from the plain version")
+    del base, views
+
+    out = {}
+    k6.LAUNCHES = 0
+    for shape in k6.SHAPES:
+        J, K, I = shape
+        nbytes = 2 * J * K * I * 4
+        rates = {}
+        best, src, err = k6.measure_copy_ceiling(shape, readings=rates)
+        if err:
+            print(f"[k6 {J}x{K}x{I}] probe error: {err}")
+        a = torch.ones(shape, device="cuda")
+        b = torch.empty_like(a)
+        bufs = (a, b)
+        lib_ms = chain_marginal_ms(
+            lambda i: bufs[(i + 1) % 2].copy_(bufs[i % 2]))
+        lib = nbytes / (lib_ms * 1e-3) / 1e9
+        over = [p for p, r in rates.items() if r > k6.HBM_SPEC_GBPS]
+        print(f"[k6 ceiling {J}x{K}x{I}, {nbytes / 1e6:.1f} MB moved per "
+              f"copy] " + ", ".join(f"{p} {r:.1f}" for p, r in rates.items())
+              + f" GB/s; ceiling {best:.1f} GB/s ({src}); Tensor.copy_ "
+              f"{lib:.1f} GB/s; above the {k6.HBM_SPEC_GBPS:.0f} GB/s data "
+              f"sheet (discarded): {over or 'none'} ({card})")
+        if not best > 0:
+            raise AssertionError(f"k6 {shape}: no plausible probe reading")
+        out[shape] = dict(ceiling=best, probe=src, rates=rates, library=lib,
+                          library_ms=lib_ms, nbytes=nbytes)
+        del a, b, bufs
+        torch.cuda.empty_cache()
+    return out, k6.LAUNCHES
 
 
 def phase_golden_file(tmp: Path):
     import torch
-    from wrf_tpu.compare import compare
-    from wrf_tpu.io import fixtures
+    from wrf_tpu_torch.compare import compare
     from wrf_tpu_torch.convert import arrays_from_numpy
+    from wrf_tpu_torch.io import fixtures
     from wrf_tpu_torch.io.fixtures import make_case
     from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
 
@@ -547,13 +712,18 @@ def phase_golden_file(tmp: Path):
             raise AssertionError(f"golden-file check: {r}")
 
 
-def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str):
+def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
+                      with_w: bool = False):
     """One RK3 large step on memory-window arrays with the C++ oracle's
     wind and mu/t substeps — the structure of
-    ``wrf_tpu.models.rk3.rk3_golden`` (which lives in a jax module)."""
-    from wrf_tpu.native import advance_mu_t_native, advance_uv_native
+    the JAX package's ``rk3_golden``; ``with_w`` adds the oracle's w/pp substep
+    on each substep's new theta."""
+    from wrf_tpu_torch.native import (
+        advance_mu_t_native, advance_uv_native, advance_w_native,
+    )
     from wrf_tpu_torch.models.rk3 import rk3_stages
-    from wrf_tpu_torch.models.small_step import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_uv import DEFAULT_CS2
+    from wrf_tpu_torch.ops.advance_w import DEFAULT_CW, DEFAULT_GW
 
     f0 = case.fields
     start = {"u": f0["grid_u_2"], "v": f0["grid_v_2"], "t": f0["grid_t_2"],
@@ -568,6 +738,7 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str):
         kw = dataclasses.replace(case, fields=fields,
                                  dts=(frac * dt) / n_sub).kernel_kwargs()
         state = dict(start)
+        w, pp = f0["grid_w"], f0["grid_pp"]   # every stage restarts
         for _ in range(n_sub):
             u, v = advance_uv_native(
                 u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
@@ -576,9 +747,17 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str):
                 dts=kw["dts"], cs2=DEFAULT_CS2, flags=case.flags,
                 bounds=case.bounds)
             out = advance_mu_t_native(**{**kw, **state, "u": u, "v": v})
+            if with_w:
+                w, pp = advance_w_native(
+                    w=w, pp=pp, t=out["t"], rdn=f0["grid_rdn"],
+                    rdnw=kw["rdnw"], dts=kw["dts"], epssm=kw["epssm"],
+                    cw=DEFAULT_CW, gw=DEFAULT_GW, flags=case.flags,
+                    bounds=case.bounds)
             state = {**{k: out[k] for k in ("ww", "mu", "t", "t_ave")},
                      "u": u, "v": v}
         out = {**out, "u": state["u"], "v": state["v"]}
+        if with_w:
+            out.update(w=w, pp=pp)
     return out
 
 
@@ -588,8 +767,8 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     K4 launches and the ms of each large step, after checking that the final
     checkpoint is finite."""
     import numpy as np
-    from wrf_tpu.io import checkpoint
     from wrf_tpu_torch import run_sim
+    from wrf_tpu_torch.io import checkpoint
     from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
     from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
 
@@ -609,6 +788,9 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     state, step, _ = checkpoint.load_checkpoint(tmp / name / "step_000003")
     if step != 3 or not all(np.isfinite(v).all() for v in state.values()):
         raise AssertionError(f"run_sim {name}: final state is not finite")
+    if ("--with-w" in flags) != ({"w", "pp"} <= state.keys()):
+        raise AssertionError(f"run_sim {name}: checkpoint fields "
+                             f"{sorted(state)} do not match --with-w")
     checksum = float(np.sum(state["t"], dtype=np.float64))
     step_ms = [float(m.group(1)) for m in
                re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
@@ -617,11 +799,13 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     return launches, step_ms
 
 
-def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict):
+def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict,
+                  with_w: bool = False):
     """One RK3 step at the reference grid against the C++ oracle's RK3
-    golden, with the launches it must make."""
+    golden (``with_w``: the composition advance_uv -> advance_mu_t ->
+    advance_w per substep), with the launches it must make."""
     import torch
-    from wrf_tpu.compare import compare
+    from wrf_tpu_torch.compare import compare
     from wrf_tpu_torch.convert import arrays_to_numpy
     from wrf_tpu_torch.models.rk3 import RK3Integrator
     from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
@@ -634,18 +818,20 @@ def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict):
     rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
                         acoustic_steps=acoustic_steps, kernel="cuda",
                         snapshot="stage", device="cuda",
-                        inner_steps=inner_steps)
-    arrays = rk3.prepare(case_to_domain(case))
+                        inner_steps=inner_steps, with_w=with_w)
+    arrays = rk3.prepare(case_to_domain(case, with_w=with_w))
     k1.LAUNCHES = k3.LAUNCHES = 0
     out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm)
     torch.cuda.synchronize()
     launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES}
-    tag = f"rk3 ns={acoustic_steps} S={inner_steps}"
+    tag = f"rk3 ns={acoustic_steps} S={inner_steps}{' +w' if with_w else ''}"
     if launches != expected:
         raise AssertionError(f"{tag} launched {launches}, expected "
                              f"{expected}")
     got = embed_outputs(case, arrays_to_numpy(out))
-    gold = rk3_golden_native(case, acoustic_steps, dt, "stage")
+    gold = rk3_golden_native(case, acoustic_steps, dt, "stage", with_w=with_w)
+    if with_w and not {"w", "pp"} <= got.keys():
+        raise AssertionError(f"{tag}: no w/pp in {sorted(got)}")
     for name in sorted(got):
         r = compare(got[name], gold[name], name, **DEVICE_TOL)
         print(f"[{tag} vs oracle] {r}")
@@ -662,11 +848,15 @@ def phase_slice(tmp: Path, fx: Path):
     runs = {"S=1": ((), {"k1": 21, "k3": 0, "k4": 0}),
             "S=2": (("--inner-steps", "2"), {"k1": 15, "k3": 3, "k4": 0}),
             "S=2 fast": (("--inner-steps", "2", "--fast"),
-                         {"k1": 15, "k3": 3, "k4": 0})}
+                         {"k1": 15, "k3": 3, "k4": 0}),
+            # the --with-w path: the same launches, each with the w solve
+            "S=1 +w": (("--with-w",), {"k1": 21, "k3": 0, "k4": 0}),
+            "S=2 +w": (("--with-w", "--inner-steps", "2"),
+                       {"k1": 15, "k3": 3, "k4": 0})}
     out = {}
     for name, (flags, expected) in runs.items():
-        launches, step_ms = run_sim_launches(tmp, fx, name.replace(" ", "_"),
-                                             *flags)
+        launches, step_ms = run_sim_launches(
+            tmp, fx, name.replace(" ", "_").replace("+", "with_"), *flags)
         if launches != expected:
             raise AssertionError(f"run_sim {name} launched {launches}, "
                                  f"expected {expected}")
@@ -678,6 +868,8 @@ def phase_slice(tmp: Path, fx: Path):
     rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0})
     # stages of 1, 4 and 8 substeps: K3 1 + 3, K1 1 + 2 + 2
     rk3_vs_oracle(8, 2, {"k1": 5, "k3": 4})
+    rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0}, with_w=True)
+    rk3_vs_oracle(8, 2, {"k1": 5, "k3": 4}, with_w=True)
     return out
 
 
@@ -714,6 +906,12 @@ COUPLED_TIERS = {
 }
 
 
+#: the --with-w coupled tiers (one lateral BC, 100 steps)
+COUPLED_W_TIERS = {f"{k} +w": v + ("--with-w",)
+                   for k, v in COUPLED_TIERS.items() if "fast" not in k}
+COUPLED_W_TIERS["coupled-eager +w"] = ("--tier", "coupled-eager", "--with-w")
+
+
 def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
                  coupled_steps: int = 9):
     """The driver's tiers at the reference grid under every lateral BC
@@ -721,7 +919,7 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
     against the numpy golden loop, 100 steps), then the two blocked main
     paths at 512x512x50: the mu/t loop (sharded-cuda S=8) and the coupled
     loop (coupled S=4).  Returns the launches of each."""
-    from wrf_tpu.io import fixtures
+    from wrf_tpu_torch.io import fixtures
     from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
     from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
     from wrf_tpu_torch.ops import advance_mu_t_msteps_cuda as k2
@@ -733,7 +931,9 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
             fx = fixtures.write_case(case, tmp / f"ref_{bc}_{steps}",
                                      steps=steps)
             tiers = {**DRIVER_TIERS, **(COUPLED_TIERS if steps == 100
-                                        else {})}
+                                        else {}),
+                     **(COUPLED_W_TIERS
+                        if steps == 100 and bc == "specified" else {})}
             for tier, args in tiers.items():
                 run_driver(f"{bc} {steps} steps {tier}", fx, *args)
     print(f"[time] driver at {REF_GRID}: {time.perf_counter() - t0:.1f} s")
@@ -745,6 +945,9 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
         "coupled": (f"{big} {coupled_steps} steps coupled S=4",
                     COUPLED_TIERS["coupled S=4"]
                     + ("--steps", str(coupled_steps)), 4, coupled_steps),
+        "coupled +w": (f"{big} {coupled_steps} steps coupled S=4 +w",
+                       COUPLED_W_TIERS["coupled S=4 +w"]
+                       + ("--steps", str(coupled_steps)), 4, coupled_steps),
     }
     out = {}
     for path, (tag, args, S, steps) in paths.items():
@@ -758,7 +961,7 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
         blocked = 2 * ((steps - 1) // S)
         expected = {"k1": 2 * (1 + (steps - 1) % S),
                     "k2": blocked if path == "mu/t" else 0,
-                    "k3": blocked if path == "coupled" else 0}
+                    "k3": blocked if path.startswith("coupled") else 0}
         if launches != expected:
             raise AssertionError(f"the {path} main path launched "
                                  f"{launches}, expected {expected}")
@@ -791,7 +994,8 @@ def loop_marginal_ms(case, counts, reps=5, coupled=False, **kw):
             loop = ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags,
                                      n_steps=n, vary_winds=True,
                                      device="cuda", **kw)
-        arrays = loop.prepare(case_to_domain(case))
+        arrays = loop.prepare(
+            case_to_domain(case, with_w=bool(kw.get("with_w"))))
         checksum = float(loop(arrays, case.rdx, case.rdy, case.dts,
                               case.epssm)["t"].sum())
         if not math.isfinite(checksum):
@@ -817,6 +1021,10 @@ LOOP_ROWS = {
     **{f"coupled 512x512x50 {m}": (BIG_GRID, (65, 257), dict(
         coupled=True, inner_steps=S, fast=fast))
        for m, (S, fast) in K3_MODES.items()},
+    "coupled +w 512x512x50 S=1": (BIG_GRID, (65, 257),
+                                  dict(coupled=True, with_w=True)),
+    **{f"coupled +w 512x512x50 exact S={S}": (BIG_GRID, (65, 257), dict(
+        coupled=True, with_w=True, inner_steps=S)) for S in (2, 4)},
 }
 
 
@@ -828,6 +1036,62 @@ def phase_loop_timings(card=""):
         out[name] = loop_marginal_ms(cases[grid], counts, **kw)
         print(f"[loop {name}] n={counts[0]}/{counts[1]}: "
               f"{out[name]:.4f} ms per substep ({card})")
+    return out
+
+
+#: the H100 SXM's data-sheet peaks the bounds are taken against: device
+#: memory bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: float32 operations per cell (one level of one column) and substep,
+#: counted from the kernels' arithmetic: K1's fused scan substep (wind
+#: rebuild, dvdxi, dmdt, ww scan, theta), K2's lean substep (winds scaled,
+#: no wind update), and what the w/pp solve adds (rhs, two sweeps, pp)
+OPS_PER_CELL = {"k1": 46, "k2": 42, "w": 25}
+
+
+def field_bytes(shape, n3, n2, n1):
+    """Bytes of ``n3`` 3-D, ``n2`` 2-D and ``n1`` vertical float32 fields
+    of a (J, K, I) block."""
+    J, K, I = shape
+    return 4 * (n3 * J * K * I + n2 * J * I + n1 * K)
+
+
+def bound_ms(nbytes, ops):
+    """The least ms the card could take: the larger of the compulsory bytes
+    (each input read once, each output written once) over the memory rate
+    and the operations over the float32 rate; and which of the two."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_bounds():
+    """``{row: (bound_ms, bound_by)}`` for the rows of the kernels
+    line, per launch (K1) or per substep (K2-K4), at the big grid's padded
+    block (ring-S arrays for K3/K4).  Field counts: K1's fused scan substep
+    reads u, v, t, t_1, tconst, dvdxi_const and writes u, v, t (9 passes),
+    11 2-D fields in and 5 out; K2 reads the same six and writes t (7), 6
+    2-D in and 2 out, per launch of S substeps; K3 as K1's scan with 9 2-D
+    in and 2 out, per launch of S; fuse_w adds w and pp read and written
+    (4 passes, once per launch) and 5 K-vectors."""
+    nx, ny, K = BIG_GRID
+    blk = (ny + 4, K, nx + 4)
+    cells = blk[0] * blk[1] * blk[2]
+    out = {}
+    for w in (False, True):
+        tag = "+w" if w else ""
+        ops = OPS_PER_CELL["k1"] + (OPS_PER_CELL["w"] if w else 0)
+        extra3, extra1 = (4, 5) if w else (0, 0)
+        out["k1" + tag] = bound_ms(
+            field_bytes(blk, 9 + extra3, 16, 4 + extra1), ops * cells)
+        for S in (2, 4, 8):
+            ring = (blk[0] + 2 * (S - 1), K, blk[2])
+            nb = field_bytes(ring, 9 + extra3, 11, 4 + extra1) / S
+            out[f"k3 S={S}{tag}"] = bound_ms(
+                nb, ops * ring[0] * ring[1] * ring[2])
+    out["k2 S=8"] = bound_ms(field_bytes(blk, 7, 8, 4) / 8,
+                             OPS_PER_CELL["k2"] * cells)
     return out
 
 
@@ -846,15 +1110,22 @@ def main() -> int:
     name, smi = phase_env()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import wrf_tpu_torch  # noqa: F401  (fails outside the repository)
-    from wrf_tpu.io import fixtures
+    from wrf_tpu_torch.io import fixtures
 
     timed("build", phase_build)
     k1_abs, k1_times = timed("k1 vs plain", phase_kernel_vs_plain, card=smi)
+    _, k1w_times = timed("k1+w vs plain", phase_kernel_vs_plain, card=smi,
+                         time_grids=(BIG_GRID,), with_w=True)
     k2_abs, k2_times = timed("k2 vs plain", phase_k2_vs_plain, card=smi)
     timed("k2 vs k1", phase_k2_vs_k1)
     k3_abs, k3_times = timed("k3 vs plain", phase_k3_vs_plain, card=smi)
+    k3w_abs, k3w_times = timed("k3+w vs plain", phase_k3_vs_plain, card=smi,
+                               with_w=True)
     k3_vs_k1 = timed("k3 vs k1", phase_k3_vs_k1)
     print(f"[k3 vs k1] different= counts: {k3_vs_k1}")
+    k3w_vs_k1w = timed("k3+w vs k1+w", phase_k3_vs_k1, with_w=True)
+    print(f"[k3+w vs k1+w] different= counts: {k3w_vs_k1w}")
+    k6, k6_launches = timed("copy ceiling", phase_copy_ceiling, card=smi)
     big_steps = 17
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -868,15 +1139,36 @@ def main() -> int:
                        steps=big_steps)
         sim = timed("run_sim slice", phase_slice, tmp, fx_big)
         drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
-    timed("loop timings", phase_loop_timings, card=smi)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loops = timed("loop timings", phase_loop_timings, card=smi)
+    borrowed = [m for m in sys.modules
+                if m == "jax" or m == "wrf_tpu" or m.startswith("wrf_tpu.")]
+    if borrowed:
+        raise AssertionError(f"jax or the JAX package was imported: "
+                             f"{borrowed}")
 
     def mean(xs):
         return sum(xs) / len(xs)
 
-    def k3_ms(mode):
-        return {k: mean(v) for k, v in k3_times[mode].items()}
+    def ms_of(times, mode):
+        return {k: mean(v) for k, v in times[mode].items()}
+
+    def pair(times, mode):
+        return {"ms": ms_of(times, mode)["cuda"],
+                "plain_ms": ms_of(times, mode)["plain"]}
+
+    bounds = kernel_bounds()
+    port_shape = (BIG_GRID[1] + 4, BIG_GRID[2], BIG_GRID[0] + 4)
+    ceil = k6[port_shape]
+    k6_ms = ceil["nbytes"] / (ceil["rates"]["ab"] * 1e9) * 1e3
+    # the ceiling to quote: the largest shape cannot sit in the 50 MB L2
+    big_copy = max(k6, key=lambda sh: sh[0] * sh[1] * sh[2])
+    print(f"[bounds] data sheet {HBM_BYTES_PER_S / 1e12:.2f} TB/s; measured "
+          f"copy ceiling {k6[big_copy]['ceiling']:.1f} GB/s "
+          f"({k6[big_copy]['probe']} at {big_copy}); ms at the data sheet: "
+          + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+    print(f"[loops +w] marginal ms per substep: "
+          + ", ".join(f"{k.split('50 ')[1]} {v:.4f}" for k, v in loops.items()
+                      if "+w" in k))
 
     print(smi)   # again, close to the end: the log is long
     print(json.dumps({"kernels": [{
@@ -888,12 +1180,24 @@ def main() -> int:
         "launches_by_path": {
             "run_sim": sim["S=1"][0]["k1"],
             "run_sim --inner-steps 2": sim["S=2"][0]["k1"],
+            "run_sim --with-w": sim["S=1 +w"][0]["k1"],
+            "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k1"],
             "driver sharded-cuda S=8": drv["mu/t"]["k1"],
-            "driver coupled S=4": drv["coupled"]["k1"]},
+            "driver coupled S=4": drv["coupled"]["k1"],
+            "driver coupled S=4 --with-w": drv["coupled +w"]["k1"]},
         "max_abs_err": k1_abs,
         # ms per launch at 516x50x516: run_sim's fused scan substep
         "ms": mean(k1_times[BIG_GRID, "scan"]["cuda"]),
         "plain_ms": mean(k1_times[BIG_GRID, "scan"]["plain"]),
+        "bound_ms": bounds["k1"][0], "bound_by": bounds["k1"][1],
+        "library_ms": None,
+        # the same substep with the w/pp solve (bit-equal to its plain
+        # version in every mode, so its error is 0)
+        "fuse_w": {**pair(k1w_times, (BIG_GRID, "scan")), "max_abs_err": 0.0,
+                   "bound_ms": bounds["k1+w"][0],
+                   "bound_by": bounds["k1+w"][1],
+                   "ms_by_mode": {m: ms_of(k1w_times, (BIG_GRID, m))
+                                  for m in W_MODES}},
     }, {
         "name": "advance_mu_t_multistep",
         "route": "cuda",
@@ -905,6 +1209,8 @@ def main() -> int:
         # ms per substep at 516x50x516, exact S=8
         "ms": mean(k2_times["exact S=8"]["cuda"]),
         "plain_ms": mean(k2_times["exact S=8"]["plain"]),
+        "bound_ms": bounds["k2 S=8"][0], "bound_by": bounds["k2 S=8"][1],
+        "library_ms": None,
     }, {
         "name": "coupled_multistep",
         "route": "cuda",
@@ -914,13 +1220,25 @@ def main() -> int:
         "launches_by_path": {
             "run_sim --inner-steps 2": sim["S=2"][0]["k3"],
             "run_sim --inner-steps 2 --fast": sim["S=2 fast"][0]["k3"],
-            "driver coupled S=4": drv["coupled"]["k3"]},
+            "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k3"],
+            "driver coupled S=4": drv["coupled"]["k3"],
+            "driver coupled S=4 --with-w": drv["coupled +w"]["k3"]},
         "max_abs_err": k3_abs["k3"],
         # ms per substep (per launch / S) at 512x512x50, exact S=2 (the
         # run_sim path's depth); every mode in ms_by_mode
-        "ms": k3_ms("exact S=2")["cuda"],
-        "plain_ms": k3_ms("exact S=2")["plain"],
-        "ms_by_mode": {m: k3_ms(m) for m in K3_MODES},
+        "ms": ms_of(k3_times, "exact S=2")["cuda"],
+        "plain_ms": ms_of(k3_times, "exact S=2")["plain"],
+        "bound_ms": bounds["k3 S=2"][0], "bound_by": bounds["k3 S=2"][1],
+        "library_ms": None,
+        "ms_by_mode": {m: ms_of(k3_times, m) for m in K3_MODES},
+        "bound_ms_by_depth": {f"S={S}": bounds[f"k3 S={S}"][0]
+                              for S in (2, 4, 8)},
+        "fuse_w": {**pair(k3w_times, "exact S=2"),
+                   "max_abs_err": k3w_abs["k3"],
+                   "bound_ms": bounds["k3 S=2+w"][0],
+                   "bound_by": bounds["k3 S=2+w"][1],
+                   "ms_by_mode": {m: ms_of(k3w_times, m) for m in K3_MODES},
+                   "different_vs_k1": k3w_vs_k1w},
     }, {
         "name": "coupled_two_step",
         "route": "cuda",
@@ -930,11 +1248,39 @@ def main() -> int:
         # S=2 included (the same template instance), so this reads 0
         "on_main_path": False,
         "launches": sim["S=2"][0]["k4"],
-        "launches_by_path": {"run_sim --inner-steps 2": sim["S=2"][0]["k4"]},
+        "launches_by_path": {
+            "run_sim --inner-steps 2": sim["S=2"][0]["k4"],
+            "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k4"]},
         "max_abs_err": k3_abs["k4"],
         # ms per substep at 512x512x50
-        "ms": k3_ms("k4 pair")["cuda"],
-        "plain_ms": k3_ms("k4 pair")["plain"],
+        "ms": ms_of(k3_times, "k4 pair")["cuda"],
+        "plain_ms": ms_of(k3_times, "k4 pair")["plain"],
+        "bound_ms": bounds["k3 S=2"][0], "bound_by": bounds["k3 S=2"][1],
+        "library_ms": None,
+        "fuse_w": {**pair(k3w_times, "k4 pair"),
+                   "max_abs_err": k3w_abs["k4"],
+                   "bound_ms": bounds["k3 S=2+w"][0],
+                   "bound_by": bounds["k3 S=2+w"][1]},
+    }, {
+        "name": "copy_probe",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/copy.cu",
+        "replaces": "bench.py:195",
+        # its main path is the ceiling measurement itself
+        "launches": k6_launches,
+        "launches_by_path": {"copy ceiling, 3 shapes x 3 probes":
+                             k6_launches},
+        "max_abs_err": 0.0,
+        # ms per copy of one 516x50x516 array (the ab probe); its plain
+        # version is Tensor.copy_, which is also the library call
+        "ms": k6_ms,
+        "plain_ms": ceil["library_ms"],
+        "bound_ms": ceil["nbytes"] / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": ceil["library_ms"],
+        "gbps_by_shape": {"x".join(map(str, sh)): {
+            "ceiling": v["ceiling"], "probe": v["probe"], **v["rates"],
+            "Tensor.copy_": v["library"]} for sh, v in k6.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

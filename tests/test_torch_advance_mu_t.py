@@ -139,7 +139,7 @@ def test_in_place_contract(small_case):
 
 
 @pytest.mark.parametrize("unported", [
-    dict(fuse_w=True), dict(smdiv=0.1, fuse_uv=True), dict(capture=True),
+    dict(smdiv=0.1, fuse_uv=True), dict(capture=True),
     dict(overlap={"axis_name": "j"}),
 ])
 def test_unported_modes_raise(small_case, unported):

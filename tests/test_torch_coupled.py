@@ -215,12 +215,9 @@ def test_wrapper_contract():
                for k in arr)
     with pytest.raises(ValueError, match="n_inner"):
         k3.coupled_multistep(**tarr, **static, n_inner=1)
-    for bad in (dict(fuse_w=True), dict(ti=128),
-                dict(overlap={"axis_name": "j"})):
+    for bad in (dict(ti=128), dict(overlap={"axis_name": "j"})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             k3.coupled_multistep(**tarr, **static, n_inner=S, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k3.coupled_two_step(**tarr, **static, fuse_w=True)
     tarr["t_1"] = tarr["t_1"].to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bf16"):
         k3.coupled_multistep(**tarr, **static, n_inner=S)

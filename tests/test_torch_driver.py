@@ -45,6 +45,12 @@ def test_numpy_tier_bit_exact(fx9, capsys):
     ("--tier", "coupled", "--inner-steps", "2"),
     ("--tier", "coupled", "--inner-steps", "2", "--fast"),
     ("--tier", "coupled", "--inner-steps", "3"),
+    ("--tier", "coupled", "--with-w"),
+    ("--tier", "coupled", "--with-w", "--inner-steps", "2"),
+    ("--tier", "coupled", "--with-w", "--inner-steps", "4", "--fast"),
+    ("--tier", "coupled-eager"),
+    ("--tier", "coupled-eager", "--with-w"),
+    ("--tier", "coupled-native", "--with-w"),
 ])
 def test_tier_passes(fx9, capsys, args):
     rc, out = _main(capsys, fx9, *args)
@@ -62,7 +68,14 @@ def test_coupled_native_bit_exact(fx9, capsys):
 def test_all_tiers(fx9, capsys):
     rc, out = _main(capsys, fx9, "--tier", "all")
     assert rc == 0, out
-    assert out.count("PASS") == len(driver.ALL_ROWS) == 12
+    assert out.count("PASS") == len(driver.ALL_ROWS) == 16
+    # the JAX driver's matrix without its two bf16 rows
+    assert [r.replace("eager", "xla").replace("cuda", "pallas")
+            for r in driver.ALL_ROWS] == [
+        "numpy", "native", "xla", "pallas", "sharded-xla", "sharded-pallas",
+        "coupled", "coupled-xla", "coupled-native", "coupled+w",
+        "coupled-xla+w", "coupled-native+w", "sharded-pallas~blk",
+        "sharded-pallas~blkfast", "coupled~blk", "coupled~blkfast"]
     assert "FAIL" not in out and "ERROR" not in out
     for tier in ("numpy", "native"):
         line = next(ln for ln in out.splitlines()
@@ -86,7 +99,7 @@ def test_device_cuda_without_gpu_exits(fx9):
 
 
 @pytest.mark.parametrize("args", [
-    ("--mesh", "2x2"), ("--with-w",), ("--precision", "bf16-const"),
+    ("--mesh", "2x2"), ("--precision", "bf16-const"),
     ("--halo-backend", "rdma"), ("--dump-intermediates", "dump"),
 ])
 def test_unported_options_exit(fx9, args):
@@ -94,10 +107,28 @@ def test_unported_options_exit(fx9, args):
         driver.main([str(fx9), *args, "--device", "cpu"])
 
 
-def test_golden_loop_matches_jax_module(small_case):
+def test_coupled_native_with_w_bit_exact(fx9, capsys):
+    rc, out = _main(capsys, fx9, "--tier", "coupled-native", "--with-w")
+    lines = [ln for ln in out.splitlines() if "golden loop" in ln]
+    assert rc == 0
+    assert len(lines) == 11 and all("max_ulp=0" in ln for ln in lines), out
+    assert any(ln.startswith("pp (golden loop)") for ln in lines)
+
+
+def test_with_w_on_a_mu_t_tier_exits(fx9):
+    with pytest.raises(SystemExit, match="coupled tiers"):
+        driver.main([str(fx9), "--tier", "sharded-cuda", "--with-w",
+                     "--device", "cpu"])
+
+
+def test_golden_loop_matches_jax_module(small_case, with_w=False):
     """The port's jax-free golden loop is the JAX module's, bit for bit."""
-    got = small_step_golden(small_case, 3)
-    want = jax_golden_loop(small_case, 3)
+    got = small_step_golden(small_case, 3, with_w=with_w)
+    want = jax_golden_loop(small_case, 3, with_w=with_w)
     assert sorted(got) == sorted(want)
     for name in got:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_golden_loop_with_w_matches_jax_module(small_case):
+    test_golden_loop_matches_jax_module(small_case, with_w=True)

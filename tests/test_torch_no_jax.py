@@ -1,12 +1,14 @@
-"""The port never imports jax, and its CUDA-requesting paths fail loudly
-where there is no GPU or no nvcc.
+"""The port never imports jax nor anything of the JAX package (wrf_tpu),
+and its CUDA-requesting paths fail loudly where there is no GPU or no nvcc.
 
 tests/conftest.py imports jax into this process, so the import checks run
 in a fresh interpreter."""
 
+import re
 import subprocess
 import sys
 import textwrap
+from dataclasses import astuple
 from pathlib import Path
 
 import numpy as np
@@ -34,14 +36,19 @@ _CHILD = textwrap.dedent("""
     from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.parallel.sharded import case_to_domain
     case = make_case(12, 10, 6, halo=2, seed=3)
-    for inner in (1, 2):
+    for inner, with_w in ((1, False), (2, False), (1, True), (2, True)):
         loop = SmallStepLoop(case.bounds.ide, case.bounds.jde,
                              case.bounds.kdim, case.flags, n_steps=3,
-                             kernel="plain", inner_steps=inner, device="cpu")
-        out = loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy,
-                   case.dts, case.epssm)
+                             kernel="plain", inner_steps=inner, device="cpu",
+                             with_w=with_w)
+        out = loop(loop.prepare(case_to_domain(case, with_w=with_w)),
+                   case.rdx, case.rdy, case.dts, case.epssm)
         assert torch.isfinite(out["t"]).all()
+        assert ("w" in out) == with_w
     assert "jax" not in sys.modules, "jax was imported"
+    borrowed = [m for m in sys.modules
+                if m == "wrf_tpu" or m.startswith("wrf_tpu.")]
+    assert not borrowed, f"the JAX package was imported: {borrowed}"
     print("MODULES", len(names))
 """)
 
@@ -51,22 +58,40 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 10
+    assert n >= 25
+
+
+_IMPORT_BANNED = re.compile(
+    r"^\s*(from|import)\s+(jax|wrf_tpu)(\.|\s|$)", re.MULTILINE)
+
+
+def _port_sources():
+    for src in (REPO / "wrf_tpu_torch").rglob("*.py"):
+        if "_build" not in src.relative_to(REPO).parts:   # build outputs
+            yield src
+    yield REPO / "chip_smoke.py"
 
 
 def test_port_sources_import_no_jax_modules():
-    """No module of the port names jax or a jax-importing wrf_tpu module."""
-    banned = ("import jax", "from jax", "wrf_tpu.parallel", "wrf_tpu.models",
-              "wrf_tpu.ops.advance", "wrf_tpu.ops import advance")
-    for src in (REPO / "wrf_tpu_torch").rglob("*.py"):
-        if "_build" in src.relative_to(REPO).parts:
-            continue   # build outputs, not the package's modules
-        text = src.read_text()
-        for pat in banned:
-            code = [ln for ln in text.splitlines()
-                    if pat in ln and ln.lstrip().startswith(("import",
-                                                             "from"))]
-            assert not code, f"{src}: {code}"
+    """No module of the port, nor chip_smoke.py, imports jax or any module
+    of the JAX package (``wrf_tpu_torch`` itself is not ``wrf_tpu``)."""
+    sources = list(_port_sources())
+    assert len(sources) > 25
+    for src in sources:
+        hits = [m.group(0).strip()
+                for m in _IMPORT_BANNED.finditer(src.read_text())]
+        assert not hits, f"{src}: {hits}"
+
+
+def test_import_ban_pattern_catches_what_it_should():
+    bad = ("import wrf_tpu", "from wrf_tpu import native",
+           "    from wrf_tpu.io import fixtures", "import wrf_tpu.grid as g",
+           "import jax", "from jax import numpy")
+    good = ("import wrf_tpu_torch", "from wrf_tpu_torch.io import fixtures",
+            "# from wrf_tpu import x", "x = 'import wrf_tpu'",
+            "from .grid import ConfigFlags", "import jaxtyping")
+    assert all(_IMPORT_BANNED.search(ln) for ln in bad)
+    assert not any(_IMPORT_BANNED.search(ln) for ln in good)
 
 
 def test_make_case_matches_jax_package():
@@ -74,11 +99,9 @@ def test_make_case_matches_jax_package():
     b = fixtures.make_case(12, 10, 6, halo=2, seed=3, balanced=True)
     assert a.fields.keys() == b.fields.keys()
     assert all(np.array_equal(a.fields[k], b.fields[k]) for k in a.fields)
-    assert (a.rdx, a.rdy, a.dts, a.epssm, a.bounds, a.flags) == \
-        (b.rdx, b.rdy, b.dts, b.epssm, b.bounds, b.flags)
-    # the stand-in is bound only during the call
-    from wrf_tpu.ops import advance_w
-    assert sys.modules["wrf_tpu.ops.advance_w"] is advance_w
+    assert (a.rdx, a.rdy, a.dts, a.epssm, astuple(a.bounds),
+            astuple(a.flags)) == \
+        (b.rdx, b.rdy, b.dts, b.epssm, astuple(b.bounds), astuple(b.flags))
 
 
 def test_run_sim_device_cuda_without_gpu_raises(tmp_path):
@@ -107,4 +130,4 @@ def test_library_name_tracks_sources():
     assert p == _build.library_path()
     assert [s.name for s in _build.sources()] == [
         "advance_mu_t.cu", "advance_mu_t_coupled.cu",
-        "advance_mu_t_msteps.cu"]
+        "advance_mu_t_msteps.cu", "copy.cu", "w_solve.cuh"]

@@ -141,7 +141,7 @@ def test_run_sim_resume_continues(tmp_path, small_case, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x2"], ["--with-w"],
+    ["--mesh", "2x2"],
     ["--precision", "bf16-const"], ["--halo-backend", "rdma"],
     ["--closure", "nudge"], ["--steps-per-sync", "2"],
     ["--profile", "trace"],

@@ -13,7 +13,9 @@
 //   * the seeded k-ascending ww scan (WW_MODE full / lite / final);
 //   * the theta update, and t_ave when WITH_TAVE;
 //   * LEAN: the u_1/v_1 static fluxes and the ft / ww_1 theta terms arrive
-//     folded into two precomputed fields (dvdxi_const, tconst).
+//     folded into two precomputed fields (dvdxi_const, tconst);
+//   * FUSE_W: the vertically-implicit w/pp substep, a per-column Thomas
+//     solve on this substep's new theta (csrc/w_solve.cuh).
 // The plain PyTorch version of the same arithmetic is
 // advance_mu_t_fused_plain in wrf_tpu_torch/ops/advance_mu_t_cuda.py.
 //
@@ -26,13 +28,21 @@
 //          banks; kept rather than recomputed in pass 2), sums dmdt in k
 //          order (the oracle's order) and writes the updated winds;
 //   pass 2 runs the ww scan from the seed and the theta update with one
-//          level of look-ahead, since vert(k) needs wdtn(k+1).
+//          level of look-ahead, since vert(k) needs wdtn(k+1).  Under
+//          FUSE_W the solve's forward elimination rides this loop, level k
+//          right after t(k) is final, and a third, descending loop
+//          back-substitutes and updates pp.
+// The solve's K-long sweep state dpw lives in the thread's shared-memory
+// slice: pass 2 consumes dvdxi(k) at level k and the slot is dead from
+// then on, so dpw(k) takes it.  No scratch in device memory; what the
+// solve costs there is w and pp read twice and written once (6 field
+// passes, 4 of them compulsory: csrc/w_solve.cuh).
 //
 // Buffers: u, v and mu are read at neighbour columns and rows, and GPU
 // blocks run in no fixed order, so their updates go to fresh output
 // buffers; the caller hands those back as the next substep's inputs
 // (nothing is copied).  t, t_ave, ww and ww_row are read only at the
-// thread's own column, so they are updated in place.
+// thread's own column, so they are updated in place; so are w and pp.
 //
 // Edges: rows 0 and J-1 are never computed.  There, and in every column
 // outside the compute window, the state passes through and muave, muts
@@ -54,6 +64,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "w_solve.cuh"
 
 namespace {
 
@@ -90,6 +102,14 @@ struct Args {
   const float* fnm;
   const float* fnp;
   const float* rdnw;
+  // the w/pp solve (FUSE_W): state, updated in place, and K-vectors
+  float* w;
+  float* pp;
+  const float* aw;
+  const float* cpv;
+  const float* denv;
+  const float* crdn;
+  const float* erdn;
   // fresh outputs
   float* mu_out;
   float* muave;
@@ -98,13 +118,14 @@ struct Args {
   float* u_out;
   float* v_out;
   float rdx, rdy, dts, epssm, cs2, wind_scale;
+  float c_w, g_t, beta, alfa;  // FUSE_W scalars
   int J, K, I;
   int i0, i1, j0, j1;  // compute window, global coordinates
   int j_off, i_off;    // global index of local row / column 0
   int k0, k1;
 };
 
-template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE>
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W>
 __global__ void __launch_bounds__(128)
 advance_mu_t_kernel(const Args a) {
   extern __shared__ float s_dvdxi[];  // [K][blockDim.x]
@@ -228,6 +249,9 @@ advance_mu_t_kernel(const Args a) {
   float scan = seed;       // raw scan value at level k
   float wdtn = 0.f;        // wdtn(k0): no flux through the surface
   float t1_k = a.t_1[x0];
+  const wsolve::Coef wc{a.rdnw, a.aw,  a.cpv, a.denv, a.crdn,
+                        a.erdn, a.c_w, a.g_t, a.beta, a.alfa};
+  wsolve::Fwd wf;
   for (int k = k0; k <= k1; ++k) {
     const size_t x = col + (size_t)k * I;
     if (WW_MODE != kLite) a.ww[x] = scan - a.ww_1[x];
@@ -253,39 +277,52 @@ advance_mu_t_kernel(const Args a) {
     const float fy = v_n * (a.t_1[xn] + t1_k) - v_c * (t1_k + a.t_1[xs]);
     const float fx = u_e * (a.t_1[xe] + t1_k) - u_c * (t1_k + a.t_1[xw]);
     const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
-    a.t[x] = t_half - dts_msfty * (horiz + vert);
+    const float t_new = t_half - dts_msfty * (horiz + vert);
+    a.t[x] = t_new;
+    if (FUSE_W) {  // dvdxi(k) in s[k] is consumed: the slot takes dpw(k)
+      wsolve::w_forward_level(wc, wf, a.w + col, a.pp + col, I, k, k0, k1,
+                              t_new, s, bdx);
+    }
 
     scan = scan_up;
     wdtn = wdtn_up;
     t1_k = t1_up;
   }
+  if (FUSE_W) wsolve::w_backward(wc, a.w + col, a.pp + col, I, k0, k1, s, bdx);
 }
 
-template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE>
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W>
 cudaError_t launch(const Args& a, int block_x, cudaStream_t stream) {
   const dim3 block(block_x);
   const dim3 grid((a.I + block_x - 1) / block_x, a.J);
   const size_t smem = (size_t)a.K * block_x * sizeof(float);
-  advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE>
+  advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE, FUSE_W>
       <<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool FUSE_UV>
+template <bool FUSE_UV, bool FUSE_W>
 cudaError_t dispatch(const Args& a, int lean, int ww_mode, int with_tave,
                      int block_x, cudaStream_t s) {
   if (lean) {  // lean is a scan-substep mode: lite, no t_ave
     if (ww_mode != kLite || with_tave) return cudaErrorInvalidValue;
-    return launch<FUSE_UV, true, kLite, false>(a, block_x, s);
+    return launch<FUSE_UV, true, kLite, false, FUSE_W>(a, block_x, s);
   }
   switch (ww_mode * 2 + (with_tave ? 1 : 0)) {
-    case kFull * 2: return launch<FUSE_UV, false, kFull, false>(a, block_x, s);
-    case kFull * 2 + 1: return launch<FUSE_UV, false, kFull, true>(a, block_x, s);
-    case kLite * 2: return launch<FUSE_UV, false, kLite, false>(a, block_x, s);
-    case kLite * 2 + 1: return launch<FUSE_UV, false, kLite, true>(a, block_x, s);
-    case kFinal * 2: return launch<FUSE_UV, false, kFinal, false>(a, block_x, s);
-    case kFinal * 2 + 1: return launch<FUSE_UV, false, kFinal, true>(a, block_x, s);
-    default: return cudaErrorInvalidValue;
+    case kFull * 2:
+      return launch<FUSE_UV, false, kFull, false, FUSE_W>(a, block_x, s);
+    case kFull * 2 + 1:
+      return launch<FUSE_UV, false, kFull, true, FUSE_W>(a, block_x, s);
+    case kLite * 2:
+      return launch<FUSE_UV, false, kLite, false, FUSE_W>(a, block_x, s);
+    case kLite * 2 + 1:
+      return launch<FUSE_UV, false, kLite, true, FUSE_W>(a, block_x, s);
+    case kFinal * 2:
+      return launch<FUSE_UV, false, kFinal, false, FUSE_W>(a, block_x, s);
+    case kFinal * 2 + 1:
+      return launch<FUSE_UV, false, kFinal, true, FUSE_W>(a, block_x, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -304,26 +341,36 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
     const float* msftx, const float* msfty, float* ww_row,
     const float* ww1_k0,
     const float* dnw, const float* fnm, const float* fnp, const float* rdnw,
+    float* w, float* pp, const float* aw, const float* cpv,
+    const float* denv, const float* crdn, const float* erdn,
     float* mu_out, float* muave, float* muts, float* mudf, float* u_out,
     float* v_out,
     float rdx, float rdy, float dts, float epssm, float cs2,
-    float wind_scale,
+    float wind_scale, float c_w, float g_t, float beta, float alfa,
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
     int i_off, int k0, int k1,
-    int fuse_uv, int lean, int ww_mode, int with_tave, int block_x,
-    void* stream) {
+    int fuse_uv, int lean, int ww_mode, int with_tave, int fuse_w,
+    int block_x, void* stream) {
   if (J < 3 || K < 1 || I < 1 || k0 < 0 || k1 >= K || k0 > k1 ||
       block_x < 1 || block_x > 128)
     return cudaErrorInvalidValue;
   const Args a{ww, ww_1, u, u_1, v, v_1, t, t_1, t_ave, ft, tconst,
                dvdxi_const, mu, mut, muu, muv, mu_tend, msfuy, msfvx_inv,
                msftx, msfty, ww_row, ww1_k0, dnw, fnm, fnp, rdnw,
+               w, pp, aw, cpv, denv, crdn, erdn,
                mu_out, muave, muts, mudf, u_out, v_out,
-               rdx, rdy, dts, epssm, cs2, wind_scale,
+               rdx, rdy, dts, epssm, cs2, wind_scale, c_w, g_t, beta, alfa,
                J, K, I, i0, i1, j0, j1, j_off, i_off, k0, k1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      fuse_uv ? dispatch<true>(a, lean, ww_mode, with_tave, block_x, s)
-              : dispatch<false>(a, lean, ww_mode, with_tave, block_x, s);
+  cudaError_t err;
+  if (fuse_w) {
+    err = fuse_uv
+              ? dispatch<true, true>(a, lean, ww_mode, with_tave, block_x, s)
+              : dispatch<false, true>(a, lean, ww_mode, with_tave, block_x, s);
+  } else {
+    err = fuse_uv
+              ? dispatch<true, false>(a, lean, ww_mode, with_tave, block_x, s)
+              : dispatch<false, false>(a, lean, ww_mode, with_tave, block_x, s);
+  }
   return static_cast<int>(err);
 }

@@ -3,11 +3,12 @@
 //
 // Replaces the TPU kernel wrf_tpu/ops/advance_mu_t_msteps.py::
 // _coupled_ms_kernel (wrapper coupled_multistep_pallas), and at S=2 its
-// hand-unrolled pair _coupled2_kernel (wrapper coupled_two_step_pallas),
-// for fuse_w=False.  Each substep is K1's fused scan substep (fuse_uv +
-// lean + lite): the wind update from p = cs2*mu, dvdxi and the dmdt column
-// sum, the mu update, the seeded ww scan and theta.  The plain PyTorch
-// version is coupled_multistep_plain in
+// hand-unrolled pair _coupled2_kernel (wrapper coupled_two_step_pallas).
+// Each substep is K1's fused scan substep (fuse_uv + lean + lite): the wind
+// update from p = cs2*mu, dvdxi and the dmdt column sum, the mu update, the
+// seeded ww scan and theta; under FUSE_W also the vertically-implicit w/pp
+// substep on that substep's new theta (csrc/w_solve.cuh).  The plain
+// PyTorch version is coupled_multistep_plain in
 // wrf_tpu_torch/ops/advance_mu_t_coupled_cuda.py.
 //
 // Arrays are in the ring-S layout: rows [0, S) and [J-S, J) are ring rows,
@@ -37,14 +38,21 @@
 // memory) and, for the tile's own columns, pass 2 over k (the ww scan
 // from the seed and theta with one level of look-ahead, since vert(k)
 // needs wdtn(k+1); dvdxi is recomputed from the same winds rather than
-// kept).  A barrier ends the substep.  Every thread reaches every
+// kept; under FUSE_W the w solve's forward elimination rides this loop and
+// a descending loop back-substitutes and updates pp, on own columns only).
+// A barrier ends the substep.  Every thread reaches every
 // barrier.  After S substeps the tile's u, v (all K levels) and mu go to
 // fresh output buffers; the blocks of the first and last tile rows copy
 // the ring rows through.
 //
 // Buffers: u, v and mu are read at other blocks' cells, so their results
 // go to fresh buffers (the caller swaps pointers); t and ww_row are read
-// only at the thread's own column, so they are updated in place.
+// only at the thread's own column, so they are updated in place; so are w
+// and pp.  The w solve's K-long sweep state dpw of a column is kept in that
+// column of u_out: the block writes its tile's u_out only in its last
+// phase, after a barrier, and no other block touches it, so until then it
+// is free scratch (one more field written and read per substep, 2 x
+// J*K*I*4 bytes, mostly through L2; no allocation).
 //
 // Bound: memory traffic per substep, not bytes per launch.  Pass 1 reads
 // u0, v0 and dvdxi_const over the extended columns, pass 2 re-reads them
@@ -52,9 +60,10 @@
 // kernel that leaves the re-reads to L1/L2.  Times on the card are in
 // PERF.md.
 //
-// Fast mode: the TPU kernel's log-depth cumsum is a vector-unit device; a
-// thread that owns a column scans sequentially anyway, so this kernel has
-// one mode (the exact one), and its fast mode is its exact mode.
+// Fast mode: the TPU kernel's log-depth cumsums (the ww scan and, under
+// fuse_w, both Thomas sweeps) are a vector-unit device; a thread that owns
+// a column runs them sequentially anyway, so this kernel has one mode (the
+// exact one), and its fast mode is its exact mode.
 //
 // Numerics: built with -fmad=false and IEEE division; every expression
 // and the k order of the dmdt column sum follow the plain version.
@@ -62,6 +71,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "w_solve.cuh"
 
 namespace {
 
@@ -91,11 +102,20 @@ struct Args {
   const float* fnm;
   const float* fnp;
   const float* rdnw;
+  // the w/pp solve (FUSE_W): state, updated in place, and K-vectors
+  float* w;
+  float* pp;
+  const float* aw;
+  const float* cpv;
+  const float* denv;
+  const float* crdn;
+  const float* erdn;
   // fresh outputs
   float* u_out;
   float* v_out;
   float* mu_out;
   float rdx, rdy, dts, cs2;
+  float c_w, g_t, beta, alfa;  // FUSE_W scalars
   int J, K, I;
   int i0, i1, j0, j1;  // compute window, global coordinates
   int j_off, i_off;    // local row S is global row j_off + 1; column 0 is i_off
@@ -130,7 +150,7 @@ struct Tile {
 };
 
 // Pass 1 and pass 2 of one column at substep s (see the file comment).
-template <int S>
+template <int S, bool FUSE_W>
 __device__ void column(const Args& a, const Tile& tl, float* s_mu,
                        const float* s_du, const float* s_dv, int s, int row,
                        int col) {
@@ -196,6 +216,10 @@ __device__ void column(const Args& a, const Tile& tl, float* s_mu,
   float scan = seed;                   // raw scan value at level k
   float wdtn = 0.f;                    // wdtn(k0): no flux through the surface
   float t1_k = a.t_1[x_c + (size_t)k0 * I];
+  const wsolve::Coef wc{a.rdnw, a.aw,  a.cpv, a.denv, a.crdn,
+                        a.erdn, a.c_w, a.g_t, a.beta, a.alfa};
+  wsolve::Fwd wf;
+  float* dpw = a.u_out + x_c;  // this column of u_out: free until the end
   for (int k = k0; k <= k1; ++k) {
     const size_t o = (size_t)k * I;
     const float uc = rebuild<S>(a.u[x_c + o], du_c, s);
@@ -217,14 +241,20 @@ __device__ void column(const Args& a, const Tile& tl, float* s_mu,
     const float fx =
         ue * (a.t_1[x_e + o] + t1_k) - uc * (t1_k + a.t_1[x_w + o]);
     const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
-    a.t[x_c + o] = t_half - dts_msfty * (horiz + vert);
+    const float t_new = t_half - dts_msfty * (horiz + vert);
+    a.t[x_c + o] = t_new;
+    if (FUSE_W) {
+      wsolve::w_forward_level(wc, wf, a.w + x_c, a.pp + x_c, I, k, k0, k1,
+                              t_new, dpw, I);
+    }
     scan = scan_up;
     wdtn = wdtn_up;
     t1_k = t1_up;
   }
+  if (FUSE_W) wsolve::w_backward(wc, a.w + x_c, a.pp + x_c, I, k0, k1, dpw, I);
 }
 
-template <int S>
+template <int S, bool FUSE_W>
 __global__ void __launch_bounds__(kThreads) coupled_kernel(const Args a) {
   extern __shared__ float smem[];
   const int I = a.I, K = a.K;
@@ -286,8 +316,8 @@ __global__ void __launch_bounds__(kThreads) coupled_kernel(const Args a) {
     {
       const int h = nj + 2 * r, w = ni + 2 * r;
       for (int idx = threadIdx.x; idx < h * w; idx += blockDim.x) {
-        column<S>(a, tl, s_mu, s_du, s_dv, s, tl.cj0 - r + idx / w,
-                  tl.ci0 - r + idx % w);
+        column<S, FUSE_W>(a, tl, s_mu, s_du, s_dv, s, tl.cj0 - r + idx / w,
+                          tl.ci0 - r + idx % w);
       }
     }
     __syncthreads();
@@ -340,53 +370,67 @@ __global__ void __launch_bounds__(kThreads) coupled_kernel(const Args a) {
   }
 }
 
-template <int S>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <int S, bool FUSE_W>
+cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * S + 1) * (a.tj + 2 * S) * (a.ti + 2 * S) * sizeof(float);
   if (smem > 232448) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        coupled_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        coupled_kernel<S, FUSE_W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((a.I + a.ti - 1) / a.ti, (a.J - 2 * S + a.tj - 1) / a.tj);
-  coupled_kernel<S><<<grid, kThreads, smem, stream>>>(a);
+  coupled_kernel<S, FUSE_W><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch(const Args& a, bool fuse_w, cudaStream_t stream) {
+  return fuse_w ? launch_one<S, true>(a, stream)
+                : launch_one<S, false>(a, stream);
 }
 
 }  // namespace
 
 // Plain C entry for ctypes.  Launches on ``stream`` and returns
 // cudaGetLastError() of the launch (0 on success); it neither allocates
-// nor synchronises.  n_inner is the depth S, 2..8.
+// nor synchronises.  n_inner is the depth S, 2..8.  The w/pp pointers may
+// be NULL unless fuse_w.
 extern "C" int wrf_tpu_torch_coupled_multistep(
     const float* u, const float* v, float* t, const float* t_1,
     const float* tconst, const float* dvdxi_const, const float* ww1_k0,
     float* ww_row, const float* mu, const float* mu_tend, const float* msftx,
     const float* msfty, const float* cu, const float* cv, const float* msft2,
     const float* dnw, const float* fnm, const float* fnp, const float* rdnw,
+    float* w, float* pp, const float* aw, const float* cpv,
+    const float* denv, const float* crdn, const float* erdn,
     float* u_out, float* v_out, float* mu_out,
     float rdx, float rdy, float dts, float cs2,
+    float c_w, float g_t, float beta, float alfa,
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
-    int i_off, int k0, int k1, int n_inner, int tj, int ti, void* stream) {
+    int i_off, int k0, int k1, int n_inner, int fuse_w, int tj, int ti,
+    void* stream) {
   if (n_inner < 2 || n_inner > kMaxInner || J - 2 * n_inner < 1 || K < 1 ||
       I < 1 || k0 < 0 || k1 >= K || k0 > k1 || tj < 1 || ti < 1)
     return cudaErrorInvalidValue;
   const Args a{u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
                mu_tend, msftx, msfty, cu, cv, msft2, dnw, fnm, fnp, rdnw,
+               w, pp, aw, cpv, denv, crdn, erdn,
                u_out, v_out, mu_out, rdx, rdy, dts, cs2,
+               c_w, g_t, beta, alfa,
                J, K, I, i0, i1, j0, j1, j_off, i_off, k0, k1, tj, ti};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fw = fuse_w != 0;
   switch (n_inner) {
-    case 2: return static_cast<int>(launch<2>(a, s));
-    case 3: return static_cast<int>(launch<3>(a, s));
-    case 4: return static_cast<int>(launch<4>(a, s));
-    case 5: return static_cast<int>(launch<5>(a, s));
-    case 6: return static_cast<int>(launch<6>(a, s));
-    case 7: return static_cast<int>(launch<7>(a, s));
-    case 8: return static_cast<int>(launch<8>(a, s));
+    case 2: return static_cast<int>(launch<2>(a, fw, s));
+    case 3: return static_cast<int>(launch<3>(a, fw, s));
+    case 4: return static_cast<int>(launch<4>(a, fw, s));
+    case 5: return static_cast<int>(launch<5>(a, fw, s));
+    case 6: return static_cast<int>(launch<6>(a, fw, s));
+    case 7: return static_cast<int>(launch<7>(a, fw, s));
+    case 8: return static_cast<int>(launch<8>(a, fw, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,11 +3,11 @@
 The port of ``wrf_tpu.driver``: read every input field from the fixture
 directory, run ``advance_mu_t`` for N small steps on the selected tier,
 print the timing line, then the per-field comparison report
-(``wrf_tpu.compare``), gated on the same element-wise tolerance.
+(``wrf_tpu_torch.compare``), gated on the same element-wise tolerance.
 
 Usage:
     python -m wrf_tpu_torch.driver FIXTURE_DIR [--steps N] [--tier T]
-        [--inner-steps S] [--fast] [--device cuda|cpu]
+        [--inner-steps S] [--fast] [--with-w] [--device cuda|cpu]
 
 Tiers (the JAX tier each replaces in brackets): numpy (golden path) and
 native (C++ oracle), both without torch; eager [xla] (whole-array PyTorch,
@@ -16,10 +16,13 @@ memory-window arrays); sharded-eager / sharded-cuda [sharded-xla /
 sharded-pallas] (``ShardedAdvanceMuT`` on the 1x1 layout; sharded-cuda
 honours --inner-steps and --fast, running K2); coupled (the acoustic
 small-step loop, ``SmallStepLoop``; honours --inner-steps and --fast,
-running K3) and coupled-native, both verified against the numpy golden
-loop; all (every tier side by side, plus the blocked rows
-sharded-cuda~blk and sharded-cuda~blkfast at S=4, coupled~blk and
-coupled~blkfast at S=2).
+running K3), coupled-eager [coupled-xla] (the same loop as three
+whole-array calls per substep) and coupled-native, all verified against
+the numpy golden loop and all honouring --with-w (the vertically-implicit
+w/pp substep every substep); all (every tier side by side, plus the
+blocked rows sharded-cuda~blk and sharded-cuda~blkfast at S=4, coupled~blk
+and coupled~blkfast at S=2, and the +w rows coupled+w, coupled-eager+w and
+coupled-native+w).
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -36,15 +39,16 @@ import time
 
 import torch
 
-from wrf_tpu import native
-from wrf_tpu.compare import compare
-from wrf_tpu.io import fixtures
-from wrf_tpu.ops.reference_numpy import advance_mu_t_numpy
-
+from . import native
+from .compare import compare
 from .convert import arrays_from_numpy, arrays_to_numpy
-from .models.small_step import DEFAULT_CS2, SmallStepLoop, small_step_golden
+from .io import fixtures
+from .models.small_step import SmallStepLoop, small_step_golden
 from .ops.advance_mu_t_cuda import advance_mu_t_fused
 from .ops.advance_mu_t_eager import advance_mu_t_core, window_masks
+from .ops.advance_uv import DEFAULT_CS2
+from .ops.advance_w import DEFAULT_CW, DEFAULT_GW
+from .ops.reference_numpy import advance_mu_t_numpy
 from .parallel.sharded import ShardedAdvanceMuT, case_to_domain, embed_outputs
 
 #: output-field -> golden file name (reference driver naming)
@@ -65,11 +69,17 @@ RTOL = 1e-4
 ATOL_SCALE = 1e-5
 
 TIERS = ("numpy", "native", "eager", "cuda", "sharded-eager",
-         "sharded-cuda", "coupled", "coupled-native")
+         "sharded-cuda", "coupled", "coupled-eager", "coupled-native")
 
-#: rows of --tier all: every tier, then the blocked loops, exact and fast
-#: (the mu/t loop at S=4, the coupled loop at S=2, as ``wrf_tpu.driver``)
-ALL_ROWS = TIERS + ("sharded-cuda~blk", "sharded-cuda~blkfast",
+#: the tiers that run the coupled loop (and so honour --with-w)
+COUPLED_TIERS = ("coupled", "coupled-eager", "coupled-native")
+
+#: rows of --tier all: every tier, then the coupled tiers with the w/pp
+#: substep, then the blocked loops, exact and fast (the mu/t loop at S=4,
+#: the coupled loop at S=2) — the matrix of ``wrf_tpu.driver`` without its
+#: two bf16 rows
+ALL_ROWS = TIERS + ("coupled+w", "coupled-eager+w", "coupled-native+w",
+                    "sharded-cuda~blk", "sharded-cuda~blkfast",
                     "coupled~blk", "coupled~blkfast")
 
 _STATE = ("ww", "mu", "t", "t_ave")
@@ -77,7 +87,6 @@ _STATE = ("ww", "mu", "t", "t_ave")
 #: options of wrf_tpu.driver not ported yet: (flag, default, ROADMAP item)
 _NOT_PORTED = (
     ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
-    ("--with-w", False, "'SmallStepLoop on one GPU' (with_w)"),
     ("--precision", "f32", "'bf16 constant streams'"),
     ("--halo-backend", "ppermute",
      "'Multi-GPU decomposition and halo backends'"),
@@ -92,23 +101,31 @@ def _sync(device: torch.device) -> None:
 
 
 def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
-             fast: bool = False):
+             fast: bool = False, with_w: bool = False):
     """Run ``steps`` small steps on the chosen tier; returns
     ``(outputs, seconds, golden_override)`` — ``golden_override`` is None
     for tiers verified against the fixture goldens, or the numpy golden
     loop's outputs for the coupled tiers.  Outputs are numpy arrays.
+    ``with_w`` (coupled tiers only) adds the w/pp substep and its fields.
 
     The timed window covers the step calls and the readback of the
     outputs, after one untimed warm-up run (the first launch builds the
     kernels and allocates), as ``wrf_tpu.driver`` times its tiers."""
     device = torch.device(device)
     kw = case.kernel_kwargs()
+    if with_w and tier not in COUPLED_TIERS:
+        raise SystemExit(f"--with-w applies to the coupled tiers "
+                         f"{COUPLED_TIERS}, not {tier!r}")
 
     if tier == "coupled-native":
-        # the coupled loop on the C++ oracle: advance_uv + advance_mu_t per
-        # substep; bit-identical to the numpy golden loop by construction
+        # the coupled loop on the C++ oracle: advance_uv + advance_mu_t (+
+        # advance_w) per substep; bit-identical to the numpy golden loop
+        # by construction
         state = {k: kw[k] for k in _STATE + ("u", "v")}
         out = dict(state)
+        if with_w:
+            f = case.fields
+            wst = {"w": f["grid_w"], "pp": f["grid_pp"]}
         t0 = time.perf_counter()
         for _ in range(steps):
             u, v = native.advance_uv_native(
@@ -118,10 +135,18 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
                 flags=case.flags, bounds=case.bounds)
             out = native.advance_mu_t_native(
                 **{**kw, **state, "u": u, "v": v})
+            if with_w:
+                wst["w"], wst["pp"] = native.advance_w_native(
+                    w=wst["w"], pp=wst["pp"], t=out["t"],
+                    rdn=case.fields["grid_rdn"], rdnw=kw["rdnw"],
+                    dts=kw["dts"], epssm=kw["epssm"], cw=DEFAULT_CW,
+                    gw=DEFAULT_GW, flags=case.flags, bounds=case.bounds)
             state = {**{k: out[k] for k in _STATE}, "u": u, "v": v}
         dt = time.perf_counter() - t0
         out = {**out, "u": state["u"], "v": state["v"]}
-        return out, dt, small_step_golden(case, steps)
+        if with_w:
+            out.update(wst)
+        return out, dt, small_step_golden(case, steps, with_w=with_w)
 
     if tier in ("numpy", "native"):
         fn = (advance_mu_t_numpy if tier == "numpy"
@@ -135,11 +160,13 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
         return out, time.perf_counter() - t0, None
 
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
-    if tier == "coupled":
+    if tier in ("coupled", "coupled-eager"):
         loop = SmallStepLoop(nx, ny, nz, case.flags, n_steps=steps,
+                             kernel="eager" if tier == "coupled-eager"
+                             else "cuda",
                              inner_steps=inner_steps, fast=fast,
-                             device=device)
-        gold = small_step_golden(case, steps)
+                             with_w=with_w, device=device)
+        gold = small_step_golden(case, steps, with_w=with_w)
     elif tier.startswith("sharded"):
         loop = ShardedAdvanceMuT(nx, ny, nz, case.flags, n_steps=steps,
                                  kernel=tier.split("-", 1)[1],
@@ -150,8 +177,9 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
         return _run_single_tile(case, steps, tier, device)
     else:
         raise SystemExit(f"unknown tier {tier!r}")
-    run = functools.partial(loop, loop.prepare(case_to_domain(case)),
-                            case.rdx, case.rdy, case.dts, case.epssm)
+    run = functools.partial(
+        loop, loop.prepare(case_to_domain(case, with_w=with_w)),
+        case.rdx, case.rdy, case.dts, case.epssm)
 
     # both loops leave the prepared arrays alone, so the warm-up run and
     # the timed run start from the same state
@@ -216,6 +244,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="blocked tiers: K2's closed form or K3's fast scan "
                         "(re-associated float32, the eager tier's "
                         "tolerance class)")
+    p.add_argument("--with-w", action="store_true",
+                   help="coupled tiers: also run the vertically-implicit "
+                        "w/pp substep (advance_w) every substep")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' requires a GPU (no fallback)")
     for flag, default, _ in _NOT_PORTED:
@@ -239,11 +270,13 @@ def _reject_not_ported(args) -> None:
 def _row(case, steps, tier, golden, device) -> bool:
     """One row of --tier all: the worst field against the goldens."""
     fast = tier.endswith("~blkfast")
-    name = tier.split("~", 1)[0]
+    with_w = tier.endswith("+w")
+    name = tier.split("~", 1)[0].removesuffix("+w")
     inner = (2 if name == "coupled" else 4) if "~blk" in tier else 1
     try:
         out, dt, gold_ov = run_tier(case, steps, name, device,
-                                    inner_steps=inner, fast=fast)
+                                    inner_steps=inner, fast=fast,
+                                    with_w=with_w)
     except Exception as e:  # report, keep the matrix going
         print(f"{tier:>20}: ERROR {type(e).__name__}: {e}")
         return False
@@ -285,7 +318,7 @@ def main(argv=None) -> int:
 
     out, dt, gold_override = run_tier(case, steps, args.tier, device,
                                       inner_steps=args.inner_steps,
-                                      fast=args.fast)
+                                      fast=args.fast, with_w=args.with_w)
     b = case.bounds
     n_pts = (b.ide - b.ids) * (b.jde - b.jds) * b.kdim * steps
     print(f"advance_mu_t [{args.tier}]: {steps} step(s) in {dt * 1e3:.3f} ms "

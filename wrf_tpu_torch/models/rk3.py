@@ -13,14 +13,15 @@ sub-cycles the acoustic loop over the stage interval:
 the prepared base state; ``snapshot="stage"`` re-snapshots them from the
 stage-start state (``u_1 := u`` etc.), the degenerate shell ``run_sim``
 runs without a closure.  ``inner_steps`` and ``fast`` pass to every
-stage's loop (a stage too short to block runs K1 only).  The
-slow-tendency hook (``tendency_fn``), the closures that use it and the
-device-resident ``multi_step`` are not ported yet.
+stage's loop (a stage too short to block runs K1 only); ``with_w`` adds
+the vertically-implicit w/pp substep to every substep, and w and pp join
+the evolved state.  The slow-tendency hook (``tendency_fn``), the closures
+that use it and the device-resident ``multi_step`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from wrf_tpu.grid import ConfigFlags
+from ..grid import ConfigFlags
 
 from .small_step import SmallStepLoop
 
@@ -45,14 +46,16 @@ class RK3Integrator:
     def __init__(self, nx, ny, nz, flags: ConfigFlags,
                  acoustic_steps: int = 6, kernel: str = "cuda",
                  snapshot: str = "base", device="cuda",
-                 inner_steps: int = 1, fast: bool = False):
+                 inner_steps: int = 1, fast: bool = False,
+                 with_w: bool = False):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
         self.snapshot = snapshot
         self.stages = rk3_stages(acoustic_steps)
         self.loops = [
             SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
-                          device=device, inner_steps=inner_steps, fast=fast)
+                          device=device, inner_steps=inner_steps, fast=fast,
+                          with_w=with_w)
             for (_, n_sub) in self.stages
         ]
         self.prepare = self.loops[0].prepare

@@ -6,9 +6,11 @@ trapezoid (kernel ``_coupled_ms_kernel``, wrapper
 ``_coupled2_kernel``, wrapper ``coupled_two_step_pallas``).  Each substep
 is K1's fused scan substep (``fuse_uv`` + ``lean`` + ``lite``): the wind
 update from ``p = cs2*mu``, dvdxi and dmdt, the mu update, the seeded ww
-scan and theta.  Substeps couple through mu, u and v at neighbour cells,
-so substep s updates the winds and mu on rows extended by ``S-1-s`` on
-each side of the block's own rows, and theta and ww on its own rows only.
+scan and theta, and with ``fuse_w`` the vertically-implicit w/pp substep
+(``ops/advance_w.py``) on that substep's new theta.  Substeps couple
+through mu, u and v at neighbour cells, so substep s updates the winds and
+mu on rows extended by ``S-1-s`` on each side of the block's own rows, and
+theta, ww, w and pp on its own rows only.
 
 Array contract (the Pallas wrappers'): 3-D ``(J2, K, I)``, 2-D
 ``(J2, I)``, vertical ``(K,)``, float32 tensors in the ring-S layout of
@@ -18,15 +20,16 @@ global ring row ``j_off + 1``; i wraps.  ``cu``, ``cv`` and ``msft2`` come
 from :func:`coupled_lean_kwargs`, ``tconst``, ``dvdxi_const`` and
 ``ww1_k0`` from :func:`~wrf_tpu_torch.ops.advance_mu_t_cuda.lean_kwargs`,
 both computed on the widened inputs.  Returns ``{"t", "mu", "ww_row",
-"u", "v"}``: t and ww_row are read only at their own column and are
-updated IN PLACE; u, v and mu are read at neighbour rows while other
-blocks update them, so they come back in fresh tensors whose S ring rows
-pass through from the inputs.
+"u", "v"}`` (+ ``w``/``pp`` under ``fuse_w``): t, ww_row, w and pp are read
+only at their own column and are updated IN PLACE; u, v and mu are read at
+neighbour rows while other blocks update them, so they come back in fresh
+tensors whose S ring rows pass through from the inputs.
 
-Two modes: exact (the ww scan sequential in k) and ``fast`` (the scan as
-the TPU kernel's log-depth masked cumsum, a re-association).  The CUDA
-kernel scans sequentially in both, so its fast mode is its exact mode;
-its plain version keeps the cumsum.
+Two modes: exact (the ww scan and the Thomas sweeps sequential in k) and
+``fast`` (the scan, and both sweeps of the w solve, as the TPU kernel's
+log-depth masked cumsums, a re-association).  The CUDA kernel runs them
+sequentially in both, so its fast mode is its exact mode; its plain
+version keeps the cumsums.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
 hand-written kernel (``csrc/advance_mu_t_coupled.cu``) and count one in
@@ -42,7 +45,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .advance_mu_t_cuda import _f32, checked_pointers
+from .advance_mu_t_cuda import _f32, checked_pointers, w_step_plain
+from .thomas import ThomasVectors, thomas_vectors
 
 #: CUDA launches of :func:`coupled_multistep` since import
 LAUNCHES = 0
@@ -64,14 +68,13 @@ def _not_ported(what: str, item: str):
         f"coupled_multistep: {what} is not ported yet (ROADMAP.md, {item})")
 
 
-def _check(*, tensors, n_inner, fuse_w, ti, overlap, J2):
+def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
     """The Pallas wrapper's argument checks, plus the modes not ported."""
     if n_inner < 2:
         raise ValueError("n_inner must be >= 2 (use the single-step kernel "
                          "for S=1)")
-    if fuse_w:
-        raise _not_ported("fuse_w (the implicit w/pp substep)",
-                          "modules to port: 'Coupled trapezoid', with_w")
+    if fuse_w and (w is None or pp is None or rdn is None):
+        raise ValueError("fuse_w requires w, pp and rdn")
     if ti is not None:
         raise _not_ported("ti (the TPU's 128-lane tiled layout; the CUDA "
                           "kernel tiles (j, i) itself)", "§2, K3")
@@ -114,20 +117,26 @@ def coupled_multistep(
     fast: bool = False,
     ti: int | None = None,
     overlap: dict | None = None,
+    thomas: ThomasVectors | None = None,
 ):
     """``n_inner`` coupled substeps in one pass over ring-``n_inner``
     arrays; the contract of ``coupled_multistep_pallas`` without its TPU
-    tiling arguments (see the module docstring)."""
+    tiling arguments (see the module docstring).  ``thomas`` (not in the
+    TPU contract) is the precomputed
+    :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle of a loop."""
     global LAUNCHES
-    del kde, w, pp, rdn, cw, gw, epssm   # API parity / unported fuse_w state
+    del kde   # API parity
     _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=n_inner,
-           fuse_w=fuse_w, ti=ti, overlap=overlap, J2=t.shape[0])
+           fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=ti, overlap=overlap,
+           J2=t.shape[0])
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
               ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
               msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
               rdy=rdy, dts=dts, cs2=cs2, dnw=dnw, fnm=fnm, fnp=fnp,
               rdnw=rdnw, window=window, offsets=offsets, k0=k0, k1=k1,
-              n_inner=n_inner)
+              n_inner=n_inner,
+              **_w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1,
+                          fast and t.device.type == "cpu", thomas))
     if t.device.type == "cpu":
         return coupled_multistep_plain(**kw, fast=fast)
     if t.device.type == "cuda":
@@ -135,6 +144,19 @@ def coupled_multistep(
         LAUNCHES += 1
         return out
     raise ValueError(f"coupled_multistep: unsupported device {t.device}")
+
+
+def _w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1, fast,
+              thomas):
+    """The w-solve keywords the plain version and the launch take: nothing
+    without ``fuse_w``; else the state and the Thomas bundle (computed here
+    unless the caller passed one; ``fast`` asks for the cumsum vectors)."""
+    if not fuse_w:
+        return {}
+    if thomas is None or (fast and thomas.fast is None):
+        thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
+                                cw=cw, gw=gw, k0=k0, k1=k1, fast=fast)
+    return dict(fuse_w=True, w=w, pp=pp, thomas=thomas)
 
 
 def coupled_two_step(
@@ -149,6 +171,7 @@ def coupled_two_step(
     w=None, pp=None, rdn=None,
     cw: float = 0.0, gw: float = 0.0, epssm=0.0,
     fast: bool = False,
+    thomas: ThomasVectors | None = None,
 ):
     """Two coupled substeps over ring-2 arrays; the contract of
     ``coupled_two_step_pallas`` without its TPU tiling arguments.  The
@@ -157,15 +180,18 @@ def coupled_two_step(
     the CUDA kernel; :func:`coupled_multistep_plain` with ``n_inner=2`` on
     CPU tensors)."""
     global PAIR_LAUNCHES
-    del kde, w, pp, rdn, cw, gw, epssm   # API parity / unported fuse_w state
+    del kde   # API parity
     _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=2,
-           fuse_w=fuse_w, ti=None, overlap=None, J2=t.shape[0])
+           fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=None, overlap=None,
+           J2=t.shape[0])
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
               ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
               msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
               rdy=rdy, dts=dts, cs2=cs2, dnw=dnw, fnm=fnm, fnp=fnp,
               rdnw=rdnw, window=window, offsets=offsets, k0=k0, k1=k1,
-              n_inner=2)
+              n_inner=2,
+              **_w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1,
+                          fast and t.device.type == "cpu", thomas))
     if t.device.type == "cpu":
         return coupled_multistep_plain(**kw, fast=fast)
     if t.device.type == "cuda":
@@ -179,18 +205,27 @@ def coupled_multistep_plain(
     *, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu, mu_tend,
     msftx, msfty, cu, cv, msft2, rdx, rdy, dts, cs2, dnw, fnm, fnp, rdnw,
     window, k0: int, k1: int, offsets=(0, 0), n_inner: int = 2,
-    fast: bool = False, kde=None, epssm=None,
+    fast: bool = False, kde=None, epssm=0.0,
+    fuse_w: bool = False, w=None, pp=None, rdn=None, cw: float = 0.0,
+    gw: float = 0.0, thomas: ThomasVectors | None = None,
 ):
     """Whole-array PyTorch version of the kernel, on any device.
 
-    A transcription of the TPU kernel for ``fuse_w=False``: the same
+    A transcription of the TPU kernel: the same
     extent-tracked row slicing (an array ``a`` with extent ``a_lo`` covers
     rows ``[S - a_lo, J2 - S + a_lo)``), ``torch.roll`` for the i and k
     neighbours, and K1's plain version's operations in its order (the
-    dmdt column sum in k order; exact mode's ww scan as a k loop).  Same
+    dmdt column sum in k order; exact mode's ww scan as a k loop).  Under
+    ``fuse_w`` every substep ends with :func:`w_step_plain` on the own
+    rows, on that substep's new theta (``fast``: the cumsum form).  Same
     in-place contract as :func:`coupled_multistep`.
     """
-    del kde, epssm   # API parity
+    del kde   # API parity
+    if fuse_w and (thomas is None or (fast and thomas.fast is None)):
+        if w is None or pp is None or rdn is None:
+            raise ValueError("fuse_w requires w, pp and rdn")
+        thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
+                                cw=cw, gw=gw, k0=k0, k1=k1, fast=fast)
     rdx, rdy, dts, cs2 = (_f32(x) for x in (rdx, rdy, dts, cs2))
     S = int(n_inner)
     J2, K, I = t.shape
@@ -261,6 +296,9 @@ def coupled_multistep_plain(
     mu_c, u_c, v_c = col(mu), u, v
     mu_lo = u_lo = v_lo = S        # full arrays: extent S (v's hi is S too)
     t_c, seed = t[c], col(ww_row)[c]
+    if fuse_w:
+        w_c, pp_c = w[c], pp[c]
+        kupd = (kv >= k0) & (kv <= k1)
     for s in range(S):
         r = S - 1 - s
         p = cs2 * mu_c                                   # extent +-(r+1)
@@ -289,6 +327,9 @@ def coupled_multistep_plain(
         seed = torch.where(mask_c, seed - w1, seed)
         t_c = theta(t_c, sl(u_n, r, 0, 0), sl(v_n, r, 0, 0),
                     v_n[r + 1: r + 1 + nc], ww_new)
+        if fuse_w:
+            w_c, pp_c = w_step_plain(w_c, pp_c, t_c, thomas, lev(rdnw), kupd,
+                                     kint, mask_c, k0, k1, fast=fast)
         mu_c, u_c, v_c = mu_n, u_n, v_n
         mu_lo = u_lo = v_lo = r
 
@@ -296,7 +337,11 @@ def coupled_multistep_plain(
     ww_row[c] = seed[:, 0]
     u_out, v_out, mu_out = u.clone(), v.clone(), mu.clone()
     u_out[c], v_out[c], mu_out[c] = u_c, v_c[:nc], mu_c[:, 0]
-    return {"t": t, "mu": mu_out, "ww_row": ww_row, "u": u_out, "v": v_out}
+    res = {"t": t, "mu": mu_out, "ww_row": ww_row, "u": u_out, "v": v_out}
+    if fuse_w:
+        w[c], pp[c] = w_c, pp_c
+        res["w"], res["pp"] = w, pp
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -308,8 +353,8 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_coupled_multistep
-        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_float] * 4
-                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_float] * 8
+                       + [ctypes.c_int] * 15 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -317,7 +362,8 @@ def _kernel():
 
 def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
             mu_tend, msftx, msfty, cu, cv, msft2, rdx, rdy, dts, cs2, dnw,
-            fnm, fnp, rdnw, window, offsets, k0, k1, n_inner):
+            fnm, fnp, rdnw, window, offsets, k0, k1, n_inner, fuse_w=False,
+            w=None, pp=None, thomas=None):
     S = int(n_inner)
     if S > MAX_INNER:
         raise ValueError(f"n_inner={S}: the CUDA kernel is built for depths "
@@ -334,7 +380,12 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
         msfty=(msfty, 2, True), cu=(cu, 2, True), cv=(cv, 2, True),
         msft2=(msft2, 2, True), dnw=(dnw, 1, True), fnm=(fnm, 1, True),
         fnp=(fnp, 1, True), rdnw=(rdnw, 1, True),
+        w=(w, 3, fuse_w), pp=(pp, 3, fuse_w),
+        **{"thomas." + n: (getattr(thomas, n, None), 1, fuse_w)
+           for n in ("a", "cp", "den", "crdn", "erdn")},
     )
+    th_scalars = ((thomas.c_w, thomas.g_t, thomas.beta, thomas.alfa)
+                  if fuse_w else (0.0,) * 4)
     ptrs = checked_pointers(fields, {3: (J2, K, I), 2: (J2, I), 1: (K,)}, dev)
     res = {"u": torch.empty_like(u), "v": torch.empty_like(v),
            "mu": torch.empty_like(mu)}
@@ -346,10 +397,13 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, res["u"].data_ptr(), res["v"].data_ptr(),
                  res["mu"].data_ptr(), _f32(rdx), _f32(rdy), _f32(dts),
-                 _f32(cs2), J2, K, I, i0, i1, j0, j1, j_off, i_off, int(k0),
-                 int(k1), S, tj, ti, stream)
+                 _f32(cs2), *th_scalars, J2, K, I, i0, i1, j0, j1, j_off,
+                 i_off, int(k0), int(k1), S, int(fuse_w), tj, ti, stream)
     if err != 0:
         raise RuntimeError(f"coupled_multistep kernel launch failed: CUDA "
                            f"error {err}")
-    return {"t": t, "mu": res["mu"], "ww_row": ww_row, "u": res["u"],
-            "v": res["v"]}
+    out = {"t": t, "mu": res["mu"], "ww_row": ww_row, "u": res["u"],
+           "v": res["v"]}
+    if fuse_w:
+        out["w"], out["pp"] = w, pp
+    return out

@@ -14,7 +14,11 @@ wrapper's keyword contract and result dict for the modes ported so far:
 * ``with_tave``;
 * ``wind_scale`` — the read-only winds (no ``fuse_uv``) are multiplied by
   this scalar on load, before any differencing: the per-substep wind ramp
-  of the mu/t loop (``ShardedAdvanceMuT``).
+  of the mu/t loop (``ShardedAdvanceMuT``);
+* ``fuse_w`` — the vertically-implicit w/pp substep (``ops/advance_w.py``)
+  runs inside the kernel after theta, on this substep's new ``t``: a
+  per-column Thomas solve with the coefficient vectors of
+  ``ops/thomas.py``.  It composes with every mode above.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
 hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
@@ -22,12 +26,13 @@ hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
 whole-array transcription of the same arithmetic.  There is no fallback
 from one to the other.
 
-Buffers: ``t``, ``t_ave`` (with_tave), ``ww`` (full/final) and ``ww_row``
-(lite) are updated IN PLACE and returned — the TPU kernel donates them the
-same way — on both devices.  ``mu``, ``u`` and ``v`` are read at neighbour
-cells while they are updated, so their results are fresh tensors; a loop
-passes them back as the next substep's inputs, and PyTorch's caching
-allocator hands the freed buffers out again, so nothing is copied.
+Buffers: ``t``, ``t_ave`` (with_tave), ``ww`` (full/final), ``ww_row``
+(lite) and ``w``/``pp`` (fuse_w) are updated IN PLACE and returned — the
+TPU kernel donates them the same way — on both devices.  ``mu``, ``u`` and
+``v`` are read at neighbour cells while they are updated, so their results
+are fresh tensors; a loop passes them back as the next substep's inputs,
+and PyTorch's caching allocator hands the freed buffers out again, so
+nothing is copied.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .thomas import ThomasVectors, thomas_vectors
 
 #: CUDA kernel launches since import (one per launch, and only there)
 LAUNCHES = 0
@@ -60,12 +66,11 @@ def _not_ported(what: str, item: str):
 
 
 def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in, smdiv,
-                 fuse_w, capture, overlap, with_tave, ww_mode, ww_row, ww, lean,
-                 tconst, dvdxi_const, ww1_k0):
+                 fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
+                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0):
     """The TPU wrapper's argument checks, plus the modes not ported yet."""
-    if fuse_w:
-        raise _not_ported("fuse_w (the implicit w/pp solve)",
-                          "'SmallStepLoop on one GPU', K1 slice (c)")
+    if fuse_w and (w is None or pp is None or rdn is None):
+        raise ValueError("fuse_w requires w, pp and rdn")
     if smdiv != 0.0 or mudf_in is not None:
         raise _not_ported("divergence damping (smdiv / mudf_in)",
                           "'SmallStepLoop on one GPU', K1 slice (d)")
@@ -124,6 +129,7 @@ def advance_mu_t_fused(
     tconst=None, dvdxi_const=None, ww1_k0=None,
     capture: bool = False,
     overlap=None,
+    thomas: ThomasVectors | None = None,   # fuse_w: precomputed K-vectors
 ):
     """One fused acoustic substep; the contract of ``advance_mu_t_pallas``.
 
@@ -131,14 +137,18 @@ def advance_mu_t_fused(
     tensors on one device.  Rows 0 and J-1 are never computed: state passes
     through there and ``muave``/``muts``/``mudf`` are zero.  Returns
     ``muave, muts, mudf, mu, t``, plus ``ww`` (full/final) or ``ww_row``
-    (lite), ``t_ave`` (with_tave) and ``u``/``v`` (fuse_uv).  See the
-    module docstring for which inputs are updated in place.
+    (lite), ``t_ave`` (with_tave), ``u``/``v`` (fuse_uv) and ``w``/``pp``
+    (fuse_w).  See the module docstring for which inputs are updated in
+    place.  ``thomas`` (not in the TPU contract) lets a loop pass the
+    :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle it computed
+    once; without it the wrapper computes the bundle from ``rdn``.
     """
-    del kde, w, pp, rdn, cw, gw   # API parity (kde) / unported fuse_w state
+    del kde   # API parity
     _check_modes(tensors=(u, v, t, t_1, ww_1, u_1, v_1, ft, tconst,
                           dvdxi_const),
                  t_ave=t_ave, wind_scale=wind_scale, fuse_uv=fuse_uv,
-                 mudf_in=mudf_in, smdiv=smdiv, fuse_w=fuse_w, capture=capture,
+                 mudf_in=mudf_in, smdiv=smdiv, fuse_w=fuse_w, w=w, pp=pp,
+                 rdn=rdn, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
                  dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
@@ -148,8 +158,14 @@ def advance_mu_t_fused(
               fnp=fnp, rdnw=rdnw, msfuy=msfuy, msfvx_inv=msfvx_inv,
               msftx=msftx, msfty=msfty, window=window, k0=k0, k1=k1,
               t_ave=t_ave, offsets=offsets, wind_scale=wind_scale,
-              fuse_uv=fuse_uv, cs2=cs2, with_tave=with_tave, ww_mode=ww_mode, ww_row=ww_row, lean=lean,
-              tconst=tconst, dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+              fuse_uv=fuse_uv, cs2=cs2, with_tave=with_tave, ww_mode=ww_mode,
+              ww_row=ww_row, lean=lean, tconst=tconst,
+              dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+    if fuse_w:
+        if thomas is None:
+            thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
+                                    cw=cw, gw=gw, k0=k0, k1=k1)
+        kw.update(fuse_w=True, w=w, pp=pp, thomas=thomas)
     if t.device.type == "cpu":
         return advance_mu_t_fused_plain(**kw)
     if t.device.type == "cuda":
@@ -166,6 +182,8 @@ def advance_mu_t_fused_plain(
     cs2: float = 0.0,
     with_tave: bool = True, ww_mode: str = "full", ww_row=None,
     lean: bool = False, tconst=None, dvdxi_const=None, ww1_k0=None,
+    fuse_w: bool = False, w=None, pp=None, rdn=None, cw: float = 0.0,
+    gw: float = 0.0, thomas: ThomasVectors | None = None,
 ):
     """Whole-array PyTorch version of the kernel, on any device.
 
@@ -179,6 +197,11 @@ def advance_mu_t_fused_plain(
     :func:`advance_mu_t_fused`.
     """
     del kde   # API parity
+    if fuse_w and thomas is None:
+        if w is None or pp is None or rdn is None:
+            raise ValueError("fuse_w requires w, pp and rdn")
+        thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
+                                cw=cw, gw=gw, k0=k0, k1=k1)
     rdx, rdy, dts, epssm, cs2, ws = (
         _f32(s) for s in (rdx, rdy, dts, epssm, cs2, wind_scale))
     J, K, I = t.shape
@@ -288,7 +311,60 @@ def advance_mu_t_fused_plain(
     if fuse_uv:
         res["u"] = torch.where(computed, u, u_in)
         res["v"] = torch.where(computed, v, v_in)
+    if fuse_w:
+        w_new, pp_new = w_step_plain(w, pp, t_full, thomas, lev(rdnw),
+                                     kmask, kint, mask, k0, k1)
+        res["w"], res["pp"] = w.copy_(w_new), pp.copy_(pp_new)
     return res
+
+
+def w_step_plain(w, pp, t_full, th: ThomasVectors, rdnw3, kmask_upd, kmask_w,
+                 mask, k0: int, k1: int, fast: bool = False):
+    """The fused vertically-implicit w/pp substep on whole arrays: the TPU
+    kernels' ``fuse_w`` block (``_w_solver.w_step``), term for term.
+    ``kmask_upd`` is k0 <= k <= k1 (centres), ``kmask_w`` k0 < k <= k1
+    (interior interfaces), ``mask`` the (J, 1, I) column window; the k
+    rolls wrap and every wrapped value is masked.  Exact mode runs the two
+    Thomas sweeps as k loops; ``fast`` runs them as the scaled log-depth
+    cumsums (a re-association).  Returns new ``(w, pp)`` tensors."""
+    K = w.shape[1]
+
+    def lev(x):
+        return x.view(1, K, 1)
+
+    w_act = torch.where(kmask_w, w, 0.0)       # rigid surface and lid
+    dvz = torch.where(kmask_upd,
+                      rdnw3 * (torch.roll(w_act, -1, 1) - w_act), 0.0)
+    rhs = (w - lev(th.crdn) * (pp - torch.roll(pp, 1, 1))
+           + lev(th.erdn) * (dvz - torch.roll(dvz, 1, 1)) + th.g_t * t_full)
+    if fast:
+        kv = torch.arange(K, device=w.device).view(1, K, 1)
+        fws, fwp, bws, bwp = (lev(x) for x in th.fast)
+        y = rhs * fws                            # inclusive cumsum over k
+        d = 1
+        while d < K:
+            y = y + torch.where(kv >= d, torch.roll(y, d, 1), 0.0)
+            d *= 2
+        y = (fwp * y) * bws                      # reverse inclusive cumsum
+        d = 1
+        while d < K:
+            y = y + torch.where(kv < K - d, torch.roll(y, -d, 1), 0.0)
+            d *= 2
+        w_sol = bwp * y
+    else:
+        w_sol = torch.zeros_like(w)              # the sweeps' dpw
+        for k in range(k0 + 1, k1 + 1):
+            w_sol[:, k, :] = ((rhs[:, k, :] + th.a[k] * w_sol[:, k - 1, :])
+                              / th.den[k])
+        for k in range(k1 - 1, k0, -1):
+            w_sol[:, k, :] = w_sol[:, k, :] - th.cp[k] * w_sol[:, k + 1, :]
+    w_new = torch.where(kmask_w & mask, w_sol, w)
+    wn_act = torch.where(kmask_w, w_sol, 0.0)
+    dvz_new = torch.where(kmask_upd,
+                          rdnw3 * (torch.roll(wn_act, -1, 1) - wn_act), 0.0)
+    pp_new = torch.where(kmask_upd & mask,
+                         pp - th.c_w * (th.beta * dvz_new + th.alfa * dvz), pp)
+    return w_new, pp_new
 
 
 # --------------------------------------------------------------------------
@@ -346,8 +422,8 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t
-        fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_float] * 6
-                       + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 40 + [ctypes.c_float] * 10
+                       + [ctypes.c_int] * 17 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -390,7 +466,8 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
             mu_tend, rdx, rdy, dts, epssm, dnw, fnm, fnp, rdnw, msfuy,
             msfvx_inv, msftx, msfty, window, k0, k1, t_ave, offsets,
             wind_scale, fuse_uv, cs2, with_tave, ww_mode, ww_row, lean,
-            tconst, dvdxi_const, ww1_k0):
+            tconst, dvdxi_const, ww1_k0, fuse_w=False, w=None, pp=None,
+            thomas=None):
     global LAUNCHES
     J, K, I = t.shape
     dev = t.device
@@ -410,8 +487,13 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         ww_row=(ww_row, 2, ww_mode != "full"), ww1_k0=(ww1_k0, 2, lean),
         dnw=(dnw, 1, True), fnm=(fnm, 1, True), fnp=(fnp, 1, True),
         rdnw=(rdnw, 1, True),
+        w=(w, 3, fuse_w), pp=(pp, 3, fuse_w),
+        **{"thomas." + n: (getattr(thomas, n, None), 1, fuse_w)
+           for n in ("a", "cp", "den", "crdn", "erdn")},
     )
     ptrs = checked_pointers(fields, shapes, dev)
+    th_scalars = ((thomas.c_w, thomas.g_t, thomas.beta, thomas.alfa)
+                  if fuse_w else (0.0,) * 4)
 
     res = {n: torch.empty((J, I), dtype=torch.float32, device=dev)
            for n in ("mu", "muave", "muts", "mudf")}
@@ -427,10 +509,10 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, *outs,
                  _f32(rdx), _f32(rdy), _f32(dts), _f32(epssm), _f32(cs2),
-                 _f32(wind_scale), J, K, I, i0, i1, j0, j1, j_off, i_off,
-                 int(k0), int(k1),
+                 _f32(wind_scale), *th_scalars, J, K, I, i0, i1, j0, j1,
+                 j_off, i_off, int(k0), int(k1),
                  int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),
-                 block_width(K), stream)
+                 int(fuse_w), block_width(K), stream)
     if err != 0:
         raise RuntimeError(f"advance_mu_t kernel launch failed: CUDA error "
                            f"{err}")
@@ -443,4 +525,6 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         res["ww"] = ww
     if with_tave:
         res["t_ave"] = t_ave
+    if fuse_w:
+        res["w"], res["pp"] = w, pp
     return res

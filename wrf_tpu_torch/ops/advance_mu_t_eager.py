@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wrf_tpu.grid import ConfigFlags, GridBounds
+from ..grid import ConfigFlags, GridBounds
 
 from .advance_mu_t_cuda import _f32
 

@@ -15,9 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from wrf_tpu.grid import ConfigFlags, GridBounds
-
 from ..convert import arrays_from_numpy
+from ..grid import ConfigFlags, GridBounds
 from ..ops.advance_mu_t_cuda import advance_mu_t_fused, lean_kwargs
 from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_mu_t_msteps_cuda import advance_mu_t_multistep, wind_ramp
@@ -64,10 +63,11 @@ def pad_halo(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def prepare_arrays(arrays, device) -> dict[str, torch.Tensor]:
+def prepare_arrays(arrays, device, extra=()) -> dict[str, torch.Tensor]:
     """Ring-shaped arrays (numpy) -> float32 tensors on ``device``: what the
-    loops' ``prepare`` returns."""
-    names = FIELDS_3D + FIELDS_2D + FIELDS_1D
+    loops' ``prepare`` returns.  ``extra`` names fields beyond the kernel
+    signature (the w/pp state and ``rdn``)."""
+    names = FIELDS_3D + FIELDS_2D + FIELDS_1D + tuple(extra)
     return arrays_from_numpy({n: pad_to_mesh(arrays[n]) for n in names},
                              device)
 
@@ -76,9 +76,7 @@ def pad_local(arrays) -> dict[str, torch.Tensor]:
     """A loop's local blocks: the prepared 3-D and 2-D fields with their
     1-cell halo (new tensors, which the loop may update in place), the
     1-D fields as they are."""
-    padded = {n: pad_halo(arrays[n]) for n in FIELDS_3D + FIELDS_2D}
-    padded.update({n: arrays[n] for n in FIELDS_1D})
-    return padded
+    return {n: pad_halo(x) for n, x in arrays.items()}
 
 
 def strip_local(out, names, domain) -> dict[str, torch.Tensor]:

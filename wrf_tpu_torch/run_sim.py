@@ -5,18 +5,21 @@ path:
 
     python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
         [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
-        [--inner-steps S [--fast]] [--device cuda|cpu]
+        [--with-w] [--inner-steps S [--fast]] [--device cuda|cpu]
 
-* the grid/state comes from a fixture directory (``wrf_tpu.io.fixtures``);
+* the grid/state comes from a fixture directory
+  (``wrf_tpu_torch.io.fixtures``);
 * dynamics parameters come from the WRF namelist record (a JSON dict of
   record fields or a namelist.input text file), else from the fixture;
 * each large step is one RK3 triple over the acoustic loop, whose every
   substep is one launch of the fused CUDA kernel (K1), or, with
   ``--inner-steps S``, S scan substeps per launch of the coupled
-  trapezoid (K3); the state stays on the device and one scalar checksum
-  syncs each step;
-* checkpoints use the fixture binary format (``wrf_tpu.io.checkpoint``)
-  and ``--resume`` continues from the newest one.
+  trapezoid (K3); ``--with-w`` adds the vertically-implicit w/pp substep
+  to every substep, inside those kernels; the state stays on the device
+  and one scalar checksum syncs each step;
+* checkpoints use the fixture binary format
+  (``wrf_tpu_torch.io.checkpoint``) and ``--resume`` continues from the
+  newest one.
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -35,10 +38,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from wrf_tpu.config import GridConfigRecord, dynamics_params, read_namelist
-from wrf_tpu.io import checkpoint, fixtures
-
+from .config import GridConfigRecord, dynamics_params, read_namelist
 from .convert import arrays_to_numpy
+from .io import checkpoint, fixtures
 from .models.rk3 import RK3Integrator
 from .parallel.sharded import case_to_domain
 
@@ -48,7 +50,6 @@ _EVOLVED = RK3Integrator._EVOLVED
 #: options of wrf_tpu.run_sim not ported yet: (flag, default, ROADMAP item)
 _NOT_PORTED = (
     ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
-    ("--with-w", False, "'SmallStepLoop on one GPU' (with_w)"),
     ("--kernel", "pallas", "'Torch eager tier' (the xla tier)"),
     ("--halo-backend", "ppermute",
      "'Multi-GPU decomposition and halo backends'"),
@@ -81,6 +82,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="temporal blocking: S coupled substeps per K3 "
                         "launch (the depth-S trapezoid; a stage with fewer "
                         "than S+1 substeps runs K1 only)")
+    p.add_argument("--with-w", action="store_true",
+                   help="also advance the vertically-implicit w/pp substep "
+                        "(advance_w) every acoustic substep")
     p.add_argument("--fast", action="store_true",
                    help="with --inner-steps: K3's fast mode (re-associated "
                         "float32 ww scan; a tolerance, not bits)")
@@ -139,9 +143,11 @@ def main(argv=None) -> int:
     rk3 = RK3Integrator(nx, ny, nz, flags,
                         acoustic_steps=dyn["acoustic_steps"],
                         snapshot="stage", device=device,
-                        inner_steps=args.inner_steps, fast=args.fast)
+                        inner_steps=args.inner_steps, fast=args.fast,
+                        with_w=args.with_w)
 
-    dom = {k: np.array(v, copy=True) for k, v in case_to_domain(case).items()}
+    dom = {k: np.array(v, copy=True)
+           for k, v in case_to_domain(case, with_w=args.with_w).items()}
     start_step = 0
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
@@ -162,10 +168,13 @@ def main(argv=None) -> int:
             missing = expected - state.keys()
             extra = state.keys() - expected
             if missing or extra:
+                # e.g. resuming a --with-w checkpoint without --with-w (or
+                # vice versa): continuity would silently differ
                 raise SystemExit(
                     f"checkpoint field set differs from the configured "
                     f"state (missing from checkpoint: {sorted(missing)}; "
-                    f"not configured: {sorted(extra)})")
+                    f"not configured: {sorted(extra)}) — rerun with the "
+                    f"matching --with-w setting")
             dom.update(state)
 
     b = case.bounds
