@@ -38,6 +38,19 @@ not 0 and no result line is printed):
    copy ceiling at 512x50x514, 1024x50x1502 and 516x50x516 with every
    probe's GB/s and ``Tensor.copy_`` on the same chain as the library
    yardstick;
+7a. K5, the ring-neighbour row exchange: ``rdma_rows``,
+   ``remote_refresh_axis`` and ``remote_refresh_multi`` against their plain
+   versions and against the ``ppermute`` refresh on rings of 1, 2, 4 and 8
+   blocks and on a 2x2 mesh, all on the one card, at the 512x512x50 loop's
+   row sizes (bit-equality); K5 per launch timed beside its plain version
+   and the ``ppermute`` refresh (``Tensor.copy_``);
+7b. the loops on a mesh at 512x512x50 (four shards on the one card): the
+   coupled loop on (2,2) and (4,1) under ``ppermute`` and ``rdma``
+   (bit-equal to each other; against the 1x1 loop at rtol 5e-5, atol_scale
+   2e-6 with ``different=`` printed), once with ``with_w``, blocked S=2 and
+   S=4 on (2,2), 1x1 with ``force_exchange`` under both backends, and the
+   mu/t loop on (2,2); K1 against its plain version, and timed, at
+   259x50x259, one shard's block of the 2x2 mesh;
 7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
@@ -46,7 +59,11 @@ not 0 and no result line is printed):
    by default it must launch K1 exactly 21 times, with ``--inner-steps 2``
    (and ``--fast``) K3 3 times and K1 15 times, the same counts with
    ``--with-w`` and ``--with-w --inner-steps 2`` (whose checkpoints must
-   carry finite w and pp), and stay finite; then one RK3 step at 74x61x32
+   carry finite w and pp), and stay finite; with ``--mesh 2x2
+   --halo-backend rdma`` K1 84 times and K5 84 times (4 shards x 7
+   substeps x 3 steps) and with ``--mesh 2x2`` alone K1 84 times, the
+   final states equal to each other bit for bit and to the 1x1 run's at
+   rtol 5e-5, atol_scale 2e-6; then one RK3 step at 74x61x32
    against the oracle's RK3 golden, with and without ``inner_steps=2``
    (acoustic_steps 4 and 8) and with and without ``with_w`` (the oracle
    composition advance_uv -> advance_mu_t -> advance_w);
@@ -55,6 +72,8 @@ not 0 and no result line is printed):
    --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
    --fast) for 100 steps under the three lateral BCs, coupled --with-w
    (S=1, 2, 4) and coupled-eager --with-w for 100 steps (specified BC),
+   coupled --mesh 2x2 --halo-backend rdma and sharded-cuda --mesh 2x2 for
+   100 steps under the three BCs,
    then the blocked main paths at 512x512x50: sharded-cuda --inner-steps 8
    for 17 steps (K2 4 launches, K1 2), coupled --inner-steps 4 for 9
    steps (K3 4 launches, K1 2) and the same with --with-w; every run
@@ -64,13 +83,14 @@ not 0 and no result line is printed):
     measures it): the mu/t loop (``ShardedAdvanceMuT``) S=1 and exact S=8
     at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
     74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
-    and fast S=4 at n=65/257 at 512x512x50, and with ``with_w`` S=1, 2, 4.
+    and fast S=4 at n=65/257 at 512x512x50, with ``with_w`` S=1, 2, 4, and
+    on the (2,2) and (4,1) meshes under ``ppermute`` and ``rdma``.
 
 The last three lines of standard output are the card's name and power
-limit (again), the kernel table ``{"kernels": [...]}`` (five kernels, each
+limit (again), the kernel table ``{"kernels": [...]}`` (six kernels, each
 with its launches on the main paths, its time, its plain version's time,
 its bound from the compulsory bytes at the data-sheet rate and, for K6,
-the library call's time) and ``{"ok": true, "device": {...}}``.  The
+and K5, the library call's time) and ``{"ok": true, "device": {...}}``.  The
 script uses torch and the port alone, and checks at the end that neither
 jax nor any module of the JAX package was imported.
 """
@@ -91,6 +111,9 @@ from pathlib import Path
 
 REF_GRID = (74, 61, 32)      # the reference's fixture grid
 BIG_GRID = (512, 512, 50)    # the main path's benchmark grid
+#: the domain whose padded ring-shaped array is one shard's block of BIG_GRID
+#: on a 2x2 mesh: (512 + 2) / 2 + 2 = 259 = 255 + 2 + 2
+SHARD_GRID = (255, 255, 50)
 KERNEL_TOL = dict(rtol=2e-5, atol_scale=1e-6)
 DEVICE_TOL = dict(rtol=5e-5, atol_scale=2e-6)
 #: lateral-BC variants checked at the reference grid (the window reaches
@@ -372,6 +395,31 @@ def check_fields(tag, got, want, bit_exact=False, diffs=None):
             raise AssertionError(f"{tag}: {r}")
         max_abs = max(max_abs, r.max_abs_err)
     return max_abs
+
+
+def check_state(tag, got, want, bit_exact=False):
+    """Two dicts of numpy arrays (or tensors), field by field at DEVICE_TOL
+    (the loops' tolerance), with the count of differing elements printed;
+    ``bit_exact`` raises on any difference.  Returns the counts."""
+    import numpy as np
+    from wrf_tpu_torch.compare import compare
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag}: fields {sorted(got)} vs {sorted(want)}")
+    diffs = {}
+    for name in sorted(want):
+        a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+                for x in (got[name], want[name]))
+        r = compare(a, b, name, **DEVICE_TOL)
+        diffs[name] = r.different
+        if not r.passed or (bit_exact and r.different):
+            raise AssertionError(f"{tag}: {r}")
+    print(f"[{tag}] different= " + ", ".join(f"{k} {v}"
+                                             for k, v in diffs.items())
+          + (" (bit for bit)" if bit_exact else
+             f" (rtol {DEVICE_TOL['rtol']}, atol_scale "
+             f"{DEVICE_TOL['atol_scale']})"))
+    return diffs
 
 
 def k2_inputs(arr, static):
@@ -682,6 +730,206 @@ def phase_copy_ceiling(card=""):
     return out, k6.LAUNCHES
 
 
+def ring_blocks(mesh, shape, seed):
+    """Random float32 blocks of ``shape`` for every shard of ``mesh``, on
+    the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {c: torch.randn(shape, device="cuda", generator=g)
+            for c in mesh.coords()}
+
+
+def clone_blocks(blocks):
+    return {c: x.clone() for c, x in blocks.items()}
+
+
+def blocks_different(tag, got, want):
+    """Two dicts of blocks must agree bit for bit (counted on the card)."""
+    n = sum(count_different(got[c], want[c]) for c in want)
+    print(f"[{tag}] different={n}")
+    if n:
+        raise AssertionError(f"{tag}: {n} elements differ")
+
+
+def phase_k5_vs_plain(card=""):
+    """K5, the ring exchange, against its plain version and against the
+    ``ppermute`` refresh: ``rdma_rows``, ``remote_refresh_axis`` and
+    ``remote_refresh_multi`` (3-D and 2-D fields mixed, one
+    ``recv_only="hi"``) on rings of 1, 2, 4 and 8 blocks on the one card at
+    the 512x512x50 loop's row sizes on an (m, 1) mesh, and on the 2x2 mesh
+    (two rings of two; rows of 259 floats, which start unaligned and take
+    the scalar path); every comparison bit for bit.  Then the times at the
+    2x2 row size: K5 per launch (one shard's mu and v rows of a substep),
+    its plain version, and the ``ppermute`` refresh of the same fields
+    (``Tensor.copy_``, the library yardstick), CUDA events in the order
+    plain, kernel, kernel, plain."""
+    import torch
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel import halo
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+
+    nx, ny, K = BIG_GRID
+    meshes = [((m, 1), make_mesh(["cuda:0"] * m, (m, 1)))
+              for m in (1, 2, 4, 8)]
+    meshes.append(((2, 2), make_mesh(["cuda:0"] * 4, (2, 2))))
+    for (nj, ni), mesh in meshes:
+        njl, nil = -(-(ny + 2) // nj), -(-(nx + 2) // ni)
+        J, I = njl + 2, nil + 2
+        tag = f"k5 ring {nj}x{ni} {J}x{K}x{I}"
+        rows = ring_blocks(mesh, (2, K * I + I), 1)
+        blocks_different(f"{tag} rdma_rows", k5.rdma_rows(rows, "j", mesh),
+                         k5.rdma_rows_plain(rows, "j", mesh))
+        a3, b2, c3 = (ring_blocks(mesh, sh, seed) for seed, sh in
+                      ((2, (J, K, I)), (3, (J, I)), (4, (J, K, I))))
+        got = k5.remote_refresh_axis(clone_blocks(a3), "j", mesh, njl)
+        blocks_different(f"{tag} refresh_axis vs plain", got,
+                         k5.remote_refresh_axis_plain(clone_blocks(a3), "j",
+                                                      mesh, njl))
+        blocks_different(f"{tag} refresh_axis vs ppermute", got,
+                         halo.refresh_axis(clone_blocks(a3), 0, "j", mesh,
+                                           njl))
+        ro = ("", "", "hi")
+        got = k5.remote_refresh_multi(
+            [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
+            recv_only=ro)
+        want = k5.remote_refresh_multi_plain(
+            [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
+            recv_only=ro)
+        perm = [halo.refresh_axis(clone_blocks(x), 0, "j", mesh, njl)
+                for x in (a3, b2, c3)]
+        for c in mesh.coords():   # a recv-only field keeps its LOW halo
+            perm[2][c][0] = c3[c][0]
+        for name, g, w, p in zip("abc", got, want, perm):
+            blocks_different(f"{tag} refresh_multi {name} vs plain", g, w)
+            blocks_different(f"{tag} refresh_multi {name} vs ppermute", g, p)
+        torch.cuda.synchronize()
+
+    # times on the 2x2 mesh: what one substep of the mesh loop exchanges
+    (nj, ni), mesh = meshes[-1]
+    njl, nil = (ny + 2) // nj, (nx + 2) // ni
+    mu = ring_blocks(mesh, (njl + 2, nil + 2), 5)
+    v = ring_blocks(mesh, (njl + 2, K, nil + 2), 6)
+    n_shards = nj * ni
+
+    def kern():
+        k5.remote_refresh_multi([mu, v], "j", mesh, njl, recv_only=("", "hi"))
+
+    def plain():
+        k5.remote_refresh_multi_plain([mu, v], "j", mesh, njl,
+                                      recv_only=("", "hi"))
+
+    def library():   # the ppermute backend's refresh of the same fields
+        halo.refresh_axis(mu, 0, "j", mesh, njl)
+        halo.refresh_axis(v, 0, "j", mesh, njl)
+
+    # the same launches without the wrapper's per-call work (its checks and
+    # the pointer arrays it builds): what the kernel and its launch cost
+    c0 = (0, 0)
+    up, down = (mesh.neighbour(c0, "j", s) for s in (1, -1))
+    plan = k5.plan_put([(mu[c0], njl, mu[up], 0),
+                        (mu[c0], 1, mu[down], njl + 1),
+                        (v[c0], 1, v[down], njl + 1)])
+
+    def bare():
+        for _ in range(n_shards):
+            k5.put(plan)
+
+    before = k5.LAUNCHES
+    kern()
+    if k5.LAUNCHES - before != n_shards:
+        raise AssertionError(f"k5: {k5.LAUNCHES - before} launches for "
+                             f"{n_shards} shards")
+    out = {"cuda": [], "plain": [], "library": [], "bare": []}
+    for name, fn in (("plain", plain), ("library", library), ("cuda", kern),
+                     ("bare", bare), ("bare", bare),
+                     ("cuda", kern), ("library", library), ("plain", plain)):
+        out[name].append(cuda_ms(fn, 200) / n_shards)
+    row_bytes = 4 * ((nil + 2) * 2 + K * (nil + 2))   # mu x2, v x1
+    print(f"[k5 time 2x2, rows of {nil + 2} (mu both ways, v up: "
+          f"{row_bytes} bytes per shard)] ms per shard: kernel "
+          f"{out['cuda'][0]:.5f} / {out['cuda'][1]:.5f}, plain "
+          f"{out['plain'][0]:.5f} / {out['plain'][1]:.5f}, ppermute refresh "
+          f"(Tensor.copy_) {out['library'][0]:.5f} / {out['library'][1]:.5f}, "
+          f"kernel launched from a prebuilt plan {out['bare'][0]:.5f} / "
+          f"{out['bare'][1]:.5f} (order plain, library, kernel, prebuilt, "
+          f"prebuilt, kernel, library, plain; {card})")
+    return out, row_bytes
+
+
+def phase_mesh_loops():
+    """The loops on a mesh at the full 512x512x50 width, four (or one)
+    shards on the one card: the coupled loop on (2,2) and (4,1) under both
+    backends, once with ``with_w``, blocked S=2 and S=4 on (2,2), and 1x1 with
+    ``force_exchange`` under both backends; the mu/t loop on (2,2).
+    ``rdma`` must equal ``ppermute`` bit for bit; every mesh is held
+    against the 1x1 loop at DEVICE_TOL with the ``different=`` counts
+    printed (per-column arithmetic does not depend on the block, so 0 is
+    expected).  Returns the K5 launches of the (2,2) rdma loop."""
+    import torch
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import (
+        ShardedAdvanceMuT, case_to_domain,
+    )
+
+    case = case_at(BIG_GRID, balanced=True)
+    b = case.bounds
+    n = 5
+    prepared = {}
+
+    def run(cls, shape, with_w=False, n_steps=n, **kw):
+        mesh = (make_mesh(["cuda:0"] * (shape[0] * shape[1]), shape)
+                if shape else None)
+        loop = cls(b.ide, b.jde, b.kdim, case.flags, n_steps=n_steps,
+                   device="cuda", mesh=mesh,
+                   **({"with_w": True} if with_w else {}), **kw)
+        # the loops leave their prepared arrays alone: one copy to the card
+        # per layout (with_w's field set holds the other's)
+        if (shape, with_w) not in prepared:
+            prepared.pop((shape, not with_w), None)
+            prepared[shape, with_w] = loop.prepare(
+                case_to_domain(case, with_w=with_w))
+        out = loop(prepared[shape, with_w], case.rdx, case.rdy, case.dts,
+                   case.epssm)
+        torch.cuda.synchronize()
+        return out
+
+    ref = run(SmallStepLoop, None)
+    ref_blk = {S: run(SmallStepLoop, None, inner_steps=S) for S in (2, 4)}
+    ref_mut = run(ShardedAdvanceMuT, None, n_steps=9, inner_steps=4)
+    check_state("1x1 force_exchange rdma vs ppermute",
+                run(SmallStepLoop, None, force_exchange=True,
+                    halo_backend="rdma"),
+                run(SmallStepLoop, None, force_exchange=True), bit_exact=True)
+    ref_w = run(SmallStepLoop, None, with_w=True)
+    launches = None
+    for shape in ((2, 2), (4, 1)):
+        perm = run(SmallStepLoop, shape)
+        k5.LAUNCHES = 0
+        rdma = run(SmallStepLoop, shape, halo_backend="rdma")
+        if k5.LAUNCHES != shape[0] * shape[1] * n:
+            raise AssertionError(f"mesh {shape} rdma loop: {k5.LAUNCHES} K5 "
+                                 f"launches for {n} substeps")
+        if shape == (2, 2):
+            launches = k5.LAUNCHES
+            for S in (2, 4):   # K3 on blocks that are ring-S in i too
+                check_state(f"mesh (2, 2) blocked S={S} vs 1x1 blocked S={S}",
+                            run(SmallStepLoop, shape, inner_steps=S),
+                            ref_blk[S])
+            check_state("mu/t mesh (2, 2) vs 1x1",
+                        run(ShardedAdvanceMuT, shape, n_steps=9,
+                            inner_steps=4), ref_mut)
+        check_state(f"mesh {shape} rdma vs ppermute", rdma, perm,
+                    bit_exact=True)
+        check_state(f"mesh {shape} vs 1x1", perm, ref)
+    check_state("mesh (2, 2) rdma +w vs 1x1 +w",
+                run(SmallStepLoop, (2, 2), with_w=True, halo_backend="rdma"),
+                ref_w)
+    return launches
+
+
 def phase_golden_file(tmp: Path):
     import torch
     from wrf_tpu_torch.compare import compare
@@ -763,24 +1011,25 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
 
 def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     """``python -m wrf_tpu_torch.run_sim`` for 3 large steps in this process,
-    with every launch count set to 0 just before; returns the K1, K3 and
-    K4 launches and the ms of each large step, after checking that the final
-    checkpoint is finite."""
+    with every launch count set to 0 just before; returns the K1, K3, K4
+    and K5 launches, the ms of each large step and the final checkpoint's
+    state, after checking that it is finite."""
     import numpy as np
     from wrf_tpu_torch import run_sim
     from wrf_tpu_torch.io import checkpoint
     from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
     from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
 
     buf = io.StringIO()
-    k1.LAUNCHES = k3.LAUNCHES = k3.PAIR_LAUNCHES = 0
+    k1.LAUNCHES = k3.LAUNCHES = k3.PAIR_LAUNCHES = k5.LAUNCHES = 0
     with contextlib.redirect_stdout(buf):
         rc = run_sim.main([str(fx), "--steps", "3", "--device", "cuda",
                            "--diagnostics", "--checkpoint-dir",
                            str(tmp / name), "--checkpoint-every", "3",
                            *flags])
     launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES,
-                "k4": k3.PAIR_LAUNCHES}
+                "k4": k3.PAIR_LAUNCHES, "k5": k5.LAUNCHES}
     for line in buf.getvalue().splitlines():
         print(f"[run_sim {name}] {line}")
     if rc != 0:
@@ -796,7 +1045,7 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
                re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
     print(f"[slice] run_sim {name} 3 large steps at {BIG_GRID}: launches "
           f"{launches}, checksum {checksum:.6e}, step ms {step_ms}")
-    return launches, step_ms
+    return launches, step_ms, state
 
 
 def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict,
@@ -852,15 +1101,26 @@ def phase_slice(tmp: Path, fx: Path):
             # the --with-w path: the same launches, each with the w solve
             "S=1 +w": (("--with-w",), {"k1": 21, "k3": 0, "k4": 0}),
             "S=2 +w": (("--with-w", "--inner-steps", "2"),
-                       {"k1": 15, "k3": 3, "k4": 0})}
-    out = {}
+                       {"k1": 15, "k3": 3, "k4": 0}),
+            # the mesh path: four shards on the one card, each launching
+            # K1 per substep (7 substeps x 3 steps), and under rdma K5 once
+            # per shard per substep
+            "2x2 rdma": (("--mesh", "2x2", "--halo-backend", "rdma"),
+                         {"k1": 84, "k3": 0, "k4": 0, "k5": 84}),
+            "2x2 ppermute": (("--mesh", "2x2"),
+                             {"k1": 84, "k3": 0, "k4": 0})}
+    out, states = {}, {}
     for name, (flags, expected) in runs.items():
-        launches, step_ms = run_sim_launches(
+        launches, step_ms, states[name] = run_sim_launches(
             tmp, fx, name.replace(" ", "_").replace("+", "with_"), *flags)
-        if launches != expected:
+        if launches != {"k5": 0, **expected}:
             raise AssertionError(f"run_sim {name} launched {launches}, "
                                  f"expected {expected}")
         out[name] = launches, step_ms
+    for name in ("2x2 rdma", "2x2 ppermute"):
+        check_state(f"run_sim {name} vs 1x1", states[name], states["S=1"])
+    check_state("run_sim 2x2 rdma vs ppermute", states["2x2 rdma"],
+                states["2x2 ppermute"], bit_exact=True)
     for name in runs:   # steps 2 and 3: step 1 includes the allocations
         step_ms = out[name][1]
         print(f"[slice] run_sim {name}: {sum(step_ms[1:]) / 2:.3f} ms per "
@@ -906,6 +1166,14 @@ COUPLED_TIERS = {
 }
 
 
+#: the loop tiers on a mesh of four shards on the one card (100 steps)
+MESH_TIERS = {
+    "coupled 2x2 rdma": ("--tier", "coupled", "--mesh", "2x2",
+                         "--halo-backend", "rdma"),
+    "sharded-cuda 2x2": ("--tier", "sharded-cuda", "--mesh", "2x2"),
+}
+
+
 #: the --with-w coupled tiers (one lateral BC, 100 steps)
 COUPLED_W_TIERS = {f"{k} +w": v + ("--with-w",)
                    for k, v in COUPLED_TIERS.items() if "fast" not in k}
@@ -930,8 +1198,9 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
         for steps in (1, 100):
             fx = fixtures.write_case(case, tmp / f"ref_{bc}_{steps}",
                                      steps=steps)
-            tiers = {**DRIVER_TIERS, **(COUPLED_TIERS if steps == 100
-                                        else {}),
+            tiers = {**DRIVER_TIERS,
+                     **({**COUPLED_TIERS, **MESH_TIERS} if steps == 100
+                        else {}),
                      **(COUPLED_W_TIERS
                         if steps == 100 and bc == "specified" else {})}
             for tier, args in tiers.items():
@@ -971,21 +1240,27 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
     return out
 
 
-def loop_marginal_ms(case, counts, reps=5, coupled=False, **kw):
+def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
+                     **kw):
     """ms per substep of ShardedAdvanceMuT (the coupled SmallStepLoop with
     ``coupled``) by the difference of two step counts (host clock around a
     call that ends in a synchronise; best of ``reps``), so the per-call
-    set-up cancels."""
+    set-up cancels.  ``mesh_shape``: that many shards, all on the one
+    card."""
     import math
 
     import torch
     from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.mesh import make_mesh
     from wrf_tpu_torch.parallel.sharded import (
         ShardedAdvanceMuT, case_to_domain,
     )
 
     b = case.bounds
     best = {}
+    if mesh_shape:
+        kw["mesh"] = make_mesh(["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
+                               mesh_shape)
     for n in counts:
         if coupled:
             loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=n,
@@ -1025,6 +1300,11 @@ LOOP_ROWS = {
                                   dict(coupled=True, with_w=True)),
     **{f"coupled +w 512x512x50 exact S={S}": (BIG_GRID, (65, 257), dict(
         coupled=True, with_w=True, inner_steps=S)) for S in (2, 4)},
+    # the coupled loop on a mesh: four shards on the one card
+    **{f"coupled 512x512x50 mesh {nj}x{ni} {backend}": (
+        BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(nj, ni),
+                                  halo_backend=backend))
+       for nj, ni in ((2, 2), (4, 1)) for backend in ("ppermute", "rdma")},
 }
 
 
@@ -1126,6 +1406,11 @@ def main() -> int:
     k3w_vs_k1w = timed("k3+w vs k1+w", phase_k3_vs_k1, with_w=True)
     print(f"[k3+w vs k1+w] different= counts: {k3w_vs_k1w}")
     k6, k6_launches = timed("copy ceiling", phase_copy_ceiling, card=smi)
+    k5_times, k5_bytes = timed("k5 vs plain", phase_k5_vs_plain, card=smi)
+    k5_loop_launches = timed("mesh loops", phase_mesh_loops)
+    _, k1_shard = timed("k1 at a 2x2 shard's block", phase_kernel_vs_plain,
+                        cases=((SHARD_GRID, "specified"),),
+                        time_grids=(SHARD_GRID,), card=smi)
     big_steps = 17
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -1170,6 +1455,19 @@ def main() -> int:
           + ", ".join(f"{k.split('50 ')[1]} {v:.4f}" for k, v in loops.items()
                       if "+w" in k))
 
+    print("[loops mesh] marginal ms per substep (1x1: "
+          f"{loops['coupled 512x512x50 S=1']:.4f}): "
+          + ", ".join(f"{k.split('mesh ')[1]} {v:.4f}"
+                      for k, v in loops.items() if "mesh" in k))
+    shard_ms = mean(k1_shard[SHARD_GRID, "scan"]["cuda"])
+    print(f"[loops mesh] K1 fused scan substep on one 2x2 shard's block "
+          f"(259x50x259): {shard_ms:.4f} ms per launch, {4 * shard_ms:.4f} "
+          f"for the four; on the whole 516x50x516 "
+          f"{mean(k1_times[BIG_GRID, 'scan']['cuda']):.4f} ({smi})")
+    for run in ("S=1", "2x2 ppermute", "2x2 rdma"):
+        print(f"[slice] run_sim {run}: step 3 alone {sim[run][1][2]:.3f} ms "
+              f"({smi})")
+
     print(smi)   # again, close to the end: the log is long
     print(json.dumps({"kernels": [{
         "name": "advance_mu_t_fused",
@@ -1182,6 +1480,7 @@ def main() -> int:
             "run_sim --inner-steps 2": sim["S=2"][0]["k1"],
             "run_sim --with-w": sim["S=1 +w"][0]["k1"],
             "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k1"],
+            "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k1"],
             "driver sharded-cuda S=8": drv["mu/t"]["k1"],
             "driver coupled S=4": drv["coupled"]["k1"],
             "driver coupled S=4 --with-w": drv["coupled +w"]["k1"]},
@@ -1261,6 +1560,29 @@ def main() -> int:
                    "max_abs_err": k3w_abs["k4"],
                    "bound_ms": bounds["k3 S=2+w"][0],
                    "bound_by": bounds["k3 S=2+w"][1]},
+    }, {
+        "name": "remote_refresh_multi",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/halo_rdma.cu",
+        "replaces": "wrf_tpu/parallel/halo.py:156",
+        # one launch per shard per substep on the 2x2 mesh
+        "launches": sim["2x2 rdma"][0]["k5"],
+        "launches_by_path": {
+            "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k5"],
+            "SmallStepLoop 2x2 rdma, 5 substeps": k5_loop_launches},
+        "max_abs_err": 0.0,
+        # ms per launch (one shard's mu rows both ways and v row up, at the
+        # 2x2 mesh's row size) in a chain of launches through the wrapper:
+        # the chain is bound by the launch, not by the bytes
+        "ms": mean(k5_times["cuda"]),
+        "plain_ms": mean(k5_times["plain"]),
+        "bound_ms": 2 * k5_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        # the ppermute refresh of the same fields: Tensor.copy_ per row
+        "library_ms": mean(k5_times["library"]),
+        # the launch alone, from a prebuilt plan (no per-call wrapper work)
+        "prebuilt_plan_ms": mean(k5_times["bare"]),
+        "bytes_per_launch": 2 * k5_bytes,
     }, {
         "name": "copy_probe",
         "route": "cuda",

@@ -99,12 +99,53 @@ def test_device_cuda_without_gpu_exits(fx9):
 
 
 @pytest.mark.parametrize("args", [
-    ("--mesh", "2x2"), ("--precision", "bf16-const"),
-    ("--halo-backend", "rdma"), ("--dump-intermediates", "dump"),
+    ("--tier", "coupled", "--halo-backend", "rdma_overlap"),
+    ("--precision", "bf16-const"),
+    ("--tier", "coupled", "--mesh", "2x2", "--halo-backend", "rdma_overlap"),
+    ("--dump-intermediates", "dump"),
 ])
 def test_unported_options_exit(fx9, args):
     with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
         driver.main([str(fx9), *args, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("args", [
+    ("--tier", "sharded-cuda", "--mesh", "2x2"),
+    ("--tier", "sharded-eager", "--mesh", "4x2"),
+    ("--tier", "sharded-cuda", "--mesh", "2x2", "--inner-steps", "4"),
+    ("--tier", "coupled", "--mesh", "2x2"),
+    ("--tier", "coupled", "--halo-backend", "rdma"),
+    ("--tier", "coupled", "--mesh", "2x2", "--halo-backend", "rdma"),
+    ("--tier", "coupled", "--mesh", "4x1", "--halo-backend", "rdma",
+     "--with-w"),
+    ("--tier", "coupled", "--mesh", "2x2", "--inner-steps", "2"),
+    ("--tier", "coupled-eager", "--mesh", "2x2", "--halo-backend", "rdma"),
+])
+def test_mesh_tier_passes(fx9, capsys, args):
+    rc, out = _main(capsys, fx9, *args)
+    assert rc == 0, out
+    assert "FAILED" not in out
+    if "--mesh" in args:
+        shape = args[args.index("--mesh") + 1]
+        n = int(shape[0]) * int(shape[2])
+        assert f"mesh {shape}: {n} shard(s) on 1 device(s) (cpu)" in out
+
+
+def test_all_tiers_on_a_mesh(fx9, capsys):
+    rc, out = _main(capsys, fx9, "--tier", "all", "--mesh", "2x2",
+                    "--halo-backend", "rdma")
+    assert rc == 0, out
+    assert out.count("PASS") == len(driver.ALL_ROWS)
+    assert "FAIL" not in out and "ERROR" not in out
+
+
+def test_halo_backend_on_a_mu_t_tier_exits(fx9, capsys):
+    """The JAX driver's p.error for a misplaced flag."""
+    with pytest.raises(SystemExit):
+        driver.main([str(fx9), "--tier", "sharded-cuda", "--halo-backend",
+                     "rdma", "--device", "cpu"])
+    assert "--halo-backend applies to the coupled tiers" in \
+        capsys.readouterr().err
 
 
 def test_coupled_native_with_w_bit_exact(fx9, capsys):

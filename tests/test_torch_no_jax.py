@@ -45,6 +45,17 @@ _CHILD = textwrap.dedent("""
                    case.rdx, case.rdy, case.dts, case.epssm)
         assert torch.isfinite(out["t"]).all()
         assert ("w" in out) == with_w
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(["cpu"] * 4, (2, 2))
+    outs = []
+    for backend in ("ppermute", "rdma"):
+        loop = SmallStepLoop(case.bounds.ide, case.bounds.jde,
+                             case.bounds.kdim, case.flags, n_steps=3,
+                             device="cpu", mesh=mesh, halo_backend=backend)
+        outs.append(loop(loop.prepare(case_to_domain(case)), case.rdx,
+                         case.rdy, case.dts, case.epssm))
+        assert torch.isfinite(outs[-1]["t"]).all()
+    assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
     assert "jax" not in sys.modules, "jax was imported"
     borrowed = [m for m in sys.modules
                 if m == "wrf_tpu" or m.startswith("wrf_tpu.")]
@@ -130,4 +141,4 @@ def test_library_name_tracks_sources():
     assert p == _build.library_path()
     assert [s.name for s in _build.sources()] == [
         "advance_mu_t.cu", "advance_mu_t_coupled.cu",
-        "advance_mu_t_msteps.cu", "copy.cu", "w_solve.cuh"]
+        "advance_mu_t_msteps.cu", "copy.cu", "halo_rdma.cu", "w_solve.cuh"]

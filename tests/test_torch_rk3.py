@@ -141,8 +141,9 @@ def test_run_sim_resume_continues(tmp_path, small_case, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x2"],
-    ["--precision", "bf16-const"], ["--halo-backend", "rdma"],
+    ["--halo-backend", "rdma_overlap"],
+    ["--mesh", "2x2", "--halo-backend", "rdma_overlap"],
+    ["--precision", "bf16-const"],
     ["--closure", "nudge"], ["--steps-per-sync", "2"],
     ["--profile", "trace"],
 ])
@@ -150,6 +151,30 @@ def test_run_sim_rejects_unported_flags(tmp_path, flags):
     """Checked before the fixture is read."""
     with pytest.raises(SystemExit, match="not yet ported"):
         run_sim.main([str(tmp_path / "fx"), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2x2"], ["--halo-backend", "rdma"],
+    ["--mesh", "2x2", "--halo-backend", "rdma"],
+])
+def test_run_sim_mesh_flags_run(tmp_path, small_case, capsys, flags):
+    """--mesh and --halo-backend rdma run on the CPU (every shard there,
+    the exchange through its plain version); the checkpoint holds global
+    arrays and equals the 1x1 run's bit for bit."""
+    fx = str(fixtures.write_case(small_case, tmp_path / "fx", steps=1))
+    for name, extra in (("mesh", flags), ("ref", [])):
+        assert run_sim.main([fx, "--device", "cpu", "--checkpoint-dir",
+                             str(tmp_path / name), *extra]) == 0
+    printed = capsys.readouterr().out
+    if "--mesh" in flags:
+        assert "mesh 2x2: 4 shard(s) on 1 device(s) (cpu)" in printed
+    got, step, _ = checkpoint.load_checkpoint(
+        tmp_path / "mesh" / "step_000001")
+    ref, _, _ = checkpoint.load_checkpoint(tmp_path / "ref" / "step_000001")
+    assert step == 1 and sorted(got) == sorted(STATE)
+    for name in STATE:
+        assert got[name].shape == ref[name].shape
+        np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
 
 
 @pytest.mark.parametrize("extra", [[], ["--fast"]])

@@ -76,8 +76,12 @@ def test_numpy_glue_matches_jax_module(open_bc_case):
     emb_b = jax_sharded.embed_outputs(case, {"t": b["t"][1:-1, :, 1:-1]})
     assert (emb_a["t"] == emb_b["t"]).all()
     assert port_sharded.pad_to_mesh(a["t"]) is a["t"]
-    with pytest.raises(NotImplementedError):
-        port_sharded.pad_to_mesh(a["t"], (2, 1))
+    for shape in ((2, 1), (4, 2), (8, 1), (2, 3)):
+        mesh = make_mesh(jax.devices()[:shape[0] * shape[1]], shape)
+        for name in ("t", "mu", "dnw"):
+            got = port_sharded.pad_to_mesh(a[name], shape)
+            want = np.asarray(jax_sharded.pad_to_mesh(b[name], mesh))
+            assert got.shape == want.shape and (got == want).all()
 
 
 def test_loop_leaves_prepared_arrays_alone(small_case):

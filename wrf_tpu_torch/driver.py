@@ -1,4 +1,4 @@
-"""CLI verification driver on one GPU: load a golden fixture, run a tier, diff, time.
+"""CLI verification driver: load a golden fixture, run a tier, diff, time.
 
 The port of ``wrf_tpu.driver``: read every input field from the fixture
 directory, run ``advance_mu_t`` for N small steps on the selected tier,
@@ -8,12 +8,13 @@ print the timing line, then the per-field comparison report
 Usage:
     python -m wrf_tpu_torch.driver FIXTURE_DIR [--steps N] [--tier T]
         [--inner-steps S] [--fast] [--with-w] [--device cuda|cpu]
+        [--mesh JxI] [--halo-backend ppermute|rdma]
 
 Tiers (the JAX tier each replaces in brackets): numpy (golden path) and
 native (C++ oracle), both without torch; eager [xla] (whole-array PyTorch,
 ``ops/advance_mu_t_eager.py``); cuda [pallas] (one K1 call per step on the
 memory-window arrays); sharded-eager / sharded-cuda [sharded-xla /
-sharded-pallas] (``ShardedAdvanceMuT`` on the 1x1 layout; sharded-cuda
+sharded-pallas] (``ShardedAdvanceMuT``; sharded-cuda
 honours --inner-steps and --fast, running K2); coupled (the acoustic
 small-step loop, ``SmallStepLoop``; honours --inner-steps and --fast,
 running K3), coupled-eager [coupled-xla] (the same loop as three
@@ -23,6 +24,12 @@ w/pp substep every substep); all (every tier side by side, plus the
 blocked rows sharded-cuda~blk and sharded-cuda~blkfast at S=4, coupled~blk
 and coupled~blkfast at S=2, and the +w rows coupled+w, coupled-eager+w and
 coupled-native+w).
+
+``--mesh JxI`` runs the sharded and coupled loop tiers on a mesh of
+``J*I`` shards (the visible CUDA devices in order, wrapping round when
+there are fewer: several shards may share one card), and
+``--halo-backend rdma`` gives the coupled tiers' per-substep j exchange to
+the hand-written kernel (K5).
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -49,6 +56,7 @@ from .ops.advance_mu_t_eager import advance_mu_t_core, window_masks
 from .ops.advance_uv import DEFAULT_CS2
 from .ops.advance_w import DEFAULT_CW, DEFAULT_GW
 from .ops.reference_numpy import advance_mu_t_numpy
+from .parallel.mesh import describe, mesh_from_spec
 from .parallel.sharded import ShardedAdvanceMuT, case_to_domain, embed_outputs
 
 #: output-field -> golden file name (reference driver naming)
@@ -86,10 +94,7 @@ _STATE = ("ww", "mu", "t", "t_ave")
 
 #: options of wrf_tpu.driver not ported yet: (flag, default, ROADMAP item)
 _NOT_PORTED = (
-    ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
     ("--precision", "f32", "'bf16 constant streams'"),
-    ("--halo-backend", "ppermute",
-     "'Multi-GPU decomposition and halo backends'"),
     ("--dump-intermediates", None,
      "'Driver tier matrix and phase capture'"),
 )
@@ -101,12 +106,15 @@ def _sync(device: torch.device) -> None:
 
 
 def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
-             fast: bool = False, with_w: bool = False):
+             fast: bool = False, with_w: bool = False, mesh=None,
+             halo_backend: str = "ppermute"):
     """Run ``steps`` small steps on the chosen tier; returns
     ``(outputs, seconds, golden_override)`` — ``golden_override`` is None
     for tiers verified against the fixture goldens, or the numpy golden
     loop's outputs for the coupled tiers.  Outputs are numpy arrays.
-    ``with_w`` (coupled tiers only) adds the w/pp substep and its fields.
+    ``with_w`` (coupled tiers only) adds the w/pp substep and its fields;
+    ``mesh`` (a :class:`~wrf_tpu_torch.parallel.mesh.Mesh`) decomposes the
+    loop tiers, and ``halo_backend`` picks the coupled loop's exchange.
 
     The timed window covers the step calls and the readback of the
     outputs, after one untimed warm-up run (the first launch builds the
@@ -165,13 +173,14 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
                              kernel="eager" if tier == "coupled-eager"
                              else "cuda",
                              inner_steps=inner_steps, fast=fast,
-                             with_w=with_w, device=device)
+                             with_w=with_w, device=device, mesh=mesh,
+                             halo_backend=halo_backend)
         gold = small_step_golden(case, steps, with_w=with_w)
     elif tier.startswith("sharded"):
         loop = ShardedAdvanceMuT(nx, ny, nz, case.flags, n_steps=steps,
                                  kernel=tier.split("-", 1)[1],
                                  inner_steps=inner_steps, fast=fast,
-                                 device=device)
+                                 device=device, mesh=mesh)
         gold = None
     elif tier in ("eager", "cuda"):
         return _run_single_tile(case, steps, tier, device)
@@ -249,6 +258,14 @@ def _parser() -> argparse.ArgumentParser:
                         "w/pp substep (advance_w) every substep")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' requires a GPU (no fallback)")
+    p.add_argument("--mesh", default=None,
+                   help="JxI mesh of shards for the sharded and coupled "
+                        "loop tiers (default: one shard on --device)")
+    p.add_argument("--halo-backend", default="ppermute",
+                   choices=["ppermute", "rdma", "rdma_overlap"],
+                   help="coupled-tier per-substep halo exchange backend "
+                        "(SmallStepLoop docstring); rdma_overlap is not yet "
+                        "ported")
     for flag, default, _ in _NOT_PORTED:
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help="not yet ported")
@@ -258,25 +275,32 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _reject_not_ported(args) -> None:
+    if args.halo_backend == "rdma_overlap":
+        raise SystemExit("driver: --halo-backend rdma_overlap is not yet "
+                         "ported to wrf_tpu_torch (ROADMAP.md, queue: "
+                         "'rdma_overlap', K1 slice (f) and K3 overlap)")
     for flag, default, item in _NOT_PORTED:
         value = getattr(args, flag[2:].replace("-", "_"))
-        if flag == "--mesh" and value in ("1x1", None):
-            continue
         if value != default:
             raise SystemExit(f"driver: {flag} {value} is not yet ported to "
                              f"wrf_tpu_torch (ROADMAP.md, {item})")
 
 
-def _row(case, steps, tier, golden, device) -> bool:
+def _row(case, steps, tier, golden, device, mesh=None,
+         halo_backend="ppermute") -> bool:
     """One row of --tier all: the worst field against the goldens."""
     fast = tier.endswith("~blkfast")
     with_w = tier.endswith("+w")
     name = tier.split("~", 1)[0].removesuffix("+w")
     inner = (2 if name == "coupled" else 4) if "~blk" in tier else 1
     try:
+        # a blocked coupled row has no width-S exchange kernel: ppermute
+        backend = ("ppermute" if inner > 1 or name not in COUPLED_TIERS
+                   else halo_backend)
         out, dt, gold_ov = run_tier(case, steps, name, device,
                                     inner_steps=inner, fast=fast,
-                                    with_w=with_w)
+                                    with_w=with_w, mesh=mesh,
+                                    halo_backend=backend)
     except Exception as e:  # report, keep the matrix going
         print(f"{tier:>20}: ERROR {type(e).__name__}: {e}")
         return False
@@ -295,7 +319,11 @@ def _row(case, steps, tier, golden, device) -> bool:
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.halo_backend != "ppermute" and not (
+            args.tier.startswith("coupled") or args.tier == "all"):
+        p.error("--halo-backend applies to the coupled tiers")
     _reject_not_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -306,11 +334,15 @@ def main(argv=None) -> int:
 
     case, fx_steps = fixtures.read_case(args.fixture_dir)
     steps = args.steps if args.steps is not None else fx_steps
+    mesh = mesh_from_spec(args.mesh, device) if args.mesh else None
+    if mesh is not None:
+        print(f"{describe(mesh)}, halo backend {args.halo_backend}")
 
     if args.tier == "all":
         golden = fixtures.read_golden(args.fixture_dir, case.bounds)
         print(f"device: {_device_name(device)}")
-        failures = sum(not _row(case, steps, tier, golden, device)
+        failures = sum(not _row(case, steps, tier, golden, device, mesh,
+                                args.halo_backend)
                        for tier in ALL_ROWS)
         if failures:
             print(f"FAILED: {failures} tier(s)")
@@ -318,7 +350,9 @@ def main(argv=None) -> int:
 
     out, dt, gold_override = run_tier(case, steps, args.tier, device,
                                       inner_steps=args.inner_steps,
-                                      fast=args.fast, with_w=args.with_w)
+                                      fast=args.fast, with_w=args.with_w,
+                                      mesh=mesh,
+                                      halo_backend=args.halo_backend)
     b = case.bounds
     n_pts = (b.ide - b.ids) * (b.jde - b.jds) * b.kdim * steps
     print(f"advance_mu_t [{args.tier}]: {steps} step(s) in {dt * 1e3:.3f} ms "

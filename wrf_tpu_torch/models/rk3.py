@@ -1,4 +1,4 @@
-"""RK3 large-step shell around the acoustic small-step loop, on one GPU.
+"""RK3 large-step shell around the acoustic small-step loop.
 
 Port of ``wrf_tpu/models/rk3.py`` (``rk3_stages``, ``RK3Integrator``).  WRF
 integrates the large step with the Wicker–Skamarock three-stage
@@ -15,14 +15,19 @@ stage-start state (``u_1 := u`` etc.), the degenerate shell ``run_sim``
 runs without a closure.  ``inner_steps`` and ``fast`` pass to every
 stage's loop (a stage too short to block runs K1 only); ``with_w`` adds
 the vertically-implicit w/pp substep to every substep, and w and pp join
-the evolved state.  The slow-tendency hook (``tendency_fn``), the closures
+the evolved state.  ``mesh`` and ``halo_backend`` pass to every stage's
+loop too, except that a stage whose blocked path engages under ``rdma``
+downgrades to the width-S ppermute refresh, loudly (there is no width-S
+exchange kernel).  The slow-tendency hook (``tendency_fn``), the closures
 that use it and the device-resident ``multi_step`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from ..grid import ConfigFlags
+import warnings
 
+from ..grid import ConfigFlags
+from ..parallel.sharded import as_blocks, merge_interior
 from .small_step import SmallStepLoop
 
 #: large-step fields re-snapshotted at every stage start in "stage" mode
@@ -36,8 +41,8 @@ def rk3_stages(acoustic_steps: int) -> tuple[tuple[float, int], ...]:
 
 
 class RK3Integrator:
-    """One RK3 large step over the acoustic loop on one device; the slow
-    tendencies (``ft``, ``mu_tend``) keep their prepared values."""
+    """One RK3 large step over the (mesh-decomposed) acoustic loop; the
+    slow tendencies (``ft``, ``mu_tend``) keep their prepared values."""
 
     #: large-step evolved state, written back into the ring interior
     #: between steps (run_sim shares this list)
@@ -47,18 +52,38 @@ class RK3Integrator:
                  acoustic_steps: int = 6, kernel: str = "cuda",
                  snapshot: str = "base", device="cuda",
                  inner_steps: int = 1, fast: bool = False,
-                 with_w: bool = False):
+                 with_w: bool = False, *, mesh=None,
+                 halo_backend: str = "ppermute"):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
         self.snapshot = snapshot
         self.stages = rk3_stages(acoustic_steps)
+
+        def stage_backend(n_sub: int) -> str:
+            # downgrade only the stages whose blocked path actually
+            # engages (rem = n_sub-1 >= S); shorter stages run the
+            # supported per-substep rdma exchange untouched
+            if (halo_backend == "rdma" and inner_steps > 1
+                    and n_sub - 1 >= inner_steps):
+                warnings.warn(
+                    "RK3 blocked stage (inner_steps="
+                    f"{inner_steps}, n_sub={n_sub}): halo_backend "
+                    "'rdma' has no width-S block exchange — this "
+                    "stage uses the width-S ppermute refresh instead "
+                    "(use 'rdma_overlap' for an in-kernel blocked "
+                    "exchange)", stacklevel=3)
+                return "ppermute"
+            return halo_backend
+
         self.loops = [
             SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
                           device=device, inner_steps=inner_steps, fast=fast,
-                          with_w=with_w)
+                          with_w=with_w, mesh=mesh,
+                          halo_backend=stage_backend(n_sub))
             for (_, n_sub) in self.stages
         ]
         self.prepare = self.loops[0].prepare
+        self.unprepare = self.loops[0].unprepare
 
     def step(self, arrays, rdx, rdy, dt, epssm):
         """Advance one large step dt; returns the stage-3 outputs
@@ -77,16 +102,15 @@ class RK3Integrator:
     def merge_evolved(self, arrays, out):
         """Fold ``out``'s domain-shaped evolved fields back into the ring
         interiors of ``arrays`` (returns a new dict of new tensors; works on
-        full prepared dicts and on evolved-only state dicts alike)."""
-        nx, ny, _ = self.loops[0].domain
+        full prepared dicts and on evolved-only state dicts alike, and on a
+        mesh shard by shard)."""
+        loop = self.loops[0]
         new = dict(arrays)
         for name in self._EVOLVED:
             if name not in out or name not in arrays:
                 continue
-            merged = arrays[name].clone()
-            if merged.ndim == 3:
-                merged[1 : 1 + ny, :, 1 : 1 + nx] = out[name]
-            else:
-                merged[1 : 1 + ny, 1 : 1 + nx] = out[name]
-            new[name] = merged
+            blocks = as_blocks({name: arrays[name]}, loop.mesh,
+                               loop._blocks)[name]
+            merged = merge_interior(blocks, out[name])
+            new[name] = merged if loop._blocks else merged[0, 0]
         return new

@@ -1,21 +1,31 @@
-"""The acoustic small-step loop on one GPU: advance_uv + advance_mu_t per substep.
+"""The acoustic small-step loop over a mesh of shards: advance_uv + advance_mu_t per substep.
 
-Port of ``wrf_tpu/models/small_step.py::SmallStepLoop`` for the 1x1
-layout.  Every substep is ONE launch of the fused K1 kernel
+Port of ``wrf_tpu/models/small_step.py::SmallStepLoop``.  Every substep
+is ONE launch per shard of the fused K1 kernel
 (``advance_mu_t_fused(fuse_uv=True)``): the wind update runs inside it from
-mu's neighbours, so u and v stream once per substep.  The loop zero-pads
-every field by one cell (the halo a one-device layout gives), computes
-the lean constants once, runs ``n_steps-1`` lean "lite" substeps that
-carry only ww's scan-seed row, then one final substep that
-re-materializes ww and writes t_ave, and trims the halo and the boundary
-ring.  The substeps are a Python loop.  With ``with_w`` every substep also
-runs the vertically-implicit w/pp substep inside the kernel (``fuse_w``),
-and w and pp join the carried state.
+mu's neighbours, so u and v stream once per substep.  The loop pads every
+block by a 1-cell halo (the neighbours' edge cells on sharded axes, zeros
+elsewhere), computes the lean constants once, runs ``n_steps-1`` lean
+"lite" substeps that carry only ww's scan-seed row, then one final substep
+that re-materializes ww and writes t_ave, and trims the halo and the
+boundary ring.  The substeps are a Python loop over "for each shard".  With
+``with_w`` every substep also runs the vertically-implicit w/pp substep
+inside the kernel (``fuse_w``), and w and pp join the carried state.
+
+On a mesh the fields a substep changes and a neighbour reads are
+exchanged before every substep: mu in j and i and v in j (u's halo lanes
+self-maintain: the kernel recomputes them from the fresh mu halo).
+``halo_backend="ppermute"`` copies the rows between the blocks
+(``parallel/halo.py``); ``"rdma"`` moves every j-halo row of a substep
+with one launch per shard of the hand-written exchange kernel (K5,
+``ops/halo_rdma_cuda.py``), i halos staying on the ppermute form.
 
 With ``inner_steps`` = S > 1 the scan substeps are temporally blocked:
 ``(n_steps-1)//S`` launches of K3 (the coupled trapezoid,
 ``coupled_multistep``) on ring-S copies of the state and constants, then
-the remaining lite substeps and the final one on K1 as above.
+the remaining lite substeps and the final one on K1 as above.  On sharded
+axes the ring-S cells hold the neighbours' data, and mu, u and v are
+refreshed with one width-S exchange per block of S substeps.
 
 ``kernel="eager"`` is the counterpart of the JAX loop's ``kernel="xla"``:
 each substep is three whole-array calls, ``advance_uv`` ->
@@ -42,10 +52,14 @@ from ..ops.advance_uv import DEFAULT_CS2, advance_uv, advance_uv_numpy
 from ..ops.advance_w import DEFAULT_CW, DEFAULT_GW, advance_w, advance_w_numpy
 from ..ops.reference_numpy import advance_mu_t_numpy
 from ..ops.thomas import thomas_vectors
-from ..parallel.halo import strip_ring, widen_ring_to
+from ..ops.halo_rdma_cuda import (
+    remote_refresh_multi, remote_refresh_multi_plain,
+)
+from ..parallel import halo
+from ..parallel.mesh import Mesh
 from ..parallel.sharded import (
-    FIELDS_1D, FIELDS_2D, FIELDS_3D, domain_window, pad_local,
-    prepare_arrays, strip_local,
+    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, as_blocks, domain_window, gather,
+    local_mesh, pad_local, prepare_arrays, shard_offsets, strip_local,
 )
 
 #: what the scan substeps carry: ww only as its 2-D scan-seed row
@@ -59,6 +73,8 @@ STATE_KEYS = ("ww", "mu", "t", "t_ave", "u", "v")
 #: the vertical-acoustics state and its vertical vector (``with_w``)
 W_STATE = ("w", "pp")
 W_FIELDS_1D = ("rdn",)
+
+HALO_BACKENDS = ("ppermute", "rdma", "rdma_overlap")
 
 
 def small_step_golden(case, steps: int, cs2: float = DEFAULT_CS2,
@@ -100,21 +116,43 @@ def small_step_golden(case, steps: int, cs2: float = DEFAULT_CS2,
 
 
 class SmallStepLoop:
-    """The coupled acoustic small-step loop on one device.
+    """The coupled acoustic small-step loop over a mesh of shards.
 
     Same array contract as the JAX loop: ring-shaped inputs, ``prepare`` ->
     ``__call__``; returns the domain-shaped outputs, final winds included
-    (and ``w``/``pp`` with ``with_w``).  ``kernel="cuda"`` runs
-    :func:`advance_mu_t_fused` and, when blocked,
+    (and ``w``/``pp`` with ``with_w``), on the first shard's device.
+    ``mesh`` None means one shard on ``device``, and then ``prepare``
+    returns plain tensors; on a mesh it returns every field as its local
+    blocks on their devices (``parallel/sharded.py::scatter``).
+
+    ``kernel="cuda"`` runs :func:`advance_mu_t_fused` and, when blocked,
     :func:`coupled_multistep` (the CUDA kernels on CUDA tensors, their
     plain versions on CPU tensors); ``kernel="plain"`` always runs the
-    plain versions, for comparisons; ``kernel="eager"`` runs the three
-    whole-array ops per substep (no kernel; it cannot block).
-    ``inner_steps`` = S blocks S scan substeps per K3 launch; ``fast``
-    runs those launches in K3's fast mode (a tolerance, not bits).
-    ``with_w`` adds the vertically-implicit w/pp substep to every substep
-    (``fuse_w`` in the kernels), with the linearized coefficients ``cw``
-    and ``gw``.  Divergence damping (``smdiv``) is not ported yet.
+    plain versions, the exchange kernel's included, for comparisons;
+    ``kernel="eager"`` runs the three whole-array ops per substep (no
+    kernel; it cannot block).  ``inner_steps`` = S blocks S scan substeps
+    per K3 launch; ``fast`` runs those launches in K3's fast mode (a
+    tolerance, not bits).  ``with_w`` adds the vertically-implicit w/pp
+    substep to every substep (``fuse_w`` in the kernels), with the
+    linearized coefficients ``cw`` and ``gw``.  Divergence damping
+    (``smdiv``) is not ported yet.
+
+    ``halo_backend``:
+
+    * "ppermute" (copies between the blocks; default);
+    * "rdma" — the hand-written ring exchange along the j mesh axis as its
+      own kernel BEFORE the substep kernel (exchange-then-compute), one
+      launch per shard per substep; i-axis refreshes stay on ppermute.
+      The blocked (``inner_steps``) path has no width-S exchange kernel:
+      it runs on ppermute or not at all;
+    * "rdma_overlap" — the exchange fused INTO the substep kernel; not
+      ported yet.
+
+    ``force_exchange`` runs the per-substep halo refreshes even on 1-shard
+    axes (a ring of one: self-exchange).  This corrupts the boundary-ring
+    rows, so it is NOT for production — it exists so a single shard can
+    execute the exact in-loop exchange code path of a multi-shard run and
+    the backends can be diffed on one card.
     """
 
     def __init__(self, nx: int, ny: int, nz: int, flags: ConfigFlags,
@@ -122,9 +160,21 @@ class SmallStepLoop:
                  inner_steps: int = 1, fast: bool = False,
                  smdiv: float = 0.0, cs2: float = DEFAULT_CS2,
                  with_w: bool = False,
-                 cw: float = DEFAULT_CW, gw: float = DEFAULT_GW):
+                 cw: float = DEFAULT_CW, gw: float = DEFAULT_GW, *,
+                 mesh: Mesh | None = None, halo_backend: str = "ppermute",
+                 force_exchange: bool = False):
         if kernel not in ("cuda", "plain", "eager"):
             raise ValueError(f"bad kernel {kernel!r}")
+        if halo_backend not in HALO_BACKENDS:
+            raise ValueError(f"bad halo_backend {halo_backend!r}")
+        if halo_backend == "rdma_overlap":
+            if kernel == "eager":
+                raise ValueError("rdma_overlap requires the fused kernel "
+                                 "(the exchange lives inside it)")
+            raise NotImplementedError(
+                "SmallStepLoop: halo_backend 'rdma_overlap' (the exchange "
+                "fused into K1 and K3) is not ported yet (ROADMAP.md, queue: "
+                "'rdma_overlap', K1 slice (f) and K3 overlap)")
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         if not isinstance(inner_steps, int) or inner_steps < 1:
@@ -143,6 +193,21 @@ class SmallStepLoop:
             raise NotImplementedError(
                 "SmallStepLoop: divergence damping (smdiv) is not ported yet "
                 "(ROADMAP.md, 'SmallStepLoop on one GPU', K1 slice (d))")
+        self.device = torch.device(device)
+        self._blocks = mesh is not None
+        self.mesh = local_mesh(mesh, self.device)
+        nj, ni = self.mesh.shape
+        if (inner_steps > 1 and halo_backend == "rdma"
+                and n_steps - 1 >= inner_steps
+                and (nj > 1 or force_exchange)):
+            # only rejected when the blocked path actually engages (rem >=
+            # S); with fewer substeps every exchange runs on the supported
+            # per-substep rdma kernel
+            raise ValueError("blocked substeps (n_steps-1 >= inner_steps) "
+                             "use the width-S ppermute exchange or the "
+                             "overlapped in-kernel exchange (rdma_overlap); "
+                             "the plain rdma backend covers the single-step "
+                             "loop")
         self.domain = (nx, ny, nz)
         self.n_steps = n_steps
         self.kernel = kernel
@@ -151,124 +216,264 @@ class SmallStepLoop:
         self.cs2 = cs2
         self.with_w = with_w
         self.cw, self.gw = cw, gw
-        self.device = torch.device(device)
+        self.halo_backend = halo_backend
+        self._j_sh = nj > 1 or force_exchange
+        self._i_sh = ni > 1 or force_exchange
         self.window = domain_window(nx, ny, nz, flags)
         plain = kernel == "plain"
         self._step = advance_mu_t_fused_plain if plain else advance_mu_t_fused
         self._block = coupled_multistep_plain if plain else coupled_multistep
+        self._rdma = (remote_refresh_multi_plain if plain
+                      else remote_refresh_multi)
         self._extra = W_STATE + W_FIELDS_1D if with_w else ()
         self._names = FIELDS_3D + FIELDS_2D + FIELDS_1D + self._extra
         self.carry_keys = CARRY_KEYS + (W_STATE if with_w else ())
         self.out_names = OUT_NAMES + (W_STATE if with_w else ())
 
-    def prepare(self, arrays) -> dict[str, torch.Tensor]:
-        """Ring-shaped arrays (numpy) -> float32 tensors on the device."""
-        return prepare_arrays(arrays, self.device, extra=self._extra)
+    def prepare(self, arrays) -> dict:
+        """Ring-shaped arrays (numpy) -> float32 tensors on the device(s),
+        padded to the mesh."""
+        return prepare_arrays(arrays, self.mesh, extra=self._extra,
+                              blocks=self._blocks)
+
+    def unprepare(self, arrays, names) -> dict[str, torch.Tensor]:
+        """The inverse of ``prepare`` for ``names``: ring-shaped global
+        tensors on the first shard's device, the mesh padding dropped."""
+        nx, ny, _ = self.domain
+        blocks = as_blocks({n: arrays[n] for n in names}, self.mesh,
+                           self._blocks)
+        return {n: gather(b, self.mesh)[:ny + 2 * RING, ..., :nx + 2 * RING]
+                for n, b in blocks.items()}
 
     def __call__(self, arrays, rdx, rdy, dts, epssm) -> dict[str, torch.Tensor]:
-        _, _, nz = self.domain
-        i0, i1, j0, j1, k0, k1 = self.window
-        padded = pad_local({n: arrays[n] for n in self._names})
+        mesh = self.mesh
+        arrays = as_blocks({n: arrays[n] for n in self._names}, mesh,
+                           self._blocks)
+        nj_loc, _, ni_loc = arrays["t"][0, 0].shape
+        n_loc = (nj_loc, ni_loc)
+        local = pad_local(arrays, mesh, self._j_sh, self._i_sh)
+        # every shard's padded-local row/column 0 in ring coordinates
+        offs = {c: shard_offsets(c, nj_loc, ni_loc) for c in local}
         scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "epssm": epssm}
         if self.kernel == "eager":
-            out = self._run_eager(padded, scalars)
-            return strip_local(out, self.out_names, self.domain)
-        common = dict(window=(i0, i1, j0, j1), offsets=(-1, -1), k0=k0,
-                      k1=k1, kde=nz - 1, cs2=self.cs2, **scalars)
-        if self.with_w:
-            # the Thomas K-vectors of this dts, computed once for every
-            # launch of this call (fast: with the cumsum scale vectors)
-            common.update(
-                fuse_w=True, cw=self.cw, gw=self.gw,
-                thomas=thomas_vectors(
-                    rdn=padded["rdn"], rdnw=padded["rdnw"], dts=dts,
-                    epssm=epssm, cw=self.cw, gw=self.gw, k0=k0, k1=k1,
-                    fast=self.fast))
-        padded["ww_row"] = padded["ww"][:, k0, :].contiguous()
-        const = {k: v for k, v in padded.items() if k not in self.carry_keys}
-        state = {k: padded[k] for k in self.carry_keys}
+            outs = self._run_eager(local, scalars, offs, n_loc)
+        else:
+            outs = self._run_fused(local, scalars, offs, n_loc)
+        return strip_local(outs, self.out_names, self.domain, mesh)
+
+    # ------------------------------------------------------------------
+    # halo refreshes between substeps (nothing on an unsharded axis)
+    # ------------------------------------------------------------------
+    def _refresh_j(self, fields, nj_loc, recv_only=()):
+        """j-axis halo refresh of several fields' blocks on the selected
+        backend (axis 0 for both 2-D and 3-D blocks)."""
+        if self.halo_backend == "rdma":
+            # ONE launch per shard for every j halo of the substep
+            self._rdma(fields, "j", self.mesh, nj_loc, recv_only=recv_only)
+        else:
+            for blocks in fields:
+                halo.refresh_axis(blocks, 0, "j", self.mesh, nj_loc)
+
+    def _refresh_i(self, fields, ni_loc):
+        for blocks in fields:
+            ndim = next(iter(blocks.values())).ndim
+            halo.refresh_axis(blocks, ndim - 1, "i", self.mesh, ni_loc)
+
+    def _refresh_fused(self, state, n_loc):
+        """Before a K1 launch: mu changed in the previous substep, and the
+        in-kernel wind update reads its i-1/j-1/j+1 neighbours; v's high
+        halo row feeds the last row's j+1 mass flux (its low halo is never
+        read)."""
+        if not (self._j_sh or self._i_sh):
+            return
+        mu = {c: st["mu"] for c, st in state.items()}
+        if self._j_sh:
+            v = {c: st["v"] for c, st in state.items()}
+            self._refresh_j([mu, v], n_loc[0], recv_only=("", "hi"))
+        if self._i_sh:
+            self._refresh_i([mu], n_loc[1])
+
+    # ------------------------------------------------------------------
+    # the fused path: K1 per substep, K3 per block of S
+    # ------------------------------------------------------------------
+    def _run_fused(self, local, scalars, offs, n_loc):
+        _, _, nz = self.domain
+        i0, i1, j0, j1, k0, k1 = self.window
+        rdx, rdy, dts, epssm = (scalars[k] for k in ("rdx", "rdy", "dts",
+                                                     "epssm"))
+        common, thomas = {}, {}
+        for c, padded in local.items():
+            common[c] = dict(window=(i0, i1, j0, j1), offsets=offs[c], k0=k0,
+                             k1=k1, kde=nz - 1, cs2=self.cs2, **scalars)
+            if self.with_w:
+                # the Thomas K-vectors of this dts, computed once per device
+                # for every launch of this call (fast: with the cumsum
+                # scale vectors)
+                dev = padded["rdn"].device
+                if dev not in thomas:
+                    thomas[dev] = thomas_vectors(
+                        rdn=padded["rdn"], rdnw=padded["rdnw"], dts=dts,
+                        epssm=epssm, cw=self.cw, gw=self.gw, k0=k0, k1=k1,
+                        fast=self.fast)
+                common[c].update(fuse_w=True, cw=self.cw, gw=self.gw,
+                                 thomas=thomas[dev])
+            padded["ww_row"] = padded["ww"][:, k0, :].contiguous()
+        carry = self.carry_keys
+        const = {c: {k: v for k, v in p.items() if k not in carry}
+                 for c, p in local.items()}
+        state = {c: {k: p[k] for k in carry} for c, p in local.items()}
 
         rem = self.n_steps - 1
         S = self.inner_steps
         if S > 1 and rem >= S:
-            state = self._run_blocks(padded, state, common, rem // S)
+            state = self._run_blocks(local, state, common, rem // S, n_loc)
             rem -= rem // S * S
         if rem:
-            lean_kw = lean_kwargs(padded, rdx, rdy, dts, k0, k1)
+            lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
+                       for c, p in local.items()}
         for _ in range(rem):
-            out = self._step(**const, **state, **lean_kw, **common,
-                             fuse_uv=True, with_tave=False, ww_mode="lite",
-                             lean=True)
-            state = {k: out[k] for k in self.carry_keys}
-        out = self._step(**const, **state, **common, fuse_uv=True,
-                         with_tave=True, ww_mode="final")
-        return strip_local(out, self.out_names, self.domain)
+            self._refresh_fused(state, n_loc)
+            for c in local:
+                out = self._step(**const[c], **state[c], **lean_kw[c],
+                                 **common[c], fuse_uv=True, with_tave=False,
+                                 ww_mode="lite", lean=True)
+                state[c] = {k: out[k] for k in carry}
+        self._refresh_fused(state, n_loc)
+        return {c: self._step(**const[c], **state[c], **common[c],
+                              fuse_uv=True, with_tave=True, ww_mode="final")
+                for c in local}
 
-    def _run_blocks(self, padded, state, common, n_blocks):
-        """``n_blocks`` K3 launches of S substeps on ring-S copies of the
-        state; returns the state back in the ring-1 layout.  The constants
-        are computed ON the widened inputs, in the JAX loop's order
-        (computed first and widened after, dvdxi_const's rolls would leave
-        wrapped values in ring cells the trapezoid reads)."""
+    def _run_blocks(self, local, state, common, n_blocks, n_loc):
+        """``n_blocks`` K3 launches per shard of S substeps on ring-S copies
+        of the state; returns the state back in the ring-1 layout.  The
+        ring-S layout is built ONCE: j is widened and, when i is sharded, i
+        too (an unsharded i keeps its ring-1 layout and wraps); on sharded
+        axes the outer cells hold the neighbours' data and the
+        block-carried mu, u and v halos are refreshed per block with a
+        width-S exchange.  The constants are computed ON the widened
+        inputs, in the JAX loop's order (computed first and widened after,
+        dvdxi_const's rolls would leave wrapped values in ring cells the
+        trapezoid reads)."""
         S = self.inner_steps
+        mesh = self.mesh
+        nj_loc, ni_loc = n_loc
+        jn = "j" if self._j_sh else None
 
-        def widen(x):
-            return widen_ring_to(x, 0, S)
+        def widen(name, src):
+            blocks = {c: src[c][name] for c in src}
+            ndim = next(iter(blocks.values())).ndim
+            blocks = halo.widen_ring_to(blocks, 0, S, jn, mesh, nj_loc)
+            if self._i_sh:
+                blocks = halo.widen_ring_to(blocks, ndim - 1, S, "i", mesh,
+                                            ni_loc)
+            return blocks
 
-        wide = {k: widen(padded[k])
-                for k in ("ww_1", "u_1", "v_1", "ft", "t_1", "muu", "muv",
-                          "msfuy", "msfvx_inv", "msftx", "msfty")}
-        wide.update({k: padded[k] for k in ("fnm", "fnp", "rdnw", "dnw")})
-        rdx, rdy, dts = common["rdx"], common["rdy"], common["dts"]
-        lean = lean_kwargs(wide, rdx, rdy, dts, common["k0"], common["k1"])
-        const = {"t_1": wide["t_1"], "mu_tend": widen(padded["mu_tend"]),
-                 "msftx": wide["msftx"], "msfty": wide["msfty"],
-                 **{k: wide[k] for k in ("fnm", "fnp", "rdnw", "dnw")},
-                 **lean, **coupled_lean_kwargs(wide, rdx, rdy, dts)}
-        if self.with_w:
-            const["rdn"] = padded["rdn"]
-        state = {k: widen(v) for k, v in state.items()}
+        wide_f = {k: widen(k, local)
+                  for k in ("ww_1", "u_1", "v_1", "ft", "t_1", "muu", "muv",
+                            "msfuy", "msfvx_inv", "msftx", "msfty",
+                            "mu_tend")}
+        wide_s = {k: widen(k, state) for k in self.carry_keys}
+        const, st, com = {}, {}, {}
+        for c, padded in local.items():
+            wide = {k: b[c] for k, b in wide_f.items()}
+            vert = {k: padded[k] for k in ("fnm", "fnp", "rdnw", "dnw")}
+            wide.update(vert)
+            rdx, rdy, dts = (common[c][k] for k in ("rdx", "rdy", "dts"))
+            lean = lean_kwargs(wide, rdx, rdy, dts, common[c]["k0"],
+                               common[c]["k1"])
+            const[c] = {"t_1": wide["t_1"], "mu_tend": wide["mu_tend"],
+                        "msftx": wide["msftx"], "msfty": wide["msfty"],
+                        **vert, **lean,
+                        **coupled_lean_kwargs(wide, rdx, rdy, dts)}
+            if self.with_w:
+                const[c]["rdn"] = padded["rdn"]
+            st[c] = {k: b[c] for k, b in wide_s.items()}
+            j_off, i_off = common[c]["offsets"]
+            com[c] = dict(common[c], offsets=(
+                j_off, i_off - (S - 1 if self._i_sh else 0)))
+
         for _ in range(n_blocks):
-            state = self._block(**const, **state, **common, n_inner=S,
-                                fast=self.fast)
-        return {k: strip_ring(state[k], 0, S) for k in self.carry_keys}
+            if self._j_sh or self._i_sh:
+                # mu, u and v changed last block: refresh their ring-S halos
+                # (mu is read S cells deep by the trapezoid; u and v S-1 —
+                # the width-S exchange covers all)
+                for name in ("mu", "u", "v"):
+                    blocks = {c: s[name] for c, s in st.items()}
+                    ndim = next(iter(blocks.values())).ndim
+                    if self._j_sh:
+                        halo.refresh_axis_w(blocks, 0, "j", mesh, nj_loc, S)
+                    if self._i_sh:
+                        halo.refresh_axis_w(blocks, ndim - 1, "i", mesh,
+                                            ni_loc, S)
+            for c in st:
+                st[c] = self._block(**const[c], **st[c], **com[c], n_inner=S,
+                                    fast=self.fast)
 
-    def _run_eager(self, padded, scalars):
-        """Every substep as three whole-array calls: the wind update, the
-        mu/t substep and, with ``with_w``, the w/pp substep on its new
-        theta (the JAX loop's ``kernel="xla"`` substep on one device)."""
+        def strip(x):
+            x = halo.strip_ring(x, 0, S)
+            if self._i_sh:
+                x = halo.strip_ring(x, x.ndim - 1, S).contiguous()
+            return x
+
+        return {c: {k: strip(s[k]) for k in self.carry_keys}
+                for c, s in st.items()}
+
+    # ------------------------------------------------------------------
+    # the eager path: three whole-array calls per substep
+    # ------------------------------------------------------------------
+    def _run_eager(self, local, scalars, offs, n_loc):
+        """Every substep as three whole-array calls per shard: the wind
+        update, the mu/t substep and, with ``with_w``, the w/pp substep on
+        its new theta (the JAX loop's ``kernel="xla"`` substep).  On a
+        mesh mu is refreshed before the wind update reads its neighbours,
+        and u and v after it (advance_mu_t reads u(i+1) and v(j+1))."""
         _, _, nz = self.domain
         i0, i1, j0, j1, k0, k1 = self.window
-        J, _, I = padded["t"].shape
-        dev = padded["t"].device
-        offs = (-1, -1)
-        i_idx = torch.arange(I, device=dev) + offs[1]
-        j_idx = torch.arange(J, device=dev) + offs[0]
-        i_mask = (i_idx >= i0) & (i_idx <= i1)
-        j_mask = (j_idx >= j0) & (j_idx <= j1)
+        nj_loc, ni_loc = n_loc
         carry = STATE_KEYS + (W_STATE if self.with_w else ())
-        const = {k: v for k, v in padded.items()
-                 if k not in carry + W_FIELDS_1D}
-        state = {k: padded[k] for k in carry}
-        out = dict(state)
+        masks, const, state = {}, {}, {}
+        for c, padded in local.items():
+            J, _, I = padded["t"].shape
+            dev = padded["t"].device
+            i_idx = torch.arange(I, device=dev) + offs[c][1]
+            j_idx = torch.arange(J, device=dev) + offs[c][0]
+            masks[c] = dict(i_mask=(i_idx >= i0) & (i_idx <= i1),
+                            j_mask=(j_idx >= j0) & (j_idx <= j1))
+            const[c] = {k: v for k, v in padded.items()
+                        if k not in carry + W_FIELDS_1D}
+            state[c] = {k: padded[k] for k in carry}
+        outs = {c: dict(s) for c, s in state.items()}
         for _ in range(self.n_steps):
-            u, v = advance_uv(
-                u=state["u"], v=state["v"], mu=state["mu"],
-                muu=const["muu"], muv=const["muv"], msfuy=const["msfuy"],
-                msfvx_inv=const["msfvx_inv"], rdx=scalars["rdx"],
-                rdy=scalars["rdy"], dts=scalars["dts"],
-                window=(i0, i1, j0, j1), offsets=offs, cs2=self.cs2)
-            ins = {k: state[k] for k in ("ww", "mu", "t", "t_ave")}
-            out = advance_mu_t_impl(**const, **ins, u=u, v=v, **scalars,
-                                    i_mask=i_mask, j_mask=j_mask, k0=k0,
-                                    k1=k1, kde=nz - 1)
-            out = {**out, "u": u, "v": v}
-            if self.with_w:
-                out["w"], out["pp"] = advance_w(
-                    w=state["w"], pp=state["pp"], t=out["t"],
-                    rdn=padded["rdn"], rdnw=padded["rdnw"],
-                    dts=scalars["dts"], epssm=scalars["epssm"],
-                    window=(i0, i1, j0, j1), offsets=offs, k0=k0, k1=k1,
-                    cw=self.cw, gw=self.gw)
-            state = {k: out[k] for k in carry}
-        return out
+            mu = {c: s["mu"] for c, s in state.items()}
+            if self._j_sh:
+                self._refresh_j([mu], nj_loc)
+            if self._i_sh:
+                self._refresh_i([mu], ni_loc)
+            u, v = {}, {}
+            for c, s in state.items():
+                u[c], v[c] = advance_uv(
+                    u=s["u"], v=s["v"], mu=s["mu"], muu=const[c]["muu"],
+                    muv=const[c]["muv"], msfuy=const[c]["msfuy"],
+                    msfvx_inv=const[c]["msfvx_inv"], rdx=scalars["rdx"],
+                    rdy=scalars["rdy"], dts=scalars["dts"],
+                    window=(i0, i1, j0, j1), offsets=offs[c], cs2=self.cs2)
+            if self._j_sh:
+                self._refresh_j([u, v], nj_loc)
+            if self._i_sh:
+                self._refresh_i([u, v], ni_loc)
+            for c, s in state.items():
+                ins = {k: s[k] for k in ("ww", "mu", "t", "t_ave")}
+                out = advance_mu_t_impl(**const[c], **ins, u=u[c], v=v[c],
+                                        **scalars, **masks[c], k0=k0, k1=k1,
+                                        kde=nz - 1)
+                out = {**out, "u": u[c], "v": v[c]}
+                if self.with_w:
+                    out["w"], out["pp"] = advance_w(
+                        w=s["w"], pp=s["pp"], t=out["t"],
+                        rdn=local[c]["rdn"], rdnw=local[c]["rdnw"],
+                        dts=scalars["dts"], epssm=scalars["epssm"],
+                        window=(i0, i1, j0, j1), offsets=offs[c], k0=k0,
+                        k1=k1, cw=self.cw, gw=self.gw)
+                outs[c] = out
+                state[c] = {k: out[k] for k in carry}
+        return outs

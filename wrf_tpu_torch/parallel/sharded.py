@@ -1,12 +1,29 @@
-"""The mu/t small-step loop on one device, and the ring-shaped array glue.
+"""The mu/t small-step loop over a mesh of shards, and the ring-shaped array glue.
 
-Port of ``wrf_tpu/parallel/sharded.py`` for the 1x1 layout (one device):
-``ShardedAdvanceMuT``, the multi-substep advance_mu_t loop, plus the numpy
-glue (field lists, compute window, fixture interop).  Arrays here are
-*ring-shaped*: the staggered domain extents plus a 1-cell boundary ring,
-``(jde+2, kdim, ide+2)``; the ring carries caller-provided lateral-boundary
-data.  ``pad_to_mesh`` is the identity on the 1x1 layout and raises for
-any other mesh.
+Port of ``wrf_tpu/parallel/sharded.py``: ``ShardedAdvanceMuT``, the
+multi-substep advance_mu_t loop over a 2-D ``(j, i)`` mesh, plus the numpy
+glue (field lists, compute window, fixture interop).  Where the reference
+synthesizes per-GPU j-slab bounds on the host and stages 3-row halos
+through ``cudaMemcpy``, here
+
+* a field on a mesh is a dict of local blocks keyed by the shard's
+  ``(jj, ii)``, each on its shard's device (:func:`scatter`,
+  :func:`gather`); one process drives every shard;
+* the 1-cell halo each stencil needs is exchanged between neighbouring
+  blocks (``parallel/halo.py``), never through the host;
+* per-shard boundary handling is *mask-based*: every shard runs the same
+  program, and the window masks computed from the shard's global offset
+  make only global-edge shards apply the bound shrink.
+
+Halo construction is hoisted OUT of the substep loop: advance_mu_t never
+reads neighbour values of its in/out fields, so one exchange before the
+loop is exact; the carried state keeps its (stale, never-read, masked) halo
+rows and only the final interior is returned.
+
+Arrays here are *ring-shaped*: the staggered domain extents plus a 1-cell
+boundary ring, ``(jde+2, kdim, ide+2)``; the ring carries caller-provided
+lateral-boundary data.  Arrays are zero-padded up to mesh-divisible sizes
+(:func:`pad_to_mesh`); the padding is excluded by the masks.
 """
 
 from __future__ import annotations
@@ -15,11 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..convert import arrays_from_numpy
 from ..grid import ConfigFlags, GridBounds
 from ..ops.advance_mu_t_cuda import advance_mu_t_fused, lean_kwargs
 from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_mu_t_msteps_cuda import advance_mu_t_multistep, wind_ramp
+from . import halo
+from .mesh import Mesh, make_mesh
 
 #: the ten 3-D and nine 2-D fields of the kernel signature, in argument order
 FIELDS_3D = ("ww", "ww_1", "u", "u_1", "v", "v_1", "t", "t_1", "t_ave", "ft")
@@ -43,19 +61,75 @@ def domain_window(nx: int, ny: int, nz: int, flags: ConfigFlags):
     return (i0 + RING, i1 + RING, j0 + RING, j1 + RING, k0, k1)
 
 
-def pad_to_mesh(x, mesh_shape=(1, 1)):
-    """Pad the decomposed axes up to multiples of the mesh shape: the
-    identity on the 1x1 layout, the only one ported."""
-    if tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh {mesh_shape} is not ported yet (ROADMAP.md, modules to "
-            "port: 'Multi-GPU decomposition and halo backends')")
-    return x
+def _mesh_shape(mesh) -> tuple[int, int]:
+    return tuple(mesh.shape) if isinstance(mesh, Mesh) else tuple(mesh)
+
+
+def pad_to_mesh(x, mesh=(1, 1)):
+    """Zero-pad the decomposed axes (j, and i of 3-D and 2-D arrays) up to
+    multiples of the mesh shape; ``mesh`` is a :class:`Mesh` or its
+    ``(nj, ni)``.  numpy in, numpy out; tensor in, tensor out; an array
+    that needs no padding comes back as it is."""
+    nj, ni = _mesh_shape(mesh)
+    if x.ndim not in (2, 3):
+        return x
+    pj, pi = (-x.shape[0]) % nj, (-x.shape[-1]) % ni
+    if not (pj or pi):
+        return x
+    if isinstance(x, torch.Tensor):
+        return F.pad(x, (0, pi) + (0, 0) * (x.ndim - 2) + (0, pj))
+    return np.pad(x, ((0, pj),) + ((0, 0),) * (x.ndim - 2) + ((0, pi),))
+
+
+def scatter(x, mesh: Mesh) -> dict:
+    """A global (mesh-divisible) array -> its local blocks, a dict keyed by
+    the shard's ``(jj, ii)``, each a float32 tensor on its shard's device.
+    Vertical vectors (1-D) are replicated.  Blocks of a tensor that already
+    lies on the shard's device are views of it."""
+    nj, ni = mesh.shape
+    if x.ndim in (2, 3) and (x.shape[0] % nj or x.shape[-1] % ni):
+        raise ValueError(f"array {tuple(x.shape)} does not divide over the "
+                         f"{nj}x{ni} mesh (pad_to_mesh first)")
+    out = {}
+    for jj, ii in mesh.coords():
+        blk = x
+        if x.ndim in (2, 3):
+            njl, nil = x.shape[0] // nj, x.shape[-1] // ni
+            blk = x[jj * njl:(jj + 1) * njl, ..., ii * nil:(ii + 1) * nil]
+        dev = mesh.device((jj, ii))
+        if isinstance(blk, torch.Tensor):
+            out[jj, ii] = blk.to(dev, torch.float32)
+        else:   # a copy: the port must never write through to numpy
+            out[jj, ii] = torch.tensor(np.ascontiguousarray(blk, np.float32),
+                                       device=dev)
+    return out
+
+
+def gather(blocks: dict, mesh: Mesh, device=None) -> torch.Tensor:
+    """Inverse of :func:`scatter`: the global tensor on ``device`` (default:
+    the first shard's).  A 1x1 mesh gives its one block back, and a
+    replicated vector its first copy (no copy in either case when the block
+    lies on ``device``)."""
+    device = (torch.device(device) if device is not None
+              else mesh.device((0, 0)))
+    nj, ni = mesh.shape
+    first = blocks[0, 0]
+    if first.ndim == 1 or (nj, ni) == (1, 1):
+        return first.to(device)
+    rows = [torch.cat([blocks[jj, ii].to(device) for ii in range(ni)], dim=-1)
+            if ni > 1 else blocks[jj, 0].to(device) for jj in range(nj)]
+    return torch.cat(rows, dim=0) if nj > 1 else rows[0]
+
+
+def shard_offsets(coord, nj_loc: int, ni_loc: int) -> tuple[int, int]:
+    """Global ring coordinates of row 0 and column 0 of shard ``coord``'s
+    halo-padded local block."""
+    return (coord[0] * nj_loc - 1, coord[1] * ni_loc - 1)
 
 
 def pad_halo(x: torch.Tensor) -> torch.Tensor:
     """One zero cell on both sides of j and i (a new tensor): the 1-cell
-    halo a one-device layout gives (``halo.halo3``/``halo2`` unsharded)."""
+    halo a one-shard layout gives (``halo.halo3``/``halo2`` unsharded)."""
     if x.ndim == 3:
         return F.pad(x, (1, 1, 0, 0, 1, 1))
     if x.ndim == 2:
@@ -63,38 +137,92 @@ def pad_halo(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def prepare_arrays(arrays, device, extra=()) -> dict[str, torch.Tensor]:
-    """Ring-shaped arrays (numpy) -> float32 tensors on ``device``: what the
-    loops' ``prepare`` returns.  ``extra`` names fields beyond the kernel
-    signature (the w/pp state and ``rdn``)."""
+def prepare_arrays(arrays, mesh: Mesh, extra=(), blocks: bool = True):
+    """Ring-shaped arrays (numpy) -> float32 tensors on the mesh's devices:
+    what the loops' ``prepare`` returns.  With ``blocks`` every field is a
+    dict of local blocks (:func:`scatter` of the mesh-padded array); without
+    (the loops built with no mesh: one shard on one device) a plain tensor.
+    ``extra`` names fields beyond the kernel signature (the w/pp state and
+    ``rdn``)."""
     names = FIELDS_3D + FIELDS_2D + FIELDS_1D + tuple(extra)
-    return arrays_from_numpy({n: pad_to_mesh(arrays[n]) for n in names},
-                             device)
+    out = {n: scatter(pad_to_mesh(np.asarray(arrays[n]), mesh), mesh)
+           for n in names}
+    return out if blocks else {n: b[0, 0] for n, b in out.items()}
 
 
-def pad_local(arrays) -> dict[str, torch.Tensor]:
-    """A loop's local blocks: the prepared 3-D and 2-D fields with their
-    1-cell halo (new tensors, which the loop may update in place), the
-    1-D fields as they are."""
-    return {n: pad_halo(x) for n, x in arrays.items()}
+def as_blocks(arrays: dict, mesh: Mesh, blocks: bool) -> dict:
+    """A loop's prepared input as dicts of blocks: itself when the loop was
+    built on a mesh, else each tensor as the one block of a 1x1 mesh."""
+    return arrays if blocks else {n: {(0, 0): x} for n, x in arrays.items()}
 
 
-def strip_local(out, names, domain) -> dict[str, torch.Tensor]:
-    """Domain-shaped views of a loop's padded outputs: the halo and the
-    boundary ring dropped."""
+def pad_local(arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool) -> dict:
+    """The loops' one-time halo construction: every 3-D and 2-D field's
+    blocks with their 1-cell halo (new tensors, which the loop may update
+    in place), exchanged with the neighbours on sharded axes and zero
+    elsewhere; 1-D fields as they are.  Returns ``{shard: {name: block}}``."""
+    padded = {}
+    for n, b in arrays.items():
+        ndim = next(iter(b.values())).ndim
+        if ndim == 3:
+            padded[n] = halo.halo3(b, mesh, j_sharded=j_sh, i_sharded=i_sh)
+        elif ndim == 2:
+            padded[n] = halo.halo2(b, mesh, j_sharded=j_sh, i_sharded=i_sh)
+        else:
+            padded[n] = b
+    return {c: {n: padded[n][c] for n in padded} for c in mesh.coords()}
+
+
+def strip_local(outs: dict, names, domain, mesh: Mesh) -> dict:
+    """Domain-shaped outputs from the shards' padded ones: every block's
+    owned interior (halo dropped), gathered on the first shard's device,
+    the boundary ring and the mesh padding dropped.  Views all the way on
+    a 1x1 mesh."""
     nx, ny, _ = domain
-    j, i = slice(1 + RING, 1 + RING + ny), slice(1 + RING, 1 + RING + nx)
-    return {n: out[n][j, :, i] if out[n].ndim == 3 else out[n][j, i]
-            for n in names}
+    res = {}
+    for n in names:
+        own = {c: o[n][1:-1, ..., 1:-1] for c, o in outs.items()}
+        res[n] = gather(own, mesh)[RING:ny + RING, ..., RING:nx + RING]
+    return res
+
+
+def merge_interior(blocks: dict, dom: torch.Tensor) -> dict:
+    """New blocks: copies of a ring-shaped field's ``blocks`` with the
+    domain-shaped ``dom`` written over the ring interior (every shard takes
+    the part of ``dom`` that falls into its block)."""
+    ny, nx = dom.shape[0], dom.shape[-1]
+    out = {}
+    for (jj, ii), b in blocks.items():
+        njl, nil = b.shape[0], b.shape[-1]
+        j0, j1 = max(jj * njl, RING), min((jj + 1) * njl, RING + ny)
+        i0, i1 = max(ii * nil, RING), min((ii + 1) * nil, RING + nx)
+        new = b.clone()
+        if j1 > j0 and i1 > i0:
+            new[j0 - jj * njl:j1 - jj * njl, ...,
+                i0 - ii * nil:i1 - ii * nil] = \
+                dom[j0 - RING:j1 - RING, ..., i0 - RING:i1 - RING]
+        out[jj, ii] = new
+    return out
+
+
+def local_mesh(mesh, device) -> Mesh:
+    """The loops' mesh argument resolved: ``mesh`` itself, or one shard on
+    ``device`` when it is None."""
+    return mesh if mesh is not None else make_mesh([device], (1, 1))
 
 
 class ShardedAdvanceMuT:
-    """The multi-substep advance_mu_t loop on one device (1x1 layout).
+    """The multi-substep advance_mu_t loop over a mesh of shards.
 
-    Build once per (domain, flags, n_steps); ``prepare`` ring-shaped numpy
-    arrays, then call.  ``kernel``: "cuda" runs K1 (and K2 when blocked)
-    through their wrappers — the CUDA kernels on CUDA tensors, their plain
-    versions on CPU tensors — and "eager" runs
+    Build once per (mesh, domain, flags, n_steps); ``prepare`` ring-shaped
+    numpy arrays, then call.  ``mesh`` None means one shard on ``device``,
+    and then ``prepare`` returns plain tensors; on a mesh it returns every
+    field as its local blocks on their devices.  The call returns
+    domain-shaped tensors on the first shard's device either way.
+
+    ``kernel``: "cuda" runs K1 (and K2 when blocked) through their
+    wrappers — the CUDA kernels on CUDA tensors, their plain versions on
+    CPU tensors — and "eager" runs
     :func:`~wrf_tpu_torch.ops.advance_mu_t_eager.advance_mu_t_impl` every
     substep.  ``vary_winds`` rescales u/v by ``1 + WIND_RAMP*n`` (float32)
     at substep ``n`` (the acoustic loop changes the winds every substep).
@@ -103,12 +231,16 @@ class ShardedAdvanceMuT:
     K2 passes of S substeps, then single K1 substeps for the rest, then the
     final K1 substep; bit-compatible with ``inner_steps=1``.  ``fast``
     runs the blocked passes in K2's closed form (a tolerance, not bits).
+
+    The halos are built once, before the loop; no substep exchanges (see
+    the module docstring), so every shard runs its whole loop on its own.
     """
 
     def __init__(self, nx: int, ny: int, nz: int, flags: ConfigFlags,
                  n_steps: int = 1, kernel: str = "cuda",
                  vary_winds: bool = False, inner_steps: int = 1,
-                 fast: bool = False, device="cuda"):
+                 fast: bool = False, device="cuda", *,
+                 mesh: Mesh | None = None):
         if kernel not in ("cuda", "eager"):
             raise ValueError(f"bad kernel {kernel!r}")
         if n_steps < 1:
@@ -128,11 +260,14 @@ class ShardedAdvanceMuT:
         self.inner_steps = inner_steps
         self.fast = fast
         self.device = torch.device(device)
+        self._blocks = mesh is not None
+        self.mesh = local_mesh(mesh, self.device)
         self.window = domain_window(nx, ny, nz, flags)
 
-    def prepare(self, arrays) -> dict[str, torch.Tensor]:
-        """Ring-shaped arrays (numpy) -> float32 tensors on the device."""
-        return prepare_arrays(arrays, self.device)
+    def prepare(self, arrays) -> dict:
+        """Ring-shaped arrays (numpy) -> float32 tensors on the device(s),
+        padded to the mesh."""
+        return prepare_arrays(arrays, self.mesh, blocks=self._blocks)
 
     def _wscale(self, n: int) -> float:
         # the ramp K2 applies, so blocked and single substeps see one scale
@@ -141,17 +276,24 @@ class ShardedAdvanceMuT:
     def __call__(self, arrays, rdx, rdy, dts, epssm) -> dict[str, torch.Tensor]:
         _, _, nz = self.domain
         i0, i1, j0, j1, k0, k1 = self.window
-        padded = pad_local(arrays)
+        mesh = self.mesh
+        arrays = as_blocks(arrays, mesh, self._blocks)
+        nj_loc, _, ni_loc = arrays["t"][0, 0].shape
+        local = pad_local(arrays, mesh, mesh.shape[0] > 1, mesh.shape[1] > 1)
         scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "epssm": epssm}
-        # this device's padded-local row/column 0 in ring coordinates
-        common = dict(window=(i0, i1, j0, j1), offsets=(-1, -1), k0=k0,
-                      k1=k1, kde=nz - 1, **scalars)
         last = self.n_steps - 1
-        if self.kernel == "cuda":
-            out = self._run_cuda(padded, common, last)
-        else:
-            out = self._run_eager(padded, scalars, last, k0, k1, nz)
-        return strip_local(out, out, self.domain)
+        outs = {}
+        for c, padded in local.items():
+            # this shard's padded-local row/column 0 in ring coordinates
+            offs = shard_offsets(c, nj_loc, ni_loc)
+            if self.kernel == "cuda":
+                common = dict(window=(i0, i1, j0, j1), offsets=offs, k0=k0,
+                              k1=k1, kde=nz - 1, **scalars)
+                outs[c] = self._run_cuda(padded, common, last)
+            else:
+                outs[c] = self._run_eager(padded, scalars, last, offs)
+        names = next(iter(outs.values())).keys()
+        return strip_local(outs, names, self.domain, mesh)
 
     def _run_cuda(self, padded, common, last):
         # t_ave is pointwise t_old and never read back, and ww is consumed
@@ -185,12 +327,13 @@ class ShardedAdvanceMuT:
                                   wind_scale=self._wscale(last),
                                   with_tave=True, ww_mode="final")
 
-    def _run_eager(self, padded, scalars, last, k0, k1, nz):
-        i0, i1, j0, j1 = self.window[:4]
+    def _run_eager(self, padded, scalars, last, offs):
+        i0, i1, j0, j1, k0, k1 = self.window
+        nz = self.domain[2]
         J, _, I = padded["t"].shape
         dev = padded["t"].device
-        i_idx = torch.arange(I, device=dev) - 1
-        j_idx = torch.arange(J, device=dev) - 1
+        i_idx = torch.arange(I, device=dev) + offs[1]
+        j_idx = torch.arange(J, device=dev) + offs[0]
         i_mask = (i_idx >= i0) & (i_idx <= i1)
         j_mask = (j_idx >= j0) & (j_idx <= j1)
         const = {k: v for k, v in padded.items() if k not in STATE_KEYS}

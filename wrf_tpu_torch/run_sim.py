@@ -1,11 +1,12 @@
-"""Simulation driver on one GPU: namelist-configured RK3 integration with checkpoints.
+"""Simulation driver: namelist-configured RK3 integration with checkpoints.
 
 The port's counterpart of ``python -m wrf_tpu.run_sim``, for its default
 path:
 
     python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
         [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
-        [--with-w] [--inner-steps S [--fast]] [--device cuda|cpu]
+        [--with-w] [--inner-steps S [--fast]] [--device cuda|cpu] \\
+        [--mesh JxI [--halo-backend ppermute|rdma]]
 
 * the grid/state comes from a fixture directory
   (``wrf_tpu_torch.io.fixtures``);
@@ -17,9 +18,16 @@ path:
   trapezoid (K3); ``--with-w`` adds the vertically-implicit w/pp substep
   to every substep, inside those kernels; the state stays on the device
   and one scalar checksum syncs each step;
+* ``--mesh JxI`` decomposes the domain over a mesh of ``J*I`` shards, which
+  take the visible CUDA devices in order and wrap round when there are
+  fewer (four shards may share one card; the banner line says how many
+  shards sit on how many devices); ``--halo-backend rdma`` moves the
+  per-substep j halos with the hand-written exchange kernel (K5) instead
+  of copies between the blocks;
 * checkpoints use the fixture binary format
   (``wrf_tpu_torch.io.checkpoint``) and ``--resume`` continues from the
-  newest one.
+  newest one; checkpoints hold global arrays, so a run on one mesh
+  resumes on another.
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -42,6 +50,7 @@ from .config import GridConfigRecord, dynamics_params, read_namelist
 from .convert import arrays_to_numpy
 from .io import checkpoint, fixtures
 from .models.rk3 import RK3Integrator
+from .parallel.mesh import describe, mesh_from_spec
 from .parallel.sharded import case_to_domain
 
 #: the evolved large-step state — RK3Integrator is the source of truth
@@ -49,10 +58,7 @@ _EVOLVED = RK3Integrator._EVOLVED
 
 #: options of wrf_tpu.run_sim not ported yet: (flag, default, ROADMAP item)
 _NOT_PORTED = (
-    ("--mesh", None, "'Multi-GPU decomposition and halo backends'"),
     ("--kernel", "pallas", "'Torch eager tier' (the xla tier)"),
-    ("--halo-backend", "ppermute",
-     "'Multi-GPU decomposition and halo backends'"),
     ("--precision", "f32", "'bf16 constant streams'"),
     ("--closure", "none", "'RK3, closure, run_sim and checkpoint'"),
     ("--tau-steps", None, "'RK3, closure, run_sim and checkpoint'"),
@@ -88,6 +94,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--fast", action="store_true",
                    help="with --inner-steps: K3's fast mode (re-associated "
                         "float32 ww scan; a tolerance, not bits)")
+    p.add_argument("--mesh", default=None,
+                   help="JxI mesh of shards (default: one shard on --device)")
+    p.add_argument("--halo-backend", default="ppermute",
+                   choices=["ppermute", "rdma", "rdma_overlap"],
+                   help="per-substep halo exchange: copies between the "
+                        "blocks, the hand-written exchange kernel (K5), or "
+                        "the exchange inside the substep kernel "
+                        "(rdma_overlap: not yet ported)")
     for flag, default, _ in _NOT_PORTED:
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true",
@@ -100,10 +114,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _reject_not_ported(args) -> None:
+    if args.halo_backend == "rdma_overlap":
+        raise SystemExit("run_sim: --halo-backend rdma_overlap is not yet "
+                         "ported to wrf_tpu_torch (ROADMAP.md, queue: "
+                         "'rdma_overlap', K1 slice (f) and K3 overlap)")
     for flag, default, item in _NOT_PORTED:
         value = getattr(args, flag[2:].replace("-", "_"))
-        if flag == "--mesh" and value in ("1x1", None):
-            continue
         if value != default:
             raise SystemExit(f"run_sim: {flag} {value} is not yet ported to "
                              f"wrf_tpu_torch (ROADMAP.md, {item})")
@@ -139,12 +155,17 @@ def main(argv=None) -> int:
         flags = case.flags
     dt = dyn["dts"] * dyn["acoustic_steps"]
 
+    mesh = mesh_from_spec(args.mesh, device) if args.mesh else None
+    if mesh is not None:
+        print(f"{describe(mesh)}, halo backend {args.halo_backend}",
+              flush=True)
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     rk3 = RK3Integrator(nx, ny, nz, flags,
                         acoustic_steps=dyn["acoustic_steps"],
                         snapshot="stage", device=device,
                         inner_steps=args.inner_steps, fast=args.fast,
-                        with_w=args.with_w)
+                        with_w=args.with_w, mesh=mesh,
+                        halo_backend=args.halo_backend)
 
     dom = {k: np.array(v, copy=True)
            for k, v in case_to_domain(case, with_w=args.with_w).items()}
@@ -215,8 +236,8 @@ def main(argv=None) -> int:
                   f"(drift {(mass - mass0) / abs(mass0):+.3e}), "
                   f"mass perturbation sum {pert:+.6e}", flush=True)
         if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
-            state = arrays_to_numpy({n: arrays[n] for n in _EVOLVED
-                                     if n in arrays})
+            state = arrays_to_numpy(rk3.unprepare(
+                arrays, [n for n in _EVOLVED if n in arrays]))
             d = checkpoint.save_checkpoint(
                 f"{args.checkpoint_dir}/step_{step + 1:06d}", state,
                 step=step + 1)
