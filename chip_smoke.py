@@ -19,6 +19,14 @@ not 0 and no result line is printed):
    events at both sizes.  Then the same three run_sim modes with
    ``fuse_w`` (the w/pp solve), every output held to bit-equality, timed
    at 512x512x50;
+3b. K1 with divergence damping (``mudf_in``, ``smdiv=0.1``): the fused scan
+   and final substeps, with and without ``fuse_w``, and a chain of 6
+   launches that hands each ``mudf`` on as the next ``mudf_in``, against
+   the plain version bit for bit at the same grids and BCs; the damped
+   scan substep timed beside the undamped one.  K1 with ``capture`` (the
+   reference's plain full call plus the five ``*_before_theta`` outputs)
+   against its plain version bit for bit, each capture equal to the output
+   it is named after, timed with and without;
 4. K2 kernel vs its plain version at the same grids and BCs: exact S=2
    and S=8 with the wind ramp started at substep 16 (bit-equality), fast
    S=8 and S=32 (rtol 2e-5, atol_scale 1e-6); exact S=8 and fast S=32
@@ -49,8 +57,11 @@ not 0 and no result line is printed):
    (bit-equal to each other; against the 1x1 loop at rtol 5e-5, atol_scale
    2e-6 with ``different=`` printed), once with ``with_w``, blocked S=2 and
    S=4 on (2,2), 1x1 with ``force_exchange`` under both backends, and the
-   mu/t loop on (2,2); K1 against its plain version, and timed, at
-   259x50x259, one shard's block of the 2x2 mesh;
+   mu/t loop on (2,2); with ``smdiv=0.1`` the 1x1 loop against the
+   oracle's golden loop (rtol 5e-5, atol_scale 2e-6) and (2,2) and (4,1)
+   under both backends against it and each other bit for bit; K1 against
+   its plain version, and timed, at 259x50x259, one shard's block of the
+   2x2 mesh;
 7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
@@ -63,10 +74,18 @@ not 0 and no result line is printed):
    --halo-backend rdma`` K1 84 times and K5 84 times (4 shards x 7
    substeps x 3 steps) and with ``--mesh 2x2`` alone K1 84 times, the
    final states equal to each other bit for bit and to the 1x1 run's at
-   rtol 5e-5, atol_scale 2e-6; then one RK3 step at 74x61x32
+   rtol 5e-5, atol_scale 2e-6; with ``--namelist`` (a JSON record that
+   sets ``smdiv`` 0.1) K1 21 times, and with ``--mesh 2x2 --halo-backend
+   rdma`` too K1 84 and K5 84 times, the mesh run equal to the 1x1 run bit
+   for bit and the 1x1 run's first large step within the driver's gate
+   (rtol 1e-4, atol_scale 1e-5) of the oracle's damped RK3 step; one
+   large step of ``--kernel eager`` (no kernel
+   launched) within the same gate of the fused run; then one RK3 step at
+   74x61x32
    against the oracle's RK3 golden, with and without ``inner_steps=2``
-   (acoustic_steps 4 and 8) and with and without ``with_w`` (the oracle
-   composition advance_uv -> advance_mu_t -> advance_w);
+   (acoustic_steps 4 and 8), with and without ``with_w`` (the oracle
+   composition advance_uv -> advance_mu_t -> advance_w) and with
+   ``smdiv=0.1``;
 9. the verification driver through its entry point,
    ``wrf_tpu_torch.driver``: tiers cuda and sharded-cuda (S=1, S=8, S=8
    --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
@@ -79,12 +98,19 @@ not 0 and no result line is printed):
    steps (K3 4 launches, K1 2) and the same with --with-w; every run
    against the C++ oracle's goldens or the numpy golden loop at the
    driver's gate;
+9b. ``driver --dump-intermediates`` at 74x61x32 on the cuda, eager and
+   numpy tiers: the five files exist, the cuda tier's equal K1's plain
+   version's bit for bit and both device tiers' agree with the numpy
+   tier's at the driver's gate; then the native CLI executable, built with
+   g++ from ``wrf_tpu_torch/native`` and run on the same fixture (return
+   code 0, ``diff=0`` on its eight rows);
 10. the loops' marginal ms per substep (two step counts, as ``bench.py``
     measures it): the mu/t loop (``ShardedAdvanceMuT``) S=1 and exact S=8
     at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
     74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
     and fast S=4 at n=65/257 at 512x512x50, with ``with_w`` S=1, 2, 4, and
-    on the (2,2) and (4,1) meshes under ``ppermute`` and ``rdma``.
+    on the (2,2) and (4,1) meshes under ``ppermute`` and ``rdma``, and
+    with ``smdiv=0.1`` on 1x1 and on (2,2) under both backends.
 
 The last three lines of standard output are the card's name and power
 limit (again), the kernel table ``{"kernels": [...]}`` (six kernels, each
@@ -116,6 +142,10 @@ BIG_GRID = (512, 512, 50)    # the main path's benchmark grid
 SHARD_GRID = (255, 255, 50)
 KERNEL_TOL = dict(rtol=2e-5, atol_scale=1e-6)
 DEVICE_TOL = dict(rtol=5e-5, atol_scale=2e-6)
+#: the verification driver's gate, for a whole large step at 512x512x50:
+#: seven substeps amplify the state ~5e4x and the rounding noise with it,
+#: and one or two of 13.4 M theta cells land at 1.05-1.2 of DEVICE_TOL
+DRIVER_TOL = dict(rtol=1e-4, atol_scale=1e-5)
 #: lateral-BC variants checked at the reference grid (the window reaches
 #: the ring under open BCs and spans the i extent under periodic ones)
 BC_VARIANTS = {
@@ -351,6 +381,166 @@ def phase_kernel_vs_plain(
     return max_abs, timings
 
 
+def abba_ms(variants, reps=20):
+    """CUDA-event ms per call of each ``{name: fn}`` variant, two readings
+    each, taken in the order a, b, ..., b, a."""
+    out = {name: [] for name in variants}
+    order = list(variants) + list(variants)[::-1]
+    for name in order:
+        out[name].append(cuda_ms(variants[name], reps))
+    return out
+
+
+#: divergence damping as a namelist sets it (WRF's default)
+SMDIV = 0.1
+
+
+def phase_k1_damping(
+        cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+               (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
+    """K1 with divergence damping (``mudf_in``, ``smdiv``) against its plain
+    version, bit for bit: the fused scan substep and the final substep,
+    with and without ``fuse_w``, ``mudf_in`` being the ``mudf`` of an
+    undamped substep on the same inputs; then a chain of 6 launches (5 scan
+    substeps and the final one) that hands each ``mudf`` on as the next
+    ``mudf_in``, against the same chain of the plain version, bit for bit.
+    At the big grid the damped scan substep is timed beside the undamped
+    one (CUDA events, order undamped, damped, damped, undamped), and its
+    plain version.  Returns the timings."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, advance_mu_t_fused_plain,
+    )
+
+    timings = {}
+    for grid, bc in cases:
+        gtag = f"{grid[0]}x{grid[1]}x{grid[2]} {bc}"
+        for with_w in (False, True):
+            name = "k1+w smdiv" if with_w else "k1 smdiv"
+            arr, static = padded_inputs(case_at(grid, bc), "cuda",
+                                        with_w=with_w)
+            scan = mode_kwargs("scan", arr, static)
+            a0, m0 = fresh(arr, scan)
+            mudf = advance_mu_t_fused_plain(**a0, **static, **m0)["mudf"]
+            if not float(mudf.abs().max()) > 0:
+                raise AssertionError(f"{name} {gtag}: mudf is all zero")
+            damp = dict(mudf_in=mudf, smdiv=SMDIV)
+            for mode in ("scan", "final"):
+                mkw = dict(mode_kwargs(mode, arr, static), **damp)
+                a_k, m_k = fresh(arr, mkw)
+                a_p, m_p = fresh(arr, mkw)
+                got = advance_mu_t_fused(**a_k, **static, **m_k)
+                want = advance_mu_t_fused_plain(**a_p, **static, **m_p)
+                a_o, m_o = fresh(arr, mkw)
+                off = advance_mu_t_fused(**a_o, **static,
+                                         **dict(m_o, smdiv=0.0))
+                torch.cuda.synchronize()
+                check_bits(f"{name} {gtag} {mode}", got, want)
+                if not count_different(got["u"], off["u"]):
+                    raise AssertionError(f"{name} {gtag} {mode}: damping "
+                                         f"changed nothing")
+            # the chain: mudf -> mudf_in, nothing copied
+            final = mode_kwargs("final", arr, static)
+            carry = ("ww_row", "mu", "t", "u", "v") + (
+                ("w", "pp") if with_w else ())
+            ends = {}
+            for which, fn in (("kernel", advance_mu_t_fused),
+                              ("plain", advance_mu_t_fused_plain)):
+                a, m = fresh(arr, scan)
+                state = {k: (m if k == "ww_row" else a)[k] for k in carry}
+                const = {k: v for k, v in a.items() if k not in carry}
+                lean = {k: v for k, v in m.items() if k != "ww_row"}
+                prev = torch.zeros_like(a["mu"])
+                for _ in range(5):
+                    out = fn(**const, **state, **static, **lean,
+                             mudf_in=prev, smdiv=SMDIV)
+                    state = {k: out[k] for k in carry}
+                    prev = out["mudf"]
+                fkw = {k: v for k, v in final.items() if k != "ww_row"}
+                ends[which] = fn(**const, **state, **static, **fkw,
+                                 mudf_in=prev, smdiv=SMDIV)
+            torch.cuda.synchronize()
+            check_bits(f"{name} {gtag} chain of 6", ends["kernel"],
+                       ends["plain"])
+            if grid == BIG_GRID and not with_w:
+                mkw = dict(scan, **damp)
+                a_u, m_u = fresh(arr, scan)
+                a_d, m_d = fresh(arr, mkw)
+                a_p, m_p = fresh(arr, mkw)
+                t = abba_ms({
+                    "undamped": lambda: advance_mu_t_fused(
+                        **a_u, **static, **m_u),
+                    "damped": lambda: advance_mu_t_fused(
+                        **a_d, **static, **m_d)})
+                t["plain"] = [cuda_ms(lambda: advance_mu_t_fused_plain(
+                    **a_p, **static, **m_p), 3)]
+                timings["scan"] = t
+                J, K, I = arr["t"].shape
+                print(f"[k1 smdiv time {J}x{K}x{I} scan] kernel undamped "
+                      f"{t['undamped'][0]:.4f} / {t['undamped'][1]:.4f} ms, "
+                      f"damped {t['damped'][0]:.4f} / {t['damped'][1]:.4f} "
+                      f"ms, plain damped {t['plain'][0]:.3f} ms (order "
+                      f"undamped, damped, damped, undamped; {card})")
+            del arr
+            torch.cuda.empty_cache()
+    return timings
+
+
+def phase_k1_capture(
+        cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+               (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
+    """K1's ``capture`` (the reference's plain full call plus the five
+    ``*_before_theta`` outputs) against its plain version, bit for bit on
+    every output; then what the capture exists to show: each capture equals
+    the output it is named after (rows 0 and J-1, zero in the captures,
+    left out).  At the big grid the call is timed with and without
+    ``capture`` (order without, with, with, without), and its plain
+    version.  Returns the timings."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        CAPTURE_NAMES, advance_mu_t_fused, advance_mu_t_fused_plain,
+    )
+
+    timings = {}
+    for grid, bc in cases:
+        tag = f"k1 capture {grid[0]}x{grid[1]}x{grid[2]} {bc}"
+        arr, static = padded_inputs(case_at(grid, bc), "cuda")
+        got = advance_mu_t_fused(**fresh(arr, {})[0], **static, capture=True)
+        want = advance_mu_t_fused_plain(**fresh(arr, {})[0], **static,
+                                        capture=True)
+        torch.cuda.synchronize()
+        if not set(CAPTURE_NAMES) <= set(got):
+            raise AssertionError(f"{tag}: outputs {sorted(got)}")
+        check_bits(tag, got, want)
+        inner = slice(1, -1)
+        for cap in CAPTURE_NAMES:
+            out = cap.removesuffix("_before_theta")
+            n = count_different(got[cap][inner], got[out][inner])
+            edge = int((got[cap][0] != 0).sum() + (got[cap][-1] != 0).sum())
+            print(f"[{tag}] {cap} vs {out}: different={n}, nonzero on rows "
+                  f"0 and J-1: {edge}")
+            if n or edge:
+                raise AssertionError(f"{tag}: {cap} is not the {out} output")
+        if grid == BIG_GRID:
+            a_n, a_c, a_p = (fresh(arr, {})[0] for _ in range(3))
+            t = abba_ms({
+                "without": lambda: advance_mu_t_fused(**a_n, **static),
+                "with": lambda: advance_mu_t_fused(**a_c, **static,
+                                                   capture=True)})
+            t["plain"] = [cuda_ms(lambda: advance_mu_t_fused_plain(
+                **a_p, **static, capture=True), 3)]
+            timings["full"] = t
+            J, K, I = arr["t"].shape
+            print(f"[k1 capture time {J}x{K}x{I} full] kernel without "
+                  f"{t['without'][0]:.4f} / {t['without'][1]:.4f} ms, with "
+                  f"{t['with'][0]:.4f} / {t['with'][1]:.4f} ms, plain with "
+                  f"{t['plain'][0]:.3f} ms (order without, with, with, "
+                  f"without; {card})")
+        del arr
+        torch.cuda.empty_cache()
+    return timings
+
+
 def count_different(got, want):
     """Elements of two CUDA tensors that differ (NaN equals NaN), counted
     on the card."""
@@ -384,6 +574,12 @@ def check_fields(tag, got, want, bit_exact=False, diffs=None):
         return 0.0
     max_abs = 0.0
     for name in sorted(want):
+        if not count_different(got[name], want[name]):
+            # equal bit for bit (counted on the card): nothing to copy back
+            if diffs is not None:
+                diffs[name] = 0
+            print(f"[{tag}] {name:7s} max_abs=0.000e+00 different=0")
+            continue
         r = compare(got[name].cpu().numpy(), want[name].cpu().numpy(), name,
                     **KERNEL_TOL)
         if diffs is not None:
@@ -397,28 +593,37 @@ def check_fields(tag, got, want, bit_exact=False, diffs=None):
     return max_abs
 
 
-def check_state(tag, got, want, bit_exact=False):
-    """Two dicts of numpy arrays (or tensors), field by field at DEVICE_TOL
-    (the loops' tolerance), with the count of differing elements printed;
-    ``bit_exact`` raises on any difference.  Returns the counts."""
+def check_state(tag, got, want, bit_exact=False, tol=None):
+    """Two dicts of numpy arrays (or tensors), field by field at ``tol``
+    (DEVICE_TOL, the loops' tolerance, unless given), with the count of
+    differing elements printed; ``bit_exact`` raises on any difference.
+    Two CUDA tensors are counted on the card first, and copied back only if
+    they differ.  Returns the counts."""
     import numpy as np
     from wrf_tpu_torch.compare import compare
 
     if sorted(got) != sorted(want):
         raise AssertionError(f"{tag}: fields {sorted(got)} vs {sorted(want)}")
-    diffs = {}
+    tol = tol or DEVICE_TOL
+    diffs, worst = {}, 0.0
     for name in sorted(want):
+        if (getattr(got[name], "is_cuda", False)
+                and getattr(want[name], "is_cuda", False)
+                and not count_different(got[name], want[name])):
+            diffs[name] = 0
+            continue
         a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
                 for x in (got[name], want[name]))
-        r = compare(a, b, name, **DEVICE_TOL)
+        r = compare(a, b, name, **tol)
         diffs[name] = r.different
+        worst = max(worst, r.max_scaled_err)
         if not r.passed or (bit_exact and r.different):
             raise AssertionError(f"{tag}: {r}")
     print(f"[{tag}] different= " + ", ".join(f"{k} {v}"
                                              for k, v in diffs.items())
           + (" (bit for bit)" if bit_exact else
-             f" (rtol {DEVICE_TOL['rtol']}, atol_scale "
-             f"{DEVICE_TOL['atol_scale']})"))
+             f" (rtol {tol['rtol']}, atol_scale {tol['atol_scale']}: worst "
+             f"scaled error {worst:.3f} of 1)"))
     return diffs
 
 
@@ -865,7 +1070,10 @@ def phase_mesh_loops():
     ``rdma`` must equal ``ppermute`` bit for bit; every mesh is held
     against the 1x1 loop at DEVICE_TOL with the ``different=`` counts
     printed (per-column arithmetic does not depend on the block, so 0 is
-    expected).  Returns the K5 launches of the (2,2) rdma loop."""
+    expected).  With divergence damping (``smdiv``) the 1x1 loop is held
+    against the oracle's golden loop at DEVICE_TOL, and (2,2) and (4,1)
+    under both backends against it and each other bit for bit.  Returns
+    the K5 launches of the (2,2) rdma loop."""
     import torch
     from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.ops import halo_rdma_cuda as k5
@@ -903,9 +1111,31 @@ def phase_mesh_loops():
                 run(SmallStepLoop, None, force_exchange=True,
                     halo_backend="rdma"),
                 run(SmallStepLoop, None, force_exchange=True), bit_exact=True)
+    # divergence damping: mudf joins the carry and every exchange mu rides
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.parallel.sharded import embed_outputs
+
+    ref_d = run(SmallStepLoop, None, smdiv=SMDIV)
+    if not count_different(ref_d["u"], ref["u"]):
+        raise AssertionError("1x1 smdiv: damping changed nothing")
+    got = embed_outputs(case, arrays_to_numpy(ref_d))
+    gold = golden_loop_native(case, n, smdiv=SMDIV)
+    check_state(f"1x1 smdiv={SMDIV} vs the oracle's golden loop, {n} substeps",
+                got, {k: gold[k] for k in got})
     ref_w = run(SmallStepLoop, None, with_w=True)
     launches = None
     for shape in ((2, 2), (4, 1)):
+        perm_d = run(SmallStepLoop, shape, smdiv=SMDIV)
+        k5.LAUNCHES = 0
+        rdma_d = run(SmallStepLoop, shape, smdiv=SMDIV, halo_backend="rdma")
+        if k5.LAUNCHES != shape[0] * shape[1] * n:
+            raise AssertionError(f"mesh {shape} smdiv rdma loop: "
+                                 f"{k5.LAUNCHES} K5 launches for {n} substeps")
+        check_state(f"mesh {shape} smdiv rdma vs ppermute", rdma_d, perm_d,
+                    bit_exact=True)
+        check_state(f"mesh {shape} smdiv vs 1x1 smdiv", perm_d, ref_d,
+                    bit_exact=True)
+        del perm_d, rdma_d
         perm = run(SmallStepLoop, shape)
         k5.LAUNCHES = 0
         rdma = run(SmallStepLoop, shape, halo_backend="rdma")
@@ -960,23 +1190,63 @@ def phase_golden_file(tmp: Path):
             raise AssertionError(f"golden-file check: {r}")
 
 
-def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
-                      with_w: bool = False):
-    """One RK3 large step on memory-window arrays with the C++ oracle's
-    wind and mu/t substeps — the structure of
-    the JAX package's ``rk3_golden``; ``with_w`` adds the oracle's w/pp substep
-    on each substep's new theta."""
+def oracle_substeps(case, kw, state, n_sub: int, smdiv: float = 0.0,
+                    wpp=None):
+    """``n_sub`` coupled substeps of the C++ oracle on memory-window arrays:
+    the wind update, the mu/t substep and, given ``wpp = (w, pp)``, the w/pp
+    substep on each substep's new theta.  With ``smdiv`` the wind update is
+    damped by the previous substep's mudf (none before the first).  Returns
+    the last substep's outputs with u and v, and ``(w, pp)``."""
     from wrf_tpu_torch.native import (
         advance_mu_t_native, advance_uv_native, advance_w_native,
     )
-    from wrf_tpu_torch.models.rk3 import rk3_stages
     from wrf_tpu_torch.ops.advance_uv import DEFAULT_CS2
     from wrf_tpu_torch.ops.advance_w import DEFAULT_CW, DEFAULT_GW
 
+    mudf, out = None, None
+    for _ in range(n_sub):
+        u, v = advance_uv_native(
+            u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
+            muv=kw["muv"], msfuy=kw["msfuy"], msfvx_inv=kw["msfvx_inv"],
+            rdx=kw["rdx"], rdy=kw["rdy"], dts=kw["dts"], cs2=DEFAULT_CS2,
+            flags=case.flags, bounds=case.bounds, mudf=mudf, smdiv=smdiv)
+        out = advance_mu_t_native(**{**kw, **state, "u": u, "v": v})
+        if smdiv:
+            mudf = out["mudf"]
+        if wpp is not None:
+            wpp = advance_w_native(
+                w=wpp[0], pp=wpp[1], t=out["t"], rdn=case.fields["grid_rdn"],
+                rdnw=kw["rdnw"], dts=kw["dts"], epssm=kw["epssm"],
+                cw=DEFAULT_CW, gw=DEFAULT_GW, flags=case.flags,
+                bounds=case.bounds)
+        state = {**{k: out[k] for k in ("ww", "mu", "t", "t_ave")},
+                 "u": u, "v": v}
+    return {**out, "u": state["u"], "v": state["v"]}, wpp
+
+
+#: the coupled state and the fixture field each one starts from
+START_FIELDS = {"u": "grid_u_2", "v": "grid_v_2", "t": "grid_t_2",
+                "ww": "grid_ww", "mu": "grid_mu_2", "t_ave": "t_2save"}
+
+
+def golden_loop_native(case, steps: int, smdiv: float = 0.0):
+    """The golden acoustic loop (``small_step_golden``) with the C++
+    oracle's substeps: fast enough for the 512x512x50 grid."""
+    start = {k: case.fields[f] for k, f in START_FIELDS.items()}
+    return oracle_substeps(case, case.kernel_kwargs(), start, steps, smdiv)[0]
+
+
+def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
+                      with_w: bool = False, smdiv: float = 0.0):
+    """One RK3 large step on memory-window arrays with the C++ oracle's
+    wind and mu/t substeps — the structure of
+    the JAX package's ``rk3_golden``; ``with_w`` adds the oracle's w/pp substep
+    on each substep's new theta, ``smdiv`` divergence damping from the
+    previous substep's mudf (every stage starts from a zero mudf)."""
+    from wrf_tpu_torch.models.rk3 import rk3_stages
+
     f0 = case.fields
-    start = {"u": f0["grid_u_2"], "v": f0["grid_v_2"], "t": f0["grid_t_2"],
-             "ww": f0["grid_ww"], "mu": f0["grid_mu_2"],
-             "t_ave": f0["t_2save"]}
+    start = {k: f0[f] for k, f in START_FIELDS.items()}
     out = None
     for frac, n_sub in rk3_stages(acoustic_steps):
         fields = dict(f0)
@@ -985,35 +1255,20 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
                           grid_t_save=start["t"], ww1=start["ww"])
         kw = dataclasses.replace(case, fields=fields,
                                  dts=(frac * dt) / n_sub).kernel_kwargs()
-        state = dict(start)
-        w, pp = f0["grid_w"], f0["grid_pp"]   # every stage restarts
-        for _ in range(n_sub):
-            u, v = advance_uv_native(
-                u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
-                muv=kw["muv"], msfuy=kw["msfuy"],
-                msfvx_inv=kw["msfvx_inv"], rdx=kw["rdx"], rdy=kw["rdy"],
-                dts=kw["dts"], cs2=DEFAULT_CS2, flags=case.flags,
-                bounds=case.bounds)
-            out = advance_mu_t_native(**{**kw, **state, "u": u, "v": v})
-            if with_w:
-                w, pp = advance_w_native(
-                    w=w, pp=pp, t=out["t"], rdn=f0["grid_rdn"],
-                    rdnw=kw["rdnw"], dts=kw["dts"], epssm=kw["epssm"],
-                    cw=DEFAULT_CW, gw=DEFAULT_GW, flags=case.flags,
-                    bounds=case.bounds)
-            state = {**{k: out[k] for k in ("ww", "mu", "t", "t_ave")},
-                     "u": u, "v": v}
-        out = {**out, "u": state["u"], "v": state["v"]}
+        # every stage restarts from the step's start state
+        out, wpp = oracle_substeps(
+            case, kw, dict(start), n_sub, smdiv,
+            (f0["grid_w"], f0["grid_pp"]) if with_w else None)
         if with_w:
-            out.update(w=w, pp=pp)
+            out.update(w=wpp[0], pp=wpp[1])
     return out
 
 
-def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
-    """``python -m wrf_tpu_torch.run_sim`` for 3 large steps in this process,
-    with every launch count set to 0 just before; returns the K1, K3, K4
-    and K5 launches, the ms of each large step and the final checkpoint's
-    state, after checking that it is finite."""
+def run_sim_launches(tmp: Path, fx: Path, name: str, *flags, steps: int = 3):
+    """``python -m wrf_tpu_torch.run_sim`` for ``steps`` large steps in this
+    process, with every launch count set to 0 just before; returns the K1,
+    K3, K4 and K5 launches, the ms of each large step and the final
+    checkpoint's state, after checking that it is finite."""
     import numpy as np
     from wrf_tpu_torch import run_sim
     from wrf_tpu_torch.io import checkpoint
@@ -1024,9 +1279,9 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     buf = io.StringIO()
     k1.LAUNCHES = k3.LAUNCHES = k3.PAIR_LAUNCHES = k5.LAUNCHES = 0
     with contextlib.redirect_stdout(buf):
-        rc = run_sim.main([str(fx), "--steps", "3", "--device", "cuda",
-                           "--diagnostics", "--checkpoint-dir",
-                           str(tmp / name), "--checkpoint-every", "3",
+        rc = run_sim.main([str(fx), "--steps", str(steps), "--device",
+                           "cuda", "--diagnostics", "--checkpoint-dir",
+                           str(tmp / name), "--checkpoint-every", str(steps),
                            *flags])
     launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES,
                 "k4": k3.PAIR_LAUNCHES, "k5": k5.LAUNCHES}
@@ -1034,8 +1289,9 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
         print(f"[run_sim {name}] {line}")
     if rc != 0:
         raise AssertionError(f"run_sim {name} returned {rc}")
-    state, step, _ = checkpoint.load_checkpoint(tmp / name / "step_000003")
-    if step != 3 or not all(np.isfinite(v).all() for v in state.values()):
+    state, step, _ = checkpoint.load_checkpoint(
+        tmp / name / f"step_{steps:06d}")
+    if step != steps or not all(np.isfinite(v).all() for v in state.values()):
         raise AssertionError(f"run_sim {name}: final state is not finite")
     if ("--with-w" in flags) != ({"w", "pp"} <= state.keys()):
         raise AssertionError(f"run_sim {name}: checkpoint fields "
@@ -1043,13 +1299,13 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags):
     checksum = float(np.sum(state["t"], dtype=np.float64))
     step_ms = [float(m.group(1)) for m in
                re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
-    print(f"[slice] run_sim {name} 3 large steps at {BIG_GRID}: launches "
-          f"{launches}, checksum {checksum:.6e}, step ms {step_ms}")
+    print(f"[slice] run_sim {name} {steps} large step(s) at {BIG_GRID}: "
+          f"launches {launches}, checksum {checksum:.6e}, step ms {step_ms}")
     return launches, step_ms, state
 
 
 def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict,
-                  with_w: bool = False):
+                  with_w: bool = False, smdiv: float = 0.0):
     """One RK3 step at the reference grid against the C++ oracle's RK3
     golden (``with_w``: the composition advance_uv -> advance_mu_t ->
     advance_w per substep), with the launches it must make."""
@@ -1067,18 +1323,20 @@ def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict,
     rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
                         acoustic_steps=acoustic_steps, kernel="cuda",
                         snapshot="stage", device="cuda",
-                        inner_steps=inner_steps, with_w=with_w)
+                        inner_steps=inner_steps, with_w=with_w, smdiv=smdiv)
     arrays = rk3.prepare(case_to_domain(case, with_w=with_w))
     k1.LAUNCHES = k3.LAUNCHES = 0
     out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm)
     torch.cuda.synchronize()
     launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES}
-    tag = f"rk3 ns={acoustic_steps} S={inner_steps}{' +w' if with_w else ''}"
+    tag = (f"rk3 ns={acoustic_steps} S={inner_steps}"
+           f"{' +w' if with_w else ''}{f' smdiv={smdiv}' if smdiv else ''}")
     if launches != expected:
         raise AssertionError(f"{tag} launched {launches}, expected "
                              f"{expected}")
     got = embed_outputs(case, arrays_to_numpy(out))
-    gold = rk3_golden_native(case, acoustic_steps, dt, "stage", with_w=with_w)
+    gold = rk3_golden_native(case, acoustic_steps, dt, "stage", with_w=with_w,
+                             smdiv=smdiv)
     if with_w and not {"w", "pp"} <= got.keys():
         raise AssertionError(f"{tag}: no w/pp in {sorted(got)}")
     for name in sorted(got):
@@ -1109,6 +1367,22 @@ def phase_slice(tmp: Path, fx: Path):
                          {"k1": 84, "k3": 0, "k4": 0, "k5": 84}),
             "2x2 ppermute": (("--mesh", "2x2"),
                              {"k1": 84, "k3": 0, "k4": 0})}
+    # a namelist record with divergence damping (and the fixture's own
+    # dynamics: dts = time_step / time_step_sound), every step checkpointed
+    case = case_at(BIG_GRID, balanced=True)
+    nml = {"dx": round(1.0 / case.rdx, 3), "dy": round(1.0 / case.rdy, 3),
+           "time_step": round(case.dts * 4), "time_step_sound": 4,
+           "epssm": case.epssm, "smdiv": SMDIV, "specified": True}
+    if (1.0 / nml["dx"], nml["time_step"] / 4) != (case.rdx, case.dts):
+        raise AssertionError(f"the namelist {nml} is not the fixture's "
+                             f"dynamics (rdx {case.rdx}, dts {case.dts})")
+    (tmp / "smdiv.json").write_text(json.dumps(nml))
+    damped = ("--namelist", str(tmp / "smdiv.json"))
+    runs["smdiv"] = (damped + ("--checkpoint-every", "1"),
+                     {"k1": 21, "k3": 0, "k4": 0})
+    runs["smdiv 2x2 rdma"] = (
+        damped + ("--mesh", "2x2", "--halo-backend", "rdma"),
+        {"k1": 84, "k3": 0, "k4": 0, "k5": 84})
     out, states = {}, {}
     for name, (flags, expected) in runs.items():
         launches, step_ms, states[name] = run_sim_launches(
@@ -1121,6 +1395,7 @@ def phase_slice(tmp: Path, fx: Path):
         check_state(f"run_sim {name} vs 1x1", states[name], states["S=1"])
     check_state("run_sim 2x2 rdma vs ppermute", states["2x2 rdma"],
                 states["2x2 ppermute"], bit_exact=True)
+    slice_damped(tmp, fx, case, damped, states)
     for name in runs:   # steps 2 and 3: step 1 includes the allocations
         step_ms = out[name][1]
         print(f"[slice] run_sim {name}: {sum(step_ms[1:]) / 2:.3f} ms per "
@@ -1130,17 +1405,59 @@ def phase_slice(tmp: Path, fx: Path):
     rk3_vs_oracle(8, 2, {"k1": 5, "k3": 4})
     rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0}, with_w=True)
     rk3_vs_oracle(8, 2, {"k1": 5, "k3": 4}, with_w=True)
+    rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0}, smdiv=SMDIV)
+    rk3_vs_oracle(4, 1, {"k1": 7, "k3": 0}, with_w=True, smdiv=SMDIV)
     return out
 
 
-def run_driver(tag, *argv):
+def embed_checkpoint(case, state):
+    """A ``run_sim`` checkpoint's ring-shaped arrays as memory-window arrays
+    (the boundary ring passes through every step, so the fixture's own
+    values stand there)."""
+    from wrf_tpu_torch.parallel.sharded import RING, embed_outputs
+
+    inner = slice(RING, -RING)
+    return embed_outputs(case, {k: v[inner, ..., inner]
+                                for k, v in state.items()})
+
+
+def slice_damped(tmp: Path, fx: Path, case, damped, states):
+    """The damped ``run_sim --namelist`` runs: the 1x1 run's first large
+    step against ``rk3_golden_native(smdiv=)`` (DRIVER_TOL; past it the
+    closure-less shell's state is amplified rounding noise, ww what is left
+    of cancelling terms 1e8 times its size, and no tolerance against
+    another implementation means anything), the 2x2 rdma run's third step
+    equal to the 1x1 run's bit for bit, a state that differs from the
+    undamped run's, and one large step of ``--kernel eager`` (no kernel
+    launched) against the fused run's first step (DRIVER_TOL)."""
+    import numpy as np
+    from wrf_tpu_torch.io import checkpoint
+
+    check_state("run_sim smdiv 2x2 rdma vs 1x1 smdiv",
+                states["smdiv 2x2 rdma"], states["smdiv"], bit_exact=True)
+    if np.array_equal(states["smdiv"]["u"], states["S=1"]["u"]):
+        raise AssertionError("run_sim --namelist: smdiv changed nothing")
+    first, _, _ = checkpoint.load_checkpoint(tmp / "smdiv" / "step_000001")
+    got = embed_checkpoint(case, first)
+    gold = rk3_golden_native(case, 4, case.dts * 4, "stage", smdiv=SMDIV)
+    check_state("run_sim smdiv, large step 1 vs the oracle's RK3", got,
+                {k: gold[k] for k in got}, tol=DRIVER_TOL)
+    launches, _, eager = run_sim_launches(
+        tmp, fx, "smdiv_eager", *damped, "--kernel", "eager", steps=1)
+    if any(launches.values()):
+        raise AssertionError(f"run_sim --kernel eager launched {launches}")
+    check_state("run_sim smdiv --kernel eager vs cuda, 1 large step", eager,
+                first, tol=DRIVER_TOL)
+
+
+def run_driver(tag, *argv, device="cuda"):
     """``python -m wrf_tpu_torch.driver`` in this process, its report
     condensed to one line; raises unless it returns 0."""
     from wrf_tpu_torch import driver
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = driver.main([*map(str, argv), "--device", "cuda"])
+        rc = driver.main([*map(str, argv), "--device", device])
     text = buf.getvalue()
     timing = next((ln for ln in text.splitlines()
                    if ln.startswith("advance_mu_t [")), "")
@@ -1240,6 +1557,75 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
     return out
 
 
+def phase_capture_driver(tmp: Path, steps: int = 5, device="cuda"):
+    """``driver --dump-intermediates`` at the reference grid on the cuda,
+    eager and numpy tiers: the five files exist on each; the cuda tier's
+    equal, bit for bit, the captures of the same ``steps`` calls of K1's
+    plain version on the card; the cuda and eager tiers' agree with the
+    numpy tier's at the driver's gate away from rows 0 and J-1 (zero in the
+    cuda tier's).  Then the native CLI executable: built with g++ from
+    ``wrf_tpu_torch/native``, run on the same fixture, return code 0 and
+    ``diff=0`` on all eight report rows."""
+    import torch
+    from wrf_tpu_torch import driver, native
+    from wrf_tpu_torch.compare import compare
+    from wrf_tpu_torch.convert import arrays_from_numpy
+    from wrf_tpu_torch.io import codec, fixtures
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        CAPTURE_NAMES, advance_mu_t_fused_plain,
+    )
+
+    case = case_at(REF_GRID)
+    b = case.bounds
+    fx = fixtures.write_case(case, tmp / "capture_fx", steps=steps)
+    caps = {}
+    for tier in ("cuda", "eager", "numpy"):
+        d = tmp / f"dump_{tier}"
+        run_driver(f"{tier} --dump-intermediates", fx, "--tier", tier,
+                   "--dump-intermediates", d, device=device)
+        if sorted(f.name for f in d.iterdir()) != sorted(
+                f"{n}.bin" for n in CAPTURE_NAMES):
+            raise AssertionError(f"driver {tier} --dump-intermediates wrote "
+                                 f"{sorted(f.name for f in d.iterdir())}")
+        caps[tier] = {n: codec.read_field(
+            d / f"{n}.bin", b.shape3 if n.startswith("ww") else b.shape2)
+            for n in CAPTURE_NAMES}
+    # the same calls through K1's plain version
+    kw = case.kernel_kwargs()
+    arr = arrays_from_numpy({k: v for k, v in kw.items()
+                             if hasattr(v, "ndim")}, device)
+    i0, i1, j0, j1, k0, k1 = b.loop_bounds(case.flags)
+    static = dict(window=(i0, i1, j0, j1), k0=k0, k1=k1,
+                  kde=b.mem(b.kde, "k"),
+                  **{k: kw[k] for k in ("rdx", "rdy", "dts", "epssm")})
+    for step in range(steps):
+        out = advance_mu_t_fused_plain(**arr, **static,
+                                       capture=step == steps - 1)
+        arr.update({k: out[k] for k in ("ww", "mu", "t", "t_ave")})
+    check_bits(f"driver cuda --dump-intermediates vs plain, {steps} steps",
+               {n: torch.as_tensor(caps["cuda"][n]) for n in CAPTURE_NAMES},
+               {n: out[n].cpu() for n in CAPTURE_NAMES})
+    inner = slice(1, -1)
+    for tier in ("cuda", "eager"):
+        for n in CAPTURE_NAMES:
+            r = compare(caps[tier][n][inner], caps["numpy"][n][inner], n,
+                        rtol=driver.RTOL, atol_scale=driver.ATOL_SCALE)
+            print(f"[driver {tier} --dump-intermediates vs numpy] {r}")
+            if not r.passed:
+                raise AssertionError(f"{tier} capture vs numpy: {r}")
+
+    t0 = time.perf_counter()
+    exe = native.build_driver()
+    proc = subprocess.run([str(exe), str(fx)], capture_output=True, text=True,
+                          timeout=300)
+    print(f"[native driver] {exe.name} built and run in "
+          f"{time.perf_counter() - t0:.1f} s: rc={proc.returncode}, "
+          f"{proc.stdout.splitlines()[0] if proc.stdout else proc.stderr}")
+    if proc.returncode != 0 or proc.stdout.count("diff=0 ") != 8:
+        raise AssertionError(f"native driver: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+
+
 def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
                      **kw):
     """ms per substep of ShardedAdvanceMuT (the coupled SmallStepLoop with
@@ -1305,6 +1691,13 @@ LOOP_ROWS = {
         BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(nj, ni),
                                   halo_backend=backend))
        for nj, ni in ((2, 2), (4, 1)) for backend in ("ppermute", "rdma")},
+    # the same with divergence damping: mudf carried and exchanged
+    "coupled smdiv 512x512x50 S=1": (BIG_GRID, (65, 257),
+                                     dict(coupled=True, smdiv=SMDIV)),
+    **{f"coupled smdiv 512x512x50 mesh 2x2 {backend}": (
+        BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(2, 2),
+                                  halo_backend=backend, smdiv=SMDIV))
+       for backend in ("ppermute", "rdma")},
 }
 
 
@@ -1365,6 +1758,17 @@ def kernel_bounds():
         extra3, extra1 = (4, 5) if w else (0, 0)
         out["k1" + tag] = bound_ms(
             field_bytes(blk, 9 + extra3, 16, 4 + extra1), ops * cells)
+        if not w:
+            # damping reads one more 2-D field (mudf_in); the reference's
+            # plain full call reads ww_1, u, u_1, v, v_1, t, t_1, ft and
+            # writes ww, t, t_ave (11 passes), 9 2-D fields in and 4 out,
+            # and capture adds one 3-D and four 2-D writes
+            out["k1 smdiv"] = bound_ms(field_bytes(blk, 9, 17, 4),
+                                       (ops + 1) * cells)
+            out["k1 full"] = bound_ms(field_bytes(blk, 11, 13, 4),
+                                      ops * cells)
+            out["k1 capture"] = bound_ms(field_bytes(blk, 12, 17, 4),
+                                         ops * cells)
         for S in (2, 4, 8):
             ring = (blk[0] + 2 * (S - 1), K, blk[2])
             nb = field_bytes(ring, 9 + extra3, 11, 4 + extra1) / S
@@ -1396,6 +1800,8 @@ def main() -> int:
     k1_abs, k1_times = timed("k1 vs plain", phase_kernel_vs_plain, card=smi)
     _, k1w_times = timed("k1+w vs plain", phase_kernel_vs_plain, card=smi,
                          time_grids=(BIG_GRID,), with_w=True)
+    k1d_times = timed("k1 smdiv vs plain", phase_k1_damping, card=smi)
+    k1c_times = timed("k1 capture vs plain", phase_k1_capture, card=smi)
     k2_abs, k2_times = timed("k2 vs plain", phase_k2_vs_plain, card=smi)
     timed("k2 vs k1", phase_k2_vs_k1)
     k3_abs, k3_times = timed("k3 vs plain", phase_k3_vs_plain, card=smi)
@@ -1424,6 +1830,8 @@ def main() -> int:
                        steps=big_steps)
         sim = timed("run_sim slice", phase_slice, tmp, fx_big)
         drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
+        timed("driver --dump-intermediates and the native executable",
+              phase_capture_driver, tmp)
     loops = timed("loop timings", phase_loop_timings, card=smi)
     borrowed = [m for m in sys.modules
                 if m == "jax" or m == "wrf_tpu" or m.startswith("wrf_tpu.")]
@@ -1458,13 +1866,19 @@ def main() -> int:
     print("[loops mesh] marginal ms per substep (1x1: "
           f"{loops['coupled 512x512x50 S=1']:.4f}): "
           + ", ".join(f"{k.split('mesh ')[1]} {v:.4f}"
-                      for k, v in loops.items() if "mesh" in k))
+                      for k, v in loops.items()
+                      if "mesh" in k and "smdiv" not in k))
     shard_ms = mean(k1_shard[SHARD_GRID, "scan"]["cuda"])
     print(f"[loops mesh] K1 fused scan substep on one 2x2 shard's block "
           f"(259x50x259): {shard_ms:.4f} ms per launch, {4 * shard_ms:.4f} "
           f"for the four; on the whole 516x50x516 "
           f"{mean(k1_times[BIG_GRID, 'scan']['cuda']):.4f} ({smi})")
-    for run in ("S=1", "2x2 ppermute", "2x2 rdma"):
+    print("[loops smdiv] marginal ms per substep with divergence damping "
+          "(without): " + ", ".join(
+              f"{k.split('50 ')[1]} {v:.4f} "
+              f"({loops[k.replace(' smdiv', '')]:.4f})"
+              for k, v in loops.items() if "smdiv" in k) + f" ({smi})")
+    for run in ("S=1", "2x2 ppermute", "2x2 rdma", "smdiv", "smdiv 2x2 rdma"):
         print(f"[slice] run_sim {run}: step 3 alone {sim[run][1][2]:.3f} ms "
               f"({smi})")
 
@@ -1481,6 +1895,9 @@ def main() -> int:
             "run_sim --with-w": sim["S=1 +w"][0]["k1"],
             "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k1"],
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k1"],
+            "run_sim --namelist (smdiv 0.1)": sim["smdiv"][0]["k1"],
+            "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
+                sim["smdiv 2x2 rdma"][0]["k1"],
             "driver sharded-cuda S=8": drv["mu/t"]["k1"],
             "driver coupled S=4": drv["coupled"]["k1"],
             "driver coupled S=4 --with-w": drv["coupled +w"]["k1"]},
@@ -1497,6 +1914,26 @@ def main() -> int:
                    "bound_by": bounds["k1+w"][1],
                    "ms_by_mode": {m: ms_of(k1w_times, (BIG_GRID, m))
                                   for m in W_MODES}},
+        # the fused scan substep with divergence damping (mudf_in), beside
+        # the same call without, timed in one order; bit-equal to its
+        # plain version
+        "smdiv": {"launches": sim["smdiv"][0]["k1"],
+                  "ms": mean(k1d_times["scan"]["damped"]),
+                  "undamped_ms": mean(k1d_times["scan"]["undamped"]),
+                  "plain_ms": mean(k1d_times["scan"]["plain"]),
+                  "max_abs_err": 0.0,
+                  "bound_ms": bounds["k1 smdiv"][0],
+                  "bound_by": bounds["k1 smdiv"][1]},
+        # the reference's plain full call with the five phase-A captures,
+        # beside the same call without; the driver's cuda tier launches it
+        # once per --dump-intermediates run (and once in its warm-up)
+        "capture": {"ms": mean(k1c_times["full"]["with"]),
+                    "without_ms": mean(k1c_times["full"]["without"]),
+                    "plain_ms": mean(k1c_times["full"]["plain"]),
+                    "max_abs_err": 0.0,
+                    "bound_ms": bounds["k1 capture"][0],
+                    "bound_by": bounds["k1 capture"][1],
+                    "without_bound_ms": bounds["k1 full"][0]},
     }, {
         "name": "advance_mu_t_multistep",
         "route": "cuda",
@@ -1569,6 +2006,8 @@ def main() -> int:
         "launches": sim["2x2 rdma"][0]["k5"],
         "launches_by_path": {
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k5"],
+            "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
+                sim["smdiv 2x2 rdma"][0]["k5"],
             "SmallStepLoop 2x2 rdma, 5 substeps": k5_loop_launches},
         "max_abs_err": 0.0,
         # ms per launch (one shard's mu rows both ways and v row up, at the

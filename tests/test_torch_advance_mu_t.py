@@ -139,7 +139,6 @@ def test_in_place_contract(small_case):
 
 
 @pytest.mark.parametrize("unported", [
-    dict(smdiv=0.1, fuse_uv=True), dict(capture=True),
     dict(overlap={"axis_name": "j"}),
 ])
 def test_unported_modes_raise(small_case, unported):
@@ -196,3 +195,101 @@ def test_block_width_and_cs2():
     with pytest.raises(ValueError):
         k1.block_width(1000)
     assert PORT_CS2 == DEFAULT_CS2
+
+
+# ------------------------------------------ divergence damping (smdiv) ----
+def _mudf_in(arr, sc, static):
+    """A mass-divergence tendency of a realistic size: the mudf of an
+    undamped reference call on the same inputs."""
+    return _run_torch(arr, sc, static, {})["mudf"].copy()
+
+
+@pytest.mark.parametrize("mode", ["scan", "final"])
+@pytest.mark.parametrize("case_name",
+                         ["small_case", "periodic_case", "open_bc_case"])
+def test_damped_plain_matches_pallas(case_name, mode, request):
+    """p = cs2*mu + (cs2*smdiv)*mudf_in in the fused wind update."""
+    case = request.getfixturevalue(case_name)
+    arr, sc, static = _inputs(case)
+    mkw = dict(_mode_kwargs(mode, arr, sc, static),
+               mudf_in=_mudf_in(arr, sc, static), smdiv=0.1)
+    want = _run_jax(arr, sc, static, mkw)
+    got = _run_torch(arr, sc, static, mkw)
+    assert sorted(got) == sorted(want)
+    outputs_allclose(got, want)
+    undamped = _run_torch(arr, sc, static, {**mkw, "smdiv": 0.0})
+    assert not np.array_equal(got["u"], undamped["u"])
+    assert not np.array_equal(got["v"], undamped["v"])
+
+
+def test_damping_is_off_without_fuse_uv(small_case):
+    """As in the TPU wrapper: smdiv and mudf_in change nothing when the
+    wind update does not run in the kernel, and nothing raises."""
+    arr, sc, static = _inputs(small_case)
+    damp = dict(mudf_in=_mudf_in(arr, sc, static), smdiv=0.1)
+    got = _run_torch(arr, sc, static, damp)
+    want = _run_torch(arr, sc, static, {})
+    assert sorted(got) == sorted(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    ref = _run_jax(arr, sc, static, damp)
+    outputs_allclose(got, ref)
+
+
+def test_mudf_in_must_not_alias_ww_row(small_case):
+    arr, sc, static = _inputs(small_case)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    mkw = _mode_kwargs("final", arr, sc, static)
+    row = torch.tensor(mkw.pop("ww_row"))
+    with pytest.raises(ValueError, match="alias"):
+        k1.advance_mu_t_fused(**tarr, **sc, **static, **mkw, ww_row=row,
+                              mudf_in=row, smdiv=0.1)
+
+
+# --------------------------------------------- the phase-A capture --------
+@pytest.mark.parametrize("fuse_uv", [False, True])
+@pytest.mark.parametrize("case_name",
+                         ["small_case", "periodic_case", "open_bc_case"])
+def test_capture_matches_pallas(case_name, fuse_uv, request):
+    """The five *_before_theta outputs, and the ordinary ones beside them."""
+    case = request.getfixturevalue(case_name)
+    arr, sc, static = _inputs(case)
+    mkw = dict(capture=True)
+    if fuse_uv:
+        mkw.update(fuse_uv=True, cs2=DEFAULT_CS2)
+    want = _run_jax(arr, sc, static, mkw)
+    got = _run_torch(arr, sc, static, mkw)
+    assert set(k1.CAPTURE_NAMES) <= set(got)
+    assert sorted(got) == sorted(want)
+    outputs_allclose(got, want)
+
+
+def test_capture_equals_the_outputs(small_case):
+    """What the capture exists to show: phase B leaves the phase-A outputs
+    alone.  Rows 0 and J-1, never computed, are zero in the captures;
+    elsewhere ww and mu pass through outside the window."""
+    arr, sc, static = _inputs(small_case)
+    got = _run_torch(arr, sc, static, dict(capture=True))
+    for cap in k1.CAPTURE_NAMES:
+        out = cap.removesuffix("_before_theta")
+        np.testing.assert_array_equal(got[cap][1:-1], got[out][1:-1],
+                                      err_msg=cap)
+        assert (got[cap][0] == 0).all() and (got[cap][-1] == 0).all()
+        assert got[cap].dtype == np.float32
+    i0, _, j0, _ = static["window"]
+    assert j0 >= 2 and i0 >= 1
+    np.testing.assert_array_equal(got["ww_before_theta"][1], arr["ww"][1])
+    np.testing.assert_array_equal(got["mu_before_theta"][1], arr["mu"][1])
+    plain = _run_torch(arr, sc, static, {})
+    for name in plain:   # capture changes no ordinary output
+        np.testing.assert_array_equal(got[name], plain[name], err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["scan", "final"])
+def test_capture_requires_the_full_ww_path(small_case, mode):
+    arr, sc, static = _inputs(small_case)
+    mkw = _mode_kwargs(mode, arr, sc, static)
+    with pytest.raises(ValueError, match="capture requires"):
+        _run_torch(arr, sc, static, dict(mkw, capture=True))
+    with pytest.raises(ValueError, match="capture requires"):
+        _run_jax(arr, sc, static, dict(mkw, capture=True))

@@ -137,8 +137,14 @@ def test_eager_advance_uv_matches_jnp_and_numpy(case_name, request):
                                             smdiv=0.1)):
         np.testing.assert_array_equal(g, w)
     assert port_uv.uv_windows((1, 5, 2, 7)) == jax_uv.uv_windows((1, 5, 2, 7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_uv.advance_uv(**_tensors(args), smdiv=0.1)
+    # divergence damping in the eager op: (cs2*smdiv)*mudf joins the pressure
+    damp = dict(mudf=kw["mu_tend"], smdiv=0.1)
+    got_d = port_uv.advance_uv(**_tensors({**args, **damp}))
+    for want in (jax_uv.advance_uv_jnp(**args, **damp),
+                 port_uv.advance_uv_numpy(**args, **damp)):
+        for g, w in zip(got_d, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+    assert not torch.equal(got_d[0], got[0])
 
 
 # ------------------------------------------------ the Thomas precompute ----

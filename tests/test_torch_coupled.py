@@ -218,6 +218,8 @@ def test_wrapper_contract():
     for bad in (dict(ti=128), dict(overlap={"axis_name": "j"})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             k3.coupled_multistep(**tarr, **static, n_inner=S, **bad)
+    with pytest.raises(NotImplementedError, match="own \\(j, i\\) tiles"):
+        k3.coupled_multistep(**tarr, **static, n_inner=S, ti=128)
     tarr["t_1"] = tarr["t_1"].to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bf16"):
         k3.coupled_multistep(**tarr, **static, n_inner=S)
@@ -301,7 +303,6 @@ def test_rk3_blocked_matches_jax():
     (dict(inner_steps=0), ValueError),
     (dict(fast=True), ValueError),
     (dict(inner_steps=2, smdiv=0.1), ValueError),
-    (dict(smdiv=0.1), NotImplementedError),
     (dict(kernel="pallas"), ValueError),
 ])
 def test_loop_argument_checks(bad, err):

@@ -102,7 +102,6 @@ def test_device_cuda_without_gpu_exits(fx9):
     ("--tier", "coupled", "--halo-backend", "rdma_overlap"),
     ("--precision", "bf16-const"),
     ("--tier", "coupled", "--mesh", "2x2", "--halo-backend", "rdma_overlap"),
-    ("--dump-intermediates", "dump"),
 ])
 def test_unported_options_exit(fx9, args):
     with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):

@@ -8,6 +8,10 @@
 //     v += dts*(muv*msfvx_inv)*(-rdy)*(p - p(j-1));
 //     otherwise the read-only winds are multiplied by wind_scale on load,
 //     before any differencing (the TPU kernel's association; 1 is exact);
+//   * divergence damping (a non-null mudf_in, under FUSE_UV): the previous
+//     substep's mass-divergence tendency stiffens the pressure,
+//     p = cs2*mu + dampc*mudf_in with dampc = cs2*smdiv rounded to float32
+//     by the caller, at all five points the wind update reads;
 //   * mass-flux divergence dvdxi and its column sum dmdt;
 //   * mu, mudf, muts and muave with epssm off-centering;
 //   * the seeded k-ascending ww scan (WW_MODE full / lite / final);
@@ -15,7 +19,10 @@
 //   * LEAN: the u_1/v_1 static fluxes and the ft / ww_1 theta terms arrive
 //     folded into two precomputed fields (dvdxi_const, tconst);
 //   * FUSE_W: the vertically-implicit w/pp substep, a per-column Thomas
-//     solve on this substep's new theta (csrc/w_solve.cuh).
+//     solve on this substep's new theta (csrc/w_solve.cuh);
+//   * capture (non-null cap_* pointers, WW_MODE full): the phase-A state
+//     between the mu/ww pass and the theta pass, written to five buffers of
+//     their own (muave, mu, mudf, muts, ww "before theta").
 // The plain PyTorch version of the same arithmetic is
 // advance_mu_t_fused_plain in wrf_tpu_torch/ops/advance_mu_t_cuda.py.
 //
@@ -41,12 +48,17 @@
 // Buffers: u, v and mu are read at neighbour columns and rows, and GPU
 // blocks run in no fixed order, so their updates go to fresh output
 // buffers; the caller hands those back as the next substep's inputs
-// (nothing is copied).  t, t_ave, ww and ww_row are read only at the
-// thread's own column, so they are updated in place; so are w and pp.
+// (nothing is copied).  The same holds for mudf under damping: mudf_in is
+// read at neighbour columns and rows while mudf is written, so the two are
+// different buffers, and a loop hands each substep's mudf back as the next
+// one's mudf_in.  t, t_ave, ww and ww_row are read only at the thread's own
+// column, so they are updated in place; so are w and pp.
 //
 // Edges: rows 0 and J-1 are never computed.  There, and in every column
 // outside the compute window, the state passes through and muave, muts
-// and mudf are zero — the TPU kernel's contract.  The i-1 / i+1
+// and mudf are zero — the TPU kernel's contract.  The captures follow
+// their outputs (ww and mu pass through outside the window and the k
+// range), except that rows 0 and J-1 of all five are zero.  The i-1 / i+1
 // neighbours wrap around the row as the TPU kernel's lane rolls do; the
 // window masks make the wrapped values unused.
 //
@@ -87,6 +99,7 @@ struct Args {
   const float* dvdxi_const;
   // 2-D fields (J, I)
   const float* mu;
+  const float* mudf_in;  // divergence damping (FUSE_UV); NULL: off
   const float* mut;
   const float* muu;
   const float* muv;
@@ -117,7 +130,13 @@ struct Args {
   float* mudf;
   float* u_out;
   float* v_out;
-  float rdx, rdy, dts, epssm, cs2, wind_scale;
+  // phase-A captures (WW_MODE full), all five or none; NULL: off
+  float* cap_muave;
+  float* cap_mu;
+  float* cap_mudf;
+  float* cap_muts;
+  float* cap_ww;
+  float rdx, rdy, dts, epssm, cs2, dampc, wind_scale;
   float c_w, g_t, beta, alfa;  // FUSE_W scalars
   int J, K, I;
   int i0, i1, j0, j1;  // compute window, global coordinates
@@ -125,7 +144,11 @@ struct Args {
   int k0, k1;
 };
 
-template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W>
+// DAMP and CAPTURE are template flags, not tests of the pointers, so that
+// the instances without them compile to what they were before the two
+// forms existed (a run-time branch cost the FUSE_W scan substep 9 %).
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W,
+          bool DAMP, bool CAPTURE>
 __global__ void __launch_bounds__(128)
 advance_mu_t_kernel(const Args a) {
   extern __shared__ float s_dvdxi[];  // [K][blockDim.x]
@@ -155,6 +178,17 @@ advance_mu_t_kernel(const Args a) {
         a.v_out[x] = a.v[x];
       }
     }
+    if (CAPTURE) {  // the outputs' values; all zero on rows 0 and J-1
+      const bool edge = j < 1 || j > a.J - 2;
+      a.cap_muave[c] = 0.f;
+      a.cap_mu[c] = edge ? 0.f : a.mu[c];
+      a.cap_mudf[c] = 0.f;
+      a.cap_muts[c] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const size_t x = col + (size_t)k * I;
+        a.cap_ww[x] = edge ? 0.f : a.ww[x];
+      }
+    }
     return;
   }
 
@@ -175,11 +209,19 @@ advance_mu_t_kernel(const Args a) {
   float du_c = 0.f, du_e = 0.f, dv_c = 0.f, dv_n = 0.f;
   if (FUSE_UV) {
     const float cs2 = a.cs2;
-    const float p_c = cs2 * a.mu[c];
-    const float p_w = cs2 * a.mu[cw];
-    const float p_e = cs2 * a.mu[ce];
-    const float p_s = cs2 * a.mu[c - I];
-    const float p_n = cs2 * a.mu[c + I];
+    float p_c = cs2 * a.mu[c];
+    float p_w = cs2 * a.mu[cw];
+    float p_e = cs2 * a.mu[ce];
+    float p_s = cs2 * a.mu[c - I];
+    float p_n = cs2 * a.mu[c + I];
+    if (DAMP) {  // divergence damping: two roundings and a sum each
+      const float dampc = a.dampc;
+      p_c = p_c + dampc * a.mudf_in[c];
+      p_w = p_w + dampc * a.mudf_in[cw];
+      p_e = p_e + dampc * a.mudf_in[ce];
+      p_s = p_s + dampc * a.mudf_in[c - I];
+      p_n = p_n + dampc * a.mudf_in[c + I];
+    }
     const int ige = ip + a.i_off;
     const int jgn = jg + 1;
     if (ig >= a.i0 + 1 && ig <= a.i1)
@@ -230,8 +272,21 @@ advance_mu_t_kernel(const Args a) {
   const float mu_new = mu_c + dts * tend;
   a.mu_out[c] = mu_new;
   a.mudf[c] = tend;
-  a.muts[c] = a.mut[c] + mu_new;
-  a.muave[c] = 0.5f * ((1.0f + a.epssm) * mu_new + (1.0f - a.epssm) * mu_c);
+  const float muts_new = a.mut[c] + mu_new;
+  a.muts[c] = muts_new;
+  const float muave_new =
+      0.5f * ((1.0f + a.epssm) * mu_new + (1.0f - a.epssm) * mu_c);
+  a.muave[c] = muave_new;
+  if (CAPTURE) {
+    a.cap_muave[c] = muave_new;
+    a.cap_mu[c] = mu_new;
+    a.cap_mudf[c] = tend;
+    a.cap_muts[c] = muts_new;
+    for (int k = 0; k < K; ++k) {  // outside the k range ww passes through
+      const size_t x = col + (size_t)k * I;
+      if (k < k0 || k > k1) a.cap_ww[x] = a.ww[x];
+    }
+  }
 
   // ---- pass 2: ww scan and theta, k ascending ----------------------------
   const float msfty_c = a.msfty[c];
@@ -254,7 +309,11 @@ advance_mu_t_kernel(const Args a) {
   wsolve::Fwd wf;
   for (int k = k0; k <= k1; ++k) {
     const size_t x = col + (size_t)k * I;
-    if (WW_MODE != kLite) a.ww[x] = scan - a.ww_1[x];
+    if (WW_MODE != kLite) {
+      const float ww_new = scan - a.ww_1[x];
+      a.ww[x] = ww_new;
+      if (CAPTURE) a.cap_ww[x] = ww_new;  // beside theta, to its own buffer
+    }
     float scan_up = 0.f, t1_up = 0.f, wdtn_up = 0.f;  // level k+1 (0 above k1)
     if (k < k1) {
       scan_up = scan + (-a.dnw[k] * ((dmdt + s[k * bdx]) + mt)) * rmsfty;
@@ -291,39 +350,65 @@ advance_mu_t_kernel(const Args a) {
   if (FUSE_W) wsolve::w_backward(wc, a.w + col, a.pp + col, I, k0, k1, s, bdx);
 }
 
-template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W>
+template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W,
+          bool DAMP, bool CAPTURE = false>
 cudaError_t launch(const Args& a, int block_x, cudaStream_t stream) {
   const dim3 block(block_x);
   const dim3 grid((a.I + block_x - 1) / block_x, a.J);
   const size_t smem = (size_t)a.K * block_x * sizeof(float);
-  advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE, FUSE_W>
-      <<<grid, block, smem, stream>>>(a);
+  advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE, FUSE_W, DAMP,
+                      CAPTURE><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool FUSE_UV, bool FUSE_W>
+// the full-ww path, the only one that can capture (the entry checks)
+template <bool FUSE_UV, bool WITH_TAVE, bool FUSE_W, bool DAMP>
+cudaError_t launch_full(const Args& a, int block_x, cudaStream_t s) {
+  return a.cap_ww
+             ? launch<FUSE_UV, false, kFull, WITH_TAVE, FUSE_W, DAMP, true>(
+                   a, block_x, s)
+             : launch<FUSE_UV, false, kFull, WITH_TAVE, FUSE_W, DAMP>(
+                   a, block_x, s);
+}
+
+template <bool FUSE_UV, bool FUSE_W, bool DAMP>
 cudaError_t dispatch(const Args& a, int lean, int ww_mode, int with_tave,
                      int block_x, cudaStream_t s) {
   if (lean) {  // lean is a scan-substep mode: lite, no t_ave
     if (ww_mode != kLite || with_tave) return cudaErrorInvalidValue;
-    return launch<FUSE_UV, true, kLite, false, FUSE_W>(a, block_x, s);
+    return launch<FUSE_UV, true, kLite, false, FUSE_W, DAMP>(a, block_x, s);
   }
   switch (ww_mode * 2 + (with_tave ? 1 : 0)) {
     case kFull * 2:
-      return launch<FUSE_UV, false, kFull, false, FUSE_W>(a, block_x, s);
+      return launch_full<FUSE_UV, false, FUSE_W, DAMP>(a, block_x, s);
     case kFull * 2 + 1:
-      return launch<FUSE_UV, false, kFull, true, FUSE_W>(a, block_x, s);
+      return launch_full<FUSE_UV, true, FUSE_W, DAMP>(a, block_x, s);
     case kLite * 2:
-      return launch<FUSE_UV, false, kLite, false, FUSE_W>(a, block_x, s);
+      return launch<FUSE_UV, false, kLite, false, FUSE_W, DAMP>(a, block_x, s);
     case kLite * 2 + 1:
-      return launch<FUSE_UV, false, kLite, true, FUSE_W>(a, block_x, s);
+      return launch<FUSE_UV, false, kLite, true, FUSE_W, DAMP>(a, block_x, s);
     case kFinal * 2:
-      return launch<FUSE_UV, false, kFinal, false, FUSE_W>(a, block_x, s);
+      return launch<FUSE_UV, false, kFinal, false, FUSE_W, DAMP>(a, block_x,
+                                                                 s);
     case kFinal * 2 + 1:
-      return launch<FUSE_UV, false, kFinal, true, FUSE_W>(a, block_x, s);
+      return launch<FUSE_UV, false, kFinal, true, FUSE_W, DAMP>(a, block_x,
+                                                                s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// damping exists only under the fused wind update (the entry checks)
+template <bool FUSE_W>
+cudaError_t dispatch_uv(const Args& a, int fuse_uv, int lean, int ww_mode,
+                        int with_tave, int block_x, cudaStream_t s) {
+  if (!fuse_uv)
+    return dispatch<false, FUSE_W, false>(a, lean, ww_mode, with_tave,
+                                          block_x, s);
+  return a.mudf_in ? dispatch<true, FUSE_W, true>(a, lean, ww_mode, with_tave,
+                                                  block_x, s)
+                   : dispatch<true, FUSE_W, false>(a, lean, ww_mode,
+                                                   with_tave, block_x, s);
 }
 
 }  // namespace
@@ -336,7 +421,8 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
     const float* v, const float* v_1, float* t, const float* t_1,
     float* t_ave, const float* ft, const float* tconst,
     const float* dvdxi_const,
-    const float* mu, const float* mut, const float* muu, const float* muv,
+    const float* mu, const float* mudf_in, const float* mut,
+    const float* muu, const float* muv,
     const float* mu_tend, const float* msfuy, const float* msfvx_inv,
     const float* msftx, const float* msfty, float* ww_row,
     const float* ww1_k0,
@@ -345,7 +431,9 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
     const float* denv, const float* crdn, const float* erdn,
     float* mu_out, float* muave, float* muts, float* mudf, float* u_out,
     float* v_out,
-    float rdx, float rdy, float dts, float epssm, float cs2,
+    float* cap_muave, float* cap_mu, float* cap_mudf, float* cap_muts,
+    float* cap_ww,
+    float rdx, float rdy, float dts, float epssm, float cs2, float dampc,
     float wind_scale, float c_w, float g_t, float beta, float alfa,
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
     int i_off, int k0, int k1,
@@ -354,23 +442,31 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
   if (J < 3 || K < 1 || I < 1 || k0 < 0 || k1 >= K || k0 > k1 ||
       block_x < 1 || block_x > 128)
     return cudaErrorInvalidValue;
+  // damping belongs to the fused wind update; the captures come all five
+  // together and only on the full-ww path; mudf_in is read at neighbour
+  // columns while mudf is written
+  if ((mudf_in && !fuse_uv) || (mudf_in && mudf_in == mudf))
+    return cudaErrorInvalidValue;
+  const int n_cap = (cap_muave != nullptr) + (cap_mu != nullptr) +
+                    (cap_mudf != nullptr) + (cap_muts != nullptr) +
+                    (cap_ww != nullptr);
+  if ((n_cap != 0 && n_cap != 5) || (n_cap && (ww_mode != kFull || lean)))
+    return cudaErrorInvalidValue;
   const Args a{ww, ww_1, u, u_1, v, v_1, t, t_1, t_ave, ft, tconst,
-               dvdxi_const, mu, mut, muu, muv, mu_tend, msfuy, msfvx_inv,
+               dvdxi_const, mu, mudf_in, mut, muu, muv, mu_tend, msfuy,
+               msfvx_inv,
                msftx, msfty, ww_row, ww1_k0, dnw, fnm, fnp, rdnw,
                w, pp, aw, cpv, denv, crdn, erdn,
                mu_out, muave, muts, mudf, u_out, v_out,
-               rdx, rdy, dts, epssm, cs2, wind_scale, c_w, g_t, beta, alfa,
+               cap_muave, cap_mu, cap_mudf, cap_muts, cap_ww,
+               rdx, rdy, dts, epssm, cs2, dampc, wind_scale, c_w, g_t, beta,
+               alfa,
                J, K, I, i0, i1, j0, j1, j_off, i_off, k0, k1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (fuse_w) {
-    err = fuse_uv
-              ? dispatch<true, true>(a, lean, ww_mode, with_tave, block_x, s)
-              : dispatch<false, true>(a, lean, ww_mode, with_tave, block_x, s);
-  } else {
-    err = fuse_uv
-              ? dispatch<true, false>(a, lean, ww_mode, with_tave, block_x, s)
-              : dispatch<false, false>(a, lean, ww_mode, with_tave, block_x, s);
-  }
+  const cudaError_t err =
+      fuse_w ? dispatch_uv<true>(a, fuse_uv, lean, ww_mode, with_tave,
+                                 block_x, s)
+             : dispatch_uv<false>(a, fuse_uv, lean, ww_mode, with_tave,
+                                  block_x, s);
   return static_cast<int>(err);
 }

@@ -9,6 +9,7 @@ Usage:
     python -m wrf_tpu_torch.driver FIXTURE_DIR [--steps N] [--tier T]
         [--inner-steps S] [--fast] [--with-w] [--device cuda|cpu]
         [--mesh JxI] [--halo-backend ppermute|rdma]
+        [--dump-intermediates DIR]
 
 Tiers (the JAX tier each replaces in brackets): numpy (golden path) and
 native (C++ oracle), both without torch; eager [xla] (whole-array PyTorch,
@@ -29,7 +30,20 @@ coupled-native+w).
 ``J*I`` shards (the visible CUDA devices in order, wrapping round when
 there are fewer: several shards may share one card), and
 ``--halo-backend rdma`` gives the coupled tiers' per-substep j exchange to
-the hand-written kernel (K5).
+the hand-written kernel (K5).  With ``--tier all`` the backend also
+reaches the unblocked coupled rows of the matrix, which ``wrf_tpu.driver``
+runs on ``ppermute`` whatever the flag says: the port's matrix checks more.
+
+``--dump-intermediates DIR`` (tiers numpy, native, eager and cuda) writes
+the last step's five phase-A snapshots, ``muave_``, ``mu_``, ``mudf_``,
+``muts_`` and ``ww_before_theta.bin``, in the fixture binary format: what
+advance_mu_t holds between its mu/ww pass and its theta pass, for
+phase-by-phase bisection of a numerical divergence.  The cuda tier's come
+from the kernel itself (K1's ``capture``) and are zero on the memory
+window's first and last rows, which that kernel never computes.
+
+The native tier's own CLI is the C++ executable
+``wrf_tpu_torch.native.build_driver()`` builds (``driver.cc``).
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.  The options of
@@ -43,15 +57,16 @@ import argparse
 import functools
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 from . import native
 from .compare import compare
 from .convert import arrays_from_numpy, arrays_to_numpy
-from .io import fixtures
+from .io import codec, fixtures
 from .models.small_step import SmallStepLoop, small_step_golden
-from .ops.advance_mu_t_cuda import advance_mu_t_fused
+from .ops.advance_mu_t_cuda import CAPTURE_NAMES, advance_mu_t_fused
 from .ops.advance_mu_t_eager import advance_mu_t_core, window_masks
 from .ops.advance_uv import DEFAULT_CS2
 from .ops.advance_w import DEFAULT_CW, DEFAULT_GW
@@ -79,6 +94,9 @@ ATOL_SCALE = 1e-5
 TIERS = ("numpy", "native", "eager", "cuda", "sharded-eager",
          "sharded-cuda", "coupled", "coupled-eager", "coupled-native")
 
+#: the tiers that can write the phase-A snapshots (--dump-intermediates)
+CAPTURE_TIERS = ("numpy", "native", "eager", "cuda")
+
 #: the tiers that run the coupled loop (and so honour --with-w)
 COUPLED_TIERS = ("coupled", "coupled-eager", "coupled-native")
 
@@ -94,9 +112,7 @@ _STATE = ("ww", "mu", "t", "t_ave")
 
 #: options of wrf_tpu.driver not ported yet: (flag, default, ROADMAP item)
 _NOT_PORTED = (
-    ("--precision", "f32", "'bf16 constant streams'"),
-    ("--dump-intermediates", None,
-     "'Driver tier matrix and phase capture'"),
+    ("--precision", "f32", "M3, 'bf16 constant streams'"),
 )
 
 
@@ -107,7 +123,7 @@ def _sync(device: torch.device) -> None:
 
 def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
              fast: bool = False, with_w: bool = False, mesh=None,
-             halo_backend: str = "ppermute"):
+             halo_backend: str = "ppermute", capture: bool = False):
     """Run ``steps`` small steps on the chosen tier; returns
     ``(outputs, seconds, golden_override)`` — ``golden_override`` is None
     for tiers verified against the fixture goldens, or the numpy golden
@@ -115,6 +131,8 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
     ``with_w`` (coupled tiers only) adds the w/pp substep and its fields;
     ``mesh`` (a :class:`~wrf_tpu_torch.parallel.mesh.Mesh`) decomposes the
     loop tiers, and ``halo_backend`` picks the coupled loop's exchange.
+    ``capture`` (the :data:`CAPTURE_TIERS`) adds the last step's five
+    ``*_before_theta`` snapshots to the outputs.
 
     The timed window covers the step calls and the readback of the
     outputs, after one untimed warm-up run (the first launch builds the
@@ -162,8 +180,9 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
         state = {k: kw[k] for k in _STATE}
         out = dict(state)
         t0 = time.perf_counter()
-        for _ in range(steps):
-            out = fn(**{**kw, **state})
+        for s in range(steps):
+            cap = capture and s == steps - 1   # the last step's phase A
+            out = fn(**{**kw, **state}, capture_intermediates=cap)
             state = {k: out[k] for k in _STATE}
         return out, time.perf_counter() - t0, None
 
@@ -183,7 +202,7 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
                                  device=device, mesh=mesh)
         gold = None
     elif tier in ("eager", "cuda"):
-        return _run_single_tile(case, steps, tier, device)
+        return _run_single_tile(case, steps, tier, device, capture)
     else:
         raise SystemExit(f"unknown tier {tier!r}")
     run = functools.partial(
@@ -200,9 +219,10 @@ def run_tier(case, steps: int, tier: str, device, inner_steps: int = 1,
     return embed_outputs(case, out), dt, gold
 
 
-def _run_single_tile(case, steps, tier, device):
+def _run_single_tile(case, steps, tier, device, capture=False):
     """eager / cuda: one advance_mu_t call per step on the memory-window
-    arrays (the reference's own call), state carried on the device."""
+    arrays (the reference's own call), state carried on the device;
+    ``capture``: the last step also returns its phase-A snapshots."""
     b, flags = case.bounds, case.flags
     kw = case.kernel_kwargs()
     i0, i1, j0, j1, k0, k1 = b.loop_bounds(flags)
@@ -210,25 +230,27 @@ def _run_single_tile(case, steps, tier, device):
     arr = arrays_from_numpy({k: v for k, v in kw.items()
                              if hasattr(v, "ndim")}, device)
     if tier == "cuda":
-        def step(ins):
+        def step(ins, cap=False):
             return advance_mu_t_fused(**ins, **sc, window=(i0, i1, j0, j1),
-                                      k0=k0, k1=k1, kde=b.mem(b.kde, "k"))
+                                      k0=k0, k1=k1, kde=b.mem(b.kde, "k"),
+                                      capture=cap)
     else:
         i_mask, j_mask = (torch.as_tensor(m, device=device)
                           for m in window_masks(b, flags))
 
-        def step(ins):
+        def step(ins, cap=False):
             return advance_mu_t_core(**ins, **sc, i_mask=i_mask,
                                      j_mask=j_mask, k0=k0, k1=k1,
-                                     kde=b.mem(b.kde, "k"))
+                                     kde=b.mem(b.kde, "k"),
+                                     capture_intermediates=cap)
 
     # warm-up on copies: K1 updates t, t_ave and ww in place
-    step({**arr, **{k: arr[k].clone() for k in _STATE}})
+    step({**arr, **{k: arr[k].clone() for k in _STATE}}, capture)
     _sync(device)
     state = {k: arr[k] for k in _STATE}
     t0 = time.perf_counter()
-    for _ in range(steps):
-        out = step({**arr, **state})
+    for s in range(steps):
+        out = step({**arr, **state}, capture and s == steps - 1)
         state = {k: out[k] for k in _STATE}
     out = arrays_to_numpy(out)
     return out, time.perf_counter() - t0, None
@@ -266,6 +288,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="coupled-tier per-substep halo exchange backend "
                         "(SmallStepLoop docstring); rdma_overlap is not yet "
                         "ported")
+    p.add_argument("--dump-intermediates", default=None, metavar="DIR",
+                   help="write *_before_theta.bin phase-A captures of the "
+                        "final substep (numpy, native, eager and cuda tiers)")
     for flag, default, _ in _NOT_PORTED:
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help="not yet ported")
@@ -324,6 +349,9 @@ def main(argv=None) -> int:
     if args.halo_backend != "ppermute" and not (
             args.tier.startswith("coupled") or args.tier == "all"):
         p.error("--halo-backend applies to the coupled tiers")
+    if args.dump_intermediates and args.tier not in CAPTURE_TIERS:
+        p.error("--dump-intermediates requires a capture-capable tier "
+                "(numpy, native, eager, cuda)")
     _reject_not_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -352,7 +380,13 @@ def main(argv=None) -> int:
                                       inner_steps=args.inner_steps,
                                       fast=args.fast, with_w=args.with_w,
                                       mesh=mesh,
-                                      halo_backend=args.halo_backend)
+                                      halo_backend=args.halo_backend,
+                                      capture=bool(args.dump_intermediates))
+    if args.dump_intermediates:
+        d = Path(args.dump_intermediates)
+        d.mkdir(parents=True, exist_ok=True)
+        for name in CAPTURE_NAMES:
+            codec.write_field(d / f"{name}.bin", out[name])
     b = case.bounds
     n_pts = (b.ide - b.ids) * (b.jde - b.jds) * b.kdim * steps
     print(f"advance_mu_t [{args.tier}]: {steps} step(s) in {dt * 1e3:.3f} ms "

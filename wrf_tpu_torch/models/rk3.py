@@ -15,8 +15,10 @@ stage-start state (``u_1 := u`` etc.), the degenerate shell ``run_sim``
 runs without a closure.  ``inner_steps`` and ``fast`` pass to every
 stage's loop (a stage too short to block runs K1 only); ``with_w`` adds
 the vertically-implicit w/pp substep to every substep, and w and pp join
-the evolved state.  ``mesh`` and ``halo_backend`` pass to every stage's
-loop too, except that a stage whose blocked path engages under ``rdma``
+the evolved state; ``smdiv`` turns on divergence damping in every stage's
+loop (each stage starts from a zero ``mudf``).  ``mesh`` and
+``halo_backend`` pass to every stage's loop too, except that a stage whose
+blocked path engages under ``rdma``
 downgrades to the width-S ppermute refresh, loudly (there is no width-S
 exchange kernel).  The slow-tendency hook (``tendency_fn``), the closures
 that use it and the device-resident ``multi_step`` are not ported yet.
@@ -52,7 +54,7 @@ class RK3Integrator:
                  acoustic_steps: int = 6, kernel: str = "cuda",
                  snapshot: str = "base", device="cuda",
                  inner_steps: int = 1, fast: bool = False,
-                 with_w: bool = False, *, mesh=None,
+                 with_w: bool = False, smdiv: float = 0.0, *, mesh=None,
                  halo_backend: str = "ppermute"):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
@@ -78,7 +80,7 @@ class RK3Integrator:
         self.loops = [
             SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
                           device=device, inner_steps=inner_steps, fast=fast,
-                          with_w=with_w, mesh=mesh,
+                          with_w=with_w, smdiv=smdiv, mesh=mesh,
                           halo_backend=stage_backend(n_sub))
             for (_, n_sub) in self.stages
         ]

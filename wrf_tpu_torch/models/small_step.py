@@ -15,6 +15,9 @@ inside the kernel (``fuse_w``), and w and pp join the carried state.
 On a mesh the fields a substep changes and a neighbour reads are
 exchanged before every substep: mu in j and i and v in j (u's halo lanes
 self-maintain: the kernel recomputes them from the fresh mu halo).
+With ``smdiv`` (divergence damping) the previous substep's ``mudf`` joins
+the carried state, zero on the first substep, is refreshed wherever mu is
+and feeds the wind update's pressure as ``mudf_in``.
 ``halo_backend="ppermute"`` copies the rows between the blocks
 (``parallel/halo.py``); ``"rdma"`` moves every j-halo row of a substep
 with one launch per shard of the hand-written exchange kernel (K5,
@@ -79,13 +82,15 @@ HALO_BACKENDS = ("ppermute", "rdma", "rdma_overlap")
 
 def small_step_golden(case, steps: int, cs2: float = DEFAULT_CS2,
                       with_w: bool = False,
-                      cw: float = DEFAULT_CW, gw: float = DEFAULT_GW):
+                      cw: float = DEFAULT_CW, gw: float = DEFAULT_GW,
+                      smdiv: float = 0.0):
     """Golden-path acoustic loop on memory-window arrays (single tile):
     each substep the numpy wind update, then ``advance_mu_t_numpy`` and,
     with ``with_w``, the vertically-implicit w/pp substep
     (``advance_w_numpy``) on the theta field the mu/t substep just
-    produced (``wrf_tpu.models.small_step.small_step_golden`` without
-    divergence damping)."""
+    produced.  With ``smdiv`` the wind update applies divergence damping
+    from the previous substep's mudf (zero on the first substep).  The
+    port of ``wrf_tpu.models.small_step.small_step_golden``."""
     kw = case.kernel_kwargs()
     i0, i1, j0, j1, k0, k1 = case.bounds.loop_bounds(case.flags)
     window = (i0, i1, j0, j1)
@@ -95,18 +100,21 @@ def small_step_golden(case, steps: int, cs2: float = DEFAULT_CS2,
         f = case.fields
         wst = {"w": np.asarray(f["grid_w"]), "pp": np.asarray(f["grid_pp"])}
         rdn = np.asarray(f["grid_rdn"])
+    mudf_prev = np.zeros_like(np.asarray(kw["mu"])) if smdiv else None
     for _ in range(steps):
         u, v = advance_uv_numpy(
             u=state["u"], v=state["v"], mu=state["mu"], muu=kw["muu"],
             muv=kw["muv"], msfuy=kw["msfuy"], msfvx_inv=kw["msfvx_inv"],
             rdx=kw["rdx"], rdy=kw["rdy"], dts=kw["dts"],
-            window=window, cs2=cs2)
+            window=window, cs2=cs2, mudf=mudf_prev, smdiv=smdiv)
         out = advance_mu_t_numpy(**{**kw, **state, "u": u, "v": v})
         if with_w:
             wst["w"], wst["pp"] = advance_w_numpy(
                 w=wst["w"], pp=wst["pp"], t=out["t"], rdn=rdn,
                 rdnw=kw["rdnw"], dts=kw["dts"], epssm=kw["epssm"],
                 window=window, k0=k0, k1=k1, cw=cw, gw=gw)
+        if smdiv:
+            mudf_prev = out["mudf"]
         state = {**{k: out[k] for k in ("ww", "mu", "t", "t_ave")},
                  "u": u, "v": v}
     res = {**out, "u": state["u"], "v": state["v"]}
@@ -134,8 +142,10 @@ class SmallStepLoop:
     per K3 launch; ``fast`` runs those launches in K3's fast mode (a
     tolerance, not bits).  ``with_w`` adds the vertically-implicit w/pp
     substep to every substep (``fuse_w`` in the kernels), with the
-    linearized coefficients ``cw`` and ``gw``.  Divergence damping
-    (``smdiv``) is not ported yet.
+    linearized coefficients ``cw`` and ``gw``.  ``smdiv`` turns on
+    divergence damping in the wind update (K1's ``mudf_in``; the eager
+    ``advance_uv``'s ``mudf``); the blocked path does not carry it, so
+    ``inner_steps > 1`` with ``smdiv`` raises.
 
     ``halo_backend``:
 
@@ -189,10 +199,6 @@ class SmallStepLoop:
         if smdiv and inner_steps > 1:
             raise ValueError("inner_steps>1 does not support smdiv yet "
                              "(mudf would need its own extended rows)")
-        if smdiv:
-            raise NotImplementedError(
-                "SmallStepLoop: divergence damping (smdiv) is not ported yet "
-                "(ROADMAP.md, 'SmallStepLoop on one GPU', K1 slice (d))")
         self.device = torch.device(device)
         self._blocks = mesh is not None
         self.mesh = local_mesh(mesh, self.device)
@@ -214,6 +220,7 @@ class SmallStepLoop:
         self.inner_steps = inner_steps
         self.fast = fast
         self.cs2 = cs2
+        self.smdiv = smdiv
         self.with_w = with_w
         self.cw, self.gw = cw, gw
         self.halo_backend = halo_backend
@@ -227,7 +234,9 @@ class SmallStepLoop:
                       else remote_refresh_multi)
         self._extra = W_STATE + W_FIELDS_1D if with_w else ()
         self._names = FIELDS_3D + FIELDS_2D + FIELDS_1D + self._extra
-        self.carry_keys = CARRY_KEYS + (W_STATE if with_w else ())
+        self._damp = ("mudf",) if smdiv else ()
+        self.carry_keys = (CARRY_KEYS + (W_STATE if with_w else ())
+                           + self._damp)
         self.out_names = OUT_NAMES + (W_STATE if with_w else ())
 
     def prepare(self, arrays) -> dict:
@@ -283,15 +292,18 @@ class SmallStepLoop:
         """Before a K1 launch: mu changed in the previous substep, and the
         in-kernel wind update reads its i-1/j-1/j+1 neighbours; v's high
         halo row feeds the last row's j+1 mass flux (its low halo is never
-        read)."""
+        read).  Under damping mudf is read at the same points as mu: it
+        rides the same exchange (a third field of the one rdma launch)."""
         if not (self._j_sh or self._i_sh):
             return
-        mu = {c: st["mu"] for c, st in state.items()}
+        mu = [{c: st[k] for c, st in state.items()}
+              for k in ("mu",) + self._damp]
         if self._j_sh:
             v = {c: st["v"] for c, st in state.items()}
-            self._refresh_j([mu, v], n_loc[0], recv_only=("", "hi"))
+            self._refresh_j([mu[0], v] + mu[1:], n_loc[0],
+                            recv_only=("", "hi") + ("",) * len(self._damp))
         if self._i_sh:
-            self._refresh_i([mu], n_loc[1])
+            self._refresh_i(mu, n_loc[1])
 
     # ------------------------------------------------------------------
     # the fused path: K1 per substep, K3 per block of S
@@ -318,6 +330,8 @@ class SmallStepLoop:
                 common[c].update(fuse_w=True, cw=self.cw, gw=self.gw,
                                  thomas=thomas[dev])
             padded["ww_row"] = padded["ww"][:, k0, :].contiguous()
+            if self.smdiv:   # no divergence tendency before the first substep
+                padded["mudf"] = torch.zeros_like(padded["mu"])
         carry = self.carry_keys
         const = {c: {k: v for k, v in p.items() if k not in carry}
                  for c, p in local.items()}
@@ -331,15 +345,23 @@ class SmallStepLoop:
         if rem:
             lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
                        for c, p in local.items()}
+        def ins(c):
+            # the carried mudf is the kernel's mudf_in; its mudf output, a
+            # fresh buffer, is the next substep's (nothing is copied)
+            st = dict(state[c])
+            if self.smdiv:
+                st.update(mudf_in=st.pop("mudf"), smdiv=self.smdiv)
+            return st
+
         for _ in range(rem):
             self._refresh_fused(state, n_loc)
             for c in local:
-                out = self._step(**const[c], **state[c], **lean_kw[c],
+                out = self._step(**const[c], **ins(c), **lean_kw[c],
                                  **common[c], fuse_uv=True, with_tave=False,
                                  ww_mode="lite", lean=True)
                 state[c] = {k: out[k] for k in carry}
         self._refresh_fused(state, n_loc)
-        return {c: self._step(**const[c], **state[c], **common[c],
+        return {c: self._step(**const[c], **ins(c), **common[c],
                               fuse_uv=True, with_tave=True, ww_mode="final")
                 for c in local}
 
@@ -425,14 +447,17 @@ class SmallStepLoop:
         """Every substep as three whole-array calls per shard: the wind
         update, the mu/t substep and, with ``with_w``, the w/pp substep on
         its new theta (the JAX loop's ``kernel="xla"`` substep).  On a
-        mesh mu is refreshed before the wind update reads its neighbours,
-        and u and v after it (advance_mu_t reads u(i+1) and v(j+1))."""
+        mesh mu (and mudf under damping) is refreshed before the wind
+        update reads its neighbours, and u and v after it (advance_mu_t
+        reads u(i+1) and v(j+1))."""
         _, _, nz = self.domain
         i0, i1, j0, j1, k0, k1 = self.window
         nj_loc, ni_loc = n_loc
-        carry = STATE_KEYS + (W_STATE if self.with_w else ())
+        carry = STATE_KEYS + (W_STATE if self.with_w else ()) + self._damp
         masks, const, state = {}, {}, {}
         for c, padded in local.items():
+            if self.smdiv:
+                padded["mudf"] = torch.zeros_like(padded["mu"])
             J, _, I = padded["t"].shape
             dev = padded["t"].device
             i_idx = torch.arange(I, device=dev) + offs[c][1]
@@ -444,11 +469,12 @@ class SmallStepLoop:
             state[c] = {k: padded[k] for k in carry}
         outs = {c: dict(s) for c, s in state.items()}
         for _ in range(self.n_steps):
-            mu = {c: s["mu"] for c, s in state.items()}
+            mu = [{c: s[k] for c, s in state.items()}
+                  for k in ("mu",) + self._damp]
             if self._j_sh:
-                self._refresh_j([mu], nj_loc)
+                self._refresh_j(mu, nj_loc)
             if self._i_sh:
-                self._refresh_i([mu], ni_loc)
+                self._refresh_i(mu, ni_loc)
             u, v = {}, {}
             for c, s in state.items():
                 u[c], v[c] = advance_uv(
@@ -456,7 +482,8 @@ class SmallStepLoop:
                     muv=const[c]["muv"], msfuy=const[c]["msfuy"],
                     msfvx_inv=const[c]["msfvx_inv"], rdx=scalars["rdx"],
                     rdy=scalars["rdy"], dts=scalars["dts"],
-                    window=(i0, i1, j0, j1), offsets=offs[c], cs2=self.cs2)
+                    window=(i0, i1, j0, j1), offsets=offs[c], cs2=self.cs2,
+                    mudf=s.get("mudf"), smdiv=self.smdiv)
             if self._j_sh:
                 self._refresh_j([u, v], nj_loc)
             if self._i_sh:

@@ -6,7 +6,9 @@ with ``g++`` from the sources in this directory into the package's
 git-ignored ``_build/`` directory (beside the CUDA kernel library, see
 ``_build.py``), named by a hash of the sources and flags; the binding
 exposes the kernel and the comparator suite with numpy-array ergonomics.
-A missing compiler raises.
+The CLI verification driver (``driver.cc``: fixture -> N steps -> timing
+line -> per-field report) is built the same way into an executable,
+:func:`build_driver`.  A missing compiler raises.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-ffp-contract=off")
 LIB_SRCS = ("advance_mu_t.cc", "advance_uv.cc", "advance_w.cc", "compare.cc",
             "codec.cc")
+DRIVER_SRCS = ("driver.cc",)
 _HEADERS = ("wrf_tpu_native.h", "codec.h")
 _lib = None
 
@@ -64,19 +67,41 @@ class _CompareResult(ctypes.Structure):
     ]
 
 
-def library_path() -> Path:
-    """Where the oracle library for the current sources and flags lives."""
+def _hashed(sources: tuple[str, ...]) -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in LIB_SRCS + _HEADERS:
+    for name in sources + _HEADERS:
         h.update(name.encode())
         h.update((_DIR / name).read_bytes())
-    return BUILD_DIR / f"libwrf_tpu_torch_native_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the oracle library for the current sources and flags lives."""
+    return BUILD_DIR / f"libwrf_tpu_torch_native_{_hashed(LIB_SRCS)}.so"
+
+
+def driver_path() -> Path:
+    """Where the CLI driver executable for the current sources lives."""
+    digest = _hashed(DRIVER_SRCS + LIB_SRCS)
+    return BUILD_DIR / f"wrf_tpu_torch_driver_{digest}"
 
 
 def build(force: bool = False) -> Path:
     """Build the native library with ``$CXX`` (default ``g++``) unless the
     library for these sources exists."""
-    out = library_path()
+    return _compile(library_path(), LIB_SRCS, ("-shared",), force)
+
+
+def build_driver(force: bool = False) -> Path:
+    """Build the CLI verification driver (``wrf_tpu_torch_driver FIXTURE
+    [steps]``: the oracle's advance_mu_t for N steps, a timing line, then
+    every output field against the fixture's goldens) unless the executable
+    for these sources exists; returns its path."""
+    return _compile(driver_path(), DRIVER_SRCS + LIB_SRCS, (), force)
+
+
+def _compile(out: Path, sources: tuple[str, ...], link_flags: tuple[str, ...],
+             force: bool) -> Path:
     if out.exists() and not force:
         return out
     cxx = shutil.which(os.environ.get("CXX", "g++"))
@@ -86,8 +111,8 @@ def build(force: bool = False) -> Path:
             "oracle is built from wrf_tpu_torch/native at first use")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-shared", "-o", str(tmp),
-           *(str(_DIR / name) for name in LIB_SRCS)]
+    cmd = [cxx, *CXX_FLAGS, *link_flags, "-o", str(tmp),
+           *(str(_DIR / name) for name in sources)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               check=False)

@@ -76,8 +76,10 @@ def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
     if ti is not None:
-        raise _not_ported("ti (the TPU's 128-lane tiled layout; the CUDA "
-                          "kernel tiles (j, i) itself)", "§2, K3")
+        raise NotImplementedError(
+            "coupled_multistep: ti (the TPU's 128-lane tiled layout) is met "
+            f"by the kernel's own (j, i) tiles of {TILE}; pass no ti "
+            "(ROADMAP.md, §2, closed)")
     if overlap is not None:
         raise _not_ported("overlap", "modules to port: 'Multi-GPU "
                           "decomposition and halo backends'")

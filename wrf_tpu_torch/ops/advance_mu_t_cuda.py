@@ -18,7 +18,16 @@ wrapper's keyword contract and result dict for the modes ported so far:
 * ``fuse_w`` — the vertically-implicit w/pp substep (``ops/advance_w.py``)
   runs inside the kernel after theta, on this substep's new ``t``: a
   per-column Thomas solve with the coefficient vectors of
-  ``ops/thomas.py``.  It composes with every mode above.
+  ``ops/thomas.py``.  It composes with every mode above;
+* ``mudf_in``, ``smdiv`` — divergence damping of the fused wind update:
+  the pressure becomes ``p = cs2*mu + (cs2*smdiv)*mudf_in`` at the five
+  points the update reads, ``mudf_in`` being the previous substep's
+  ``mudf`` output.  Without ``fuse_uv`` damping is off whatever ``smdiv``
+  says, as in the TPU wrapper;
+* ``capture`` — five extra outputs ``muave_``, ``mu_``, ``mudf_``, ``muts_``
+  and ``ww_before_theta``: the phase-A state between the mu/ww pass and the
+  theta pass, in fresh buffers, zero on rows 0 and J-1 (``ww_mode="full"``
+  without ``lean`` only).
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
 hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
@@ -65,18 +74,27 @@ def _not_ported(what: str, item: str):
         f"to port: {item})")
 
 
-def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in, smdiv,
+#: the five phase-A outputs of ``capture`` (the 2-D ones, then ww's)
+CAPTURE_NAMES = ("muave_before_theta", "mu_before_theta",
+                 "mudf_before_theta", "muts_before_theta", "ww_before_theta")
+
+
+def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                  fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
                  ww_row, ww, lean, tconst, dvdxi_const, ww1_k0):
     """The TPU wrapper's argument checks, plus the modes not ported yet."""
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
-    if smdiv != 0.0 or mudf_in is not None:
-        raise _not_ported("divergence damping (smdiv / mudf_in)",
-                          "'SmallStepLoop on one GPU', K1 slice (d)")
-    if capture:
-        raise _not_ported("capture", "'Driver tier matrix and phase "
-                          "capture', K1 slice (e)")
+    if capture and (ww_mode != "full" or lean):
+        raise ValueError("capture requires the plain full-ww path "
+                         "(ww_mode='full', lean=False)")
+    if (mudf_in is not None and ww_row is not None
+            and mudf_in.untyped_storage().data_ptr()
+            == ww_row.untyped_storage().data_ptr()):
+        # mudf_in is read at neighbour columns and rows while ww_row is
+        # updated in place (the outputs are fresh buffers by construction)
+        raise ValueError("mudf_in must not alias ww_row, which is updated "
+                         "in place")
     if overlap is not None:
         raise _not_ported("overlap", "'Multi-GPU decomposition and halo "
                           "backends', K1 slice (f)")
@@ -137,9 +155,10 @@ def advance_mu_t_fused(
     tensors on one device.  Rows 0 and J-1 are never computed: state passes
     through there and ``muave``/``muts``/``mudf`` are zero.  Returns
     ``muave, muts, mudf, mu, t``, plus ``ww`` (full/final) or ``ww_row``
-    (lite), ``t_ave`` (with_tave), ``u``/``v`` (fuse_uv) and ``w``/``pp``
-    (fuse_w).  See the module docstring for which inputs are updated in
-    place.  ``thomas`` (not in the TPU contract) lets a loop pass the
+    (lite), ``t_ave`` (with_tave), ``u``/``v`` (fuse_uv), ``w``/``pp``
+    (fuse_w) and the five :data:`CAPTURE_NAMES` (capture).  See the module
+    docstring for which inputs are updated in place.  ``thomas`` (not in
+    the TPU contract) lets a loop pass the
     :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle it computed
     once; without it the wrapper computes the bundle from ``rdn``.
     """
@@ -147,7 +166,7 @@ def advance_mu_t_fused(
     _check_modes(tensors=(u, v, t, t_1, ww_1, u_1, v_1, ft, tconst,
                           dvdxi_const),
                  t_ave=t_ave, wind_scale=wind_scale, fuse_uv=fuse_uv,
-                 mudf_in=mudf_in, smdiv=smdiv, fuse_w=fuse_w, w=w, pp=pp,
+                 mudf_in=mudf_in, fuse_w=fuse_w, w=w, pp=pp,
                  rdn=rdn, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
@@ -160,7 +179,8 @@ def advance_mu_t_fused(
               t_ave=t_ave, offsets=offsets, wind_scale=wind_scale,
               fuse_uv=fuse_uv, cs2=cs2, with_tave=with_tave, ww_mode=ww_mode,
               ww_row=ww_row, lean=lean, tconst=tconst,
-              dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+              dvdxi_const=dvdxi_const, ww1_k0=ww1_k0, mudf_in=mudf_in,
+              smdiv=smdiv, capture=capture)
     if fuse_w:
         if thomas is None:
             thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
@@ -184,6 +204,7 @@ def advance_mu_t_fused_plain(
     lean: bool = False, tconst=None, dvdxi_const=None, ww1_k0=None,
     fuse_w: bool = False, w=None, pp=None, rdn=None, cw: float = 0.0,
     gw: float = 0.0, thomas: ThomasVectors | None = None,
+    mudf_in=None, smdiv: float = 0.0, capture: bool = False,
 ):
     """Whole-array PyTorch version of the kernel, on any device.
 
@@ -197,6 +218,9 @@ def advance_mu_t_fused_plain(
     :func:`advance_mu_t_fused`.
     """
     del kde   # API parity
+    if capture and (ww_mode != "full" or lean):
+        raise ValueError("capture requires the plain full-ww path "
+                         "(ww_mode='full', lean=False)")
     if fuse_w and thomas is None:
         if w is None or pp is None or rdn is None:
             raise ValueError("fuse_w requires w, pp and rdn")
@@ -237,6 +261,10 @@ def advance_mu_t_fused_plain(
         u, v = u * ws, v * ws
     if fuse_uv:
         p = cs2 * mu3
+        if mudf_in is not None and smdiv != 0.0:
+            # divergence damping: the previous substep's mass-divergence
+            # tendency stiffens the pressure (ops/advance_uv.py)
+            p = p + damp_coefficient(cs2, smdiv) * col(mudf_in)
         u_mask = (i_glob >= i0 + 1) & (i_glob <= i1) & j_in
         v_mask = i_in & (j_glob >= j0 + 1) & (j_glob <= j1)
         du = (dts * muu_over_msfuy * (-rdx)) * (p - torch.roll(p, 1, 2))
@@ -315,7 +343,22 @@ def advance_mu_t_fused_plain(
         w_new, pp_new = w_step_plain(w, pp, t_full, thomas, lev(rdnw),
                                      kmask, kint, mask, k0, k1)
         res["w"], res["pp"] = w.copy_(w_new), pp.copy_(pp_new)
+    if capture:
+        # the phase-A values the outputs hold, taken before theta; the
+        # never-computed rows 0 and J-1 are zero in all five
+        res.update(
+            muave_before_theta=muave[:, 0].clone(),
+            mu_before_theta=torch.where(computed, mu_val, 0.0)[:, 0],
+            mudf_before_theta=mudf[:, 0].clone(),
+            muts_before_theta=muts[:, 0].clone(),
+            ww_before_theta=torch.where(computed, ww_new, 0.0))
     return res
+
+
+def damp_coefficient(cs2, smdiv) -> float:
+    """``cs2 * smdiv`` as one float32 product: the damping coefficient the
+    kernel receives as a scalar (the TPU wrapper forms it the same way)."""
+    return float(np.float32(cs2) * np.float32(smdiv))
 
 
 def w_step_plain(w, pp, t_full, th: ThomasVectors, rdnw3, kmask_upd, kmask_w,
@@ -422,7 +465,7 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t
-        fn.argtypes = ([ctypes.c_void_p] * 40 + [ctypes.c_float] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 46 + [ctypes.c_float] * 11
                        + [ctypes.c_int] * 17 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
@@ -467,20 +510,23 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
             msfvx_inv, msftx, msfty, window, k0, k1, t_ave, offsets,
             wind_scale, fuse_uv, cs2, with_tave, ww_mode, ww_row, lean,
             tconst, dvdxi_const, ww1_k0, fuse_w=False, w=None, pp=None,
-            thomas=None):
+            thomas=None, mudf_in=None, smdiv=0.0, capture=False):
     global LAUNCHES
     J, K, I = t.shape
     dev = t.device
     if not (0 <= k0 <= k1 < K):
         raise ValueError(f"bad vertical bounds k0={k0}, k1={k1} for K={K}")
     shapes = {3: (J, K, I), 2: (J, I), 1: (K,)}
+    # without fuse_uv damping is off whatever smdiv says (the TPU wrapper)
+    use_damp = fuse_uv and mudf_in is not None and smdiv != 0.0
     fields = dict(
         ww=(ww, 3, ww_mode != "lite"), ww_1=(ww_1, 3, not lean),
         u=(u, 3, True), u_1=(u_1, 3, not lean), v=(v, 3, True),
         v_1=(v_1, 3, not lean), t=(t, 3, True), t_1=(t_1, 3, True),
         t_ave=(t_ave, 3, with_tave), ft=(ft, 3, not lean),
         tconst=(tconst, 3, lean), dvdxi_const=(dvdxi_const, 3, lean),
-        mu=(mu, 2, True), mut=(mut, 2, True), muu=(muu, 2, True),
+        mu=(mu, 2, True), mudf_in=(mudf_in, 2, use_damp),
+        mut=(mut, 2, True), muu=(muu, 2, True),
         muv=(muv, 2, True), mu_tend=(mu_tend, 2, True),
         msfuy=(msfuy, 2, True), msfvx_inv=(msfvx_inv, 2, True),
         msftx=(msftx, 2, True), msfty=(msfty, 2, True),
@@ -500,8 +546,13 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
     if fuse_uv:
         res["u"] = torch.empty_like(u)
         res["v"] = torch.empty_like(v)
+    if capture:   # fresh buffers; the kernel writes every element
+        for n in CAPTURE_NAMES:
+            res[n] = torch.empty(shapes[3 if n.startswith("ww") else 2],
+                                 dtype=torch.float32, device=dev)
     outs = [res[n].data_ptr() if n in res else None
-            for n in ("mu", "muave", "muts", "mudf", "u", "v")]
+            for n in ("mu", "muave", "muts", "mudf", "u", "v")
+            + CAPTURE_NAMES]
     i0, i1, j0, j1 = (int(x) for x in window)
     j_off, i_off = (int(x) for x in offsets)
     fn = _kernel()
@@ -509,6 +560,7 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, *outs,
                  _f32(rdx), _f32(rdy), _f32(dts), _f32(epssm), _f32(cs2),
+                 damp_coefficient(cs2, smdiv) if use_damp else 0.0,
                  _f32(wind_scale), *th_scalars, J, K, I, i0, i1, j0, j1,
                  j_off, i_off, int(k0), int(k1),
                  int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),

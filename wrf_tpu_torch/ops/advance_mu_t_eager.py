@@ -48,10 +48,15 @@ def advance_mu_t_impl(
     msfuy, msfvx_inv, msftx, msfty,
     i_mask, j_mask,     # (i,), (j,) bool tensors: the BC-aware window
     k0: int, k1: int, kde: int,
+    capture_intermediates: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One acoustic small step; returns new ``ww, mu, muave, muts, mudf, t,
     t_ave`` (fresh tensors; the inputs are not modified).  Cells outside
-    the window keep their input values (zeros for the pure outputs)."""
+    the window keep their input values (zeros for the pure outputs).  With
+    ``capture_intermediates`` the result also carries the five
+    ``*_before_theta`` phase-A snapshots, the values of the outputs they
+    are named after (nothing is zeroed: the edge treatment of
+    ``advance_mu_t_jnp``)."""
     del kde   # the fill range k0+1..k1 never reaches the domain top
     rdx, rdy, dts, epssm = (_f32(s) for s in (rdx, rdy, dts, epssm))
     K = t.shape[1]
@@ -90,6 +95,17 @@ def advance_mu_t_impl(
     ww_full = torch.cat([ww[:, :k0, :], ww_upd, ww[:, k1 + 1 :, :]], dim=1)
     ww_out = torch.where(mask2f, ww_full, ww)
 
+    # the phase-A outputs before the theta phase, for phase-by-phase
+    # bisection of a numerical divergence (the reference's mid-kernel
+    # "*_before_theta.bin" dumps)
+    captured = {}
+    if capture_intermediates:
+        captured = {"muave_before_theta": muave_out,
+                    "mu_before_theta": mu_out,
+                    "mudf_before_theta": mudf_out,
+                    "muts_before_theta": muts_out,
+                    "ww_before_theta": ww_out}
+
     # ---- Phase B: theta ---------------------------------------------------
     t_half = t + (msfty * dts)[:, None, :] * ft
     t_ave_out = torch.where(mask2f & k_window, t, t_ave)
@@ -109,7 +125,7 @@ def advance_mu_t_impl(
 
     return {"ww": ww_out, "mu": mu_out, "muave": muave_out,
             "muts": muts_out, "mudf": mudf_out, "t": t_out,
-            "t_ave": t_ave_out}
+            "t_ave": t_ave_out, **captured}
 
 
 #: the entry the tiers call: ``advance_mu_t_jnp.advance_mu_t_core`` is the

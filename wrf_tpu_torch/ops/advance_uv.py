@@ -32,7 +32,7 @@ ships no consumer — this closes that loop.
 
 Both a numpy golden implementation (FP-order exact, with the damping term)
 and a masked whole-array PyTorch implementation (:func:`advance_uv`, the
-eager tier; divergence damping not ported yet) are provided, verified
+eager tier, with the same damping term) are provided, verified
 against each other like every other kernel in the framework.  The fused
 kernels run the same update inside K1 and K3.
 """
@@ -94,11 +94,9 @@ def advance_uv(*, u, v, mu, muu, muv, msfuy, msfvx_inv,
     eager PyTorch; returns new ``(u, v)`` tensors.  The port of
     ``advance_uv_jnp``: ``window`` is in the global coordinates defined by
     ``offsets`` (the global index of local row/col 0); the i-1 / j-1
-    neighbours are rolls, and the wrapped edge cells are masked."""
-    if smdiv or mudf is not None:
-        raise NotImplementedError(
-            "advance_uv: divergence damping (smdiv / mudf) is not ported "
-            "yet (ROADMAP.md, 'SmallStepLoop on one GPU', K1 slice (d))")
+    neighbours are rolls, and the wrapped edge cells are masked.  With
+    ``mudf`` and a nonzero ``smdiv`` the pressure is
+    ``cs2*mu + (cs2*smdiv)*mudf`` (the numpy version's association)."""
     rdx, rdy, dts, cs2 = (float(F32(x)) for x in (rdx, rdy, dts, cs2))
     j_off, i_off = (int(x) for x in offsets)
     J, _, I = u.shape
@@ -108,6 +106,8 @@ def advance_uv(*, u, v, mu, muu, muv, msfuy, msfvx_inv,
     (ui0, ui1, uj0, uj1), (vi0, vi1, vj0, vj1) = uv_windows(window)
 
     p = cs2 * mu
+    if mudf is not None and smdiv:
+        p = p + float(F32(cs2) * F32(smdiv)) * mudf
     u_mask = (((i_idx >= ui0) & (i_idx <= ui1))[None, :]
               & ((j_idx >= uj0) & (j_idx <= uj1))[:, None])
     v_mask = (((i_idx >= vi0) & (i_idx <= vi1))[None, :]

@@ -5,13 +5,18 @@ path:
 
     python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
         [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
-        [--with-w] [--inner-steps S [--fast]] [--device cuda|cpu] \\
-        [--mesh JxI [--halo-backend ppermute|rdma]]
+        [--with-w] [--inner-steps S [--fast]] [--kernel cuda|eager] \\
+        [--device cuda|cpu] [--mesh JxI [--halo-backend ppermute|rdma]]
 
 * the grid/state comes from a fixture directory
   (``wrf_tpu_torch.io.fixtures``);
 * dynamics parameters come from the WRF namelist record (a JSON dict of
-  record fields or a namelist.input text file), else from the fixture;
+  record fields or a namelist.input text file), else from the fixture; a
+  record's ``smdiv`` turns on divergence damping in every substep (not
+  with ``--inner-steps`` > 1: the loop refuses it, as the JAX loop does);
+* ``--kernel cuda`` (the default; ``pallas`` is accepted as its name) runs
+  the fused kernels, ``--kernel eager`` (or ``xla``) three whole-array
+  PyTorch calls per substep with no hand-written kernel;
 * each large step is one RK3 triple over the acoustic loop, whose every
   substep is one launch of the fused CUDA kernel (K1), or, with
   ``--inner-steps S``, S scan substeps per launch of the coupled
@@ -57,15 +62,20 @@ from .parallel.sharded import case_to_domain
 _EVOLVED = RK3Integrator._EVOLVED
 
 #: options of wrf_tpu.run_sim not ported yet: (flag, default, ROADMAP item)
+_M5 = "M5, 'The closure and the device-resident large step'"
 _NOT_PORTED = (
-    ("--kernel", "pallas", "'Torch eager tier' (the xla tier)"),
-    ("--precision", "f32", "'bf16 constant streams'"),
-    ("--closure", "none", "'RK3, closure, run_sim and checkpoint'"),
-    ("--tau-steps", None, "'RK3, closure, run_sim and checkpoint'"),
-    ("--rayleigh-uv", None, "'RK3, closure, run_sim and checkpoint'"),
-    ("--steps-per-sync", 1, "'RK3, closure, run_sim and checkpoint'"),
-    ("--profile", None, "'Bench seam and ledger'"),
+    ("--precision", "f32", "M3, 'bf16 constant streams'"),
+    ("--closure", "none", _M5),
+    ("--tau-steps", None, _M5),
+    ("--rayleigh-uv", None, _M5),
+    ("--steps-per-sync", 1, _M5),
+    ("--profile", None, _M5),
 )
+
+#: --kernel values and the loop kernel each selects; the JAX CLI's names
+#: (pallas, xla) stand for their counterparts
+_KERNELS = {"cuda": "cuda", "eager": "eager", "pallas": "cuda",
+            "xla": "eager"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -91,6 +101,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--with-w", action="store_true",
                    help="also advance the vertically-implicit w/pp substep "
                         "(advance_w) every acoustic substep")
+    p.add_argument("--kernel", default="cuda", choices=list(_KERNELS),
+                   help="cuda: the fused kernels (K1, K3); eager: three "
+                        "whole-array PyTorch calls per substep; pallas and "
+                        "xla are accepted as their names")
     p.add_argument("--fast", action="store_true",
                    help="with --inner-steps: K3's fast mode (re-associated "
                         "float32 ww scan; a tolerance, not bits)")
@@ -143,11 +157,6 @@ def main(argv=None) -> int:
             rec = read_namelist(text)
         dyn = dynamics_params(rec)
         flags = dyn["flags"]
-        if dyn["smdiv"]:
-            raise SystemExit(
-                f"run_sim: smdiv={dyn['smdiv']} (divergence damping) is not "
-                "yet ported to wrf_tpu_torch (ROADMAP.md, 'SmallStepLoop on "
-                "one GPU', K1 slice (d))")
     else:
         dyn = dict(rdx=case.rdx, rdy=case.rdy, dts=case.dts,
                    epssm=case.epssm, smdiv=0.0, acoustic_steps=4,
@@ -162,9 +171,10 @@ def main(argv=None) -> int:
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     rk3 = RK3Integrator(nx, ny, nz, flags,
                         acoustic_steps=dyn["acoustic_steps"],
+                        kernel=_KERNELS[args.kernel],
                         snapshot="stage", device=device,
                         inner_steps=args.inner_steps, fast=args.fast,
-                        with_w=args.with_w, mesh=mesh,
+                        with_w=args.with_w, smdiv=dyn["smdiv"], mesh=mesh,
                         halo_backend=args.halo_backend)
 
     dom = {k: np.array(v, copy=True)
