@@ -41,6 +41,21 @@ not 0 and no result line is printed):
    512x512x50, without and with ``fuse_w`` (the ``different=`` counts,
    counted on the card; a nonzero count is held to rtol 2e-5, atol_scale
    1e-6);
+5b. K1's and K3's ``overlap`` (the j exchange inside the kernel) on the
+   shards' blocks a mesh loop builds, the halo rows (ring rows) of mu, v,
+   mudf_in (mu, u, v) in memory POISONED with 1e30: against the plain
+   version and against the same kernel on rows that the ``rdma`` (width-S
+   ``ppermute``) refresh restored, bit for bit: K1's scan and final
+   substep with and without ``fuse_w`` and ``smdiv``, K3 exact S=2, 4, 8
+   (fast S=4 against its plain version at rtol 2e-5, atol_scale 1e-6) with
+   and without ``fuse_w``, on rings of 1, 2 and 4 and on the (2,2) mesh at
+   74x61x32 under the three BCs and on (2,2) at 512x512x50, where one
+   shard's launch is timed with and without;
+5c. K1, K2, K3 and K4 with bf16 constant streams: against the plain
+   version on the same narrow inputs, against the float32 kernel on the
+   rounded inputs and a mixed set against its rounded inputs, all bit for
+   bit; a bf16 state operand must raise; at 512x512x50 every form the
+   loops run is timed beside its float32 form;
 6. K6, the copy kernel: each probe (ab, ab_plus1, aliased) equal to its
    plain version, also on an unaligned and on a ragged array; then the
    copy ceiling at 512x50x514, 1024x50x1502 and 516x50x516 with every
@@ -51,7 +66,8 @@ not 0 and no result line is printed):
    versions and against the ``ppermute`` refresh on rings of 1, 2, 4 and 8
    blocks and on a 2x2 mesh, all on the one card, at the 512x512x50 loop's
    row sizes (bit-equality); K5 per launch timed beside its plain version
-   and the ``ppermute`` refresh (``Tensor.copy_``);
+   and the ``ppermute`` refresh (``Tensor.copy_``), marginal ms between
+   two chain lengths on CUDA events with the host clock's reading beside;
 7b. the loops on a mesh at 512x512x50 (four shards on the one card): the
    coupled loop on (2,2) and (4,1) under ``ppermute`` and ``rdma``
    (bit-equal to each other; against the 1x1 loop at rtol 5e-5, atol_scale
@@ -59,9 +75,13 @@ not 0 and no result line is printed):
    S=4 on (2,2), 1x1 with ``force_exchange`` under both backends, and the
    mu/t loop on (2,2); with ``smdiv=0.1`` the 1x1 loop against the
    oracle's golden loop (rtol 5e-5, atol_scale 2e-6) and (2,2) and (4,1)
-   under both backends against it and each other bit for bit; K1 against
-   its plain version, and timed, at 259x50x259, one shard's block of the
-   2x2 mesh;
+   under both backends against it and each other bit for bit; under
+   ``rdma_overlap`` every one of these loops (S=1, ``smdiv``, ``with_w``,
+   blocked S=2 and S=4 on (2,2) and (4,1), 1x1 with ``force_exchange``)
+   equal to its ``ppermute`` and ``rdma`` twins and to 1x1 bit for bit,
+   with one K1 (K3) launch per shard per substep (block) and no K5
+   launch; K1 against its plain version, and timed, at 259x50x259, one
+   shard's block of the 2x2 mesh;
 7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
@@ -78,10 +98,16 @@ not 0 and no result line is printed):
    sets ``smdiv`` 0.1) K1 21 times, and with ``--mesh 2x2 --halo-backend
    rdma`` too K1 84 and K5 84 times, the mesh run equal to the 1x1 run bit
    for bit and the 1x1 run's first large step within the driver's gate
-   (rtol 1e-4, atol_scale 1e-5) of the oracle's damped RK3 step; one
-   large step of ``--kernel eager`` (no kernel
-   launched) within the same gate of the fused run; then one RK3 step at
-   74x61x32
+   (rtol 1e-4, atol_scale 1e-5) of the oracle's damped RK3 step; with
+   ``--mesh 2x2 --halo-backend rdma_overlap`` K1 84 times and K5 never
+   (plain and with ``--namelist``; with ``--inner-steps 2`` K1 60 and K3
+   12 times), step 3 equal to the ``rdma`` run's and the 1x1 run's bit for
+   bit; with ``--precision bf16-const`` (1x1, and once with ``--mesh 2x2
+   --halo-backend rdma_overlap``) the float32 runs' launches, large step
+   1 within 2e-2 of field scale of the float32 run's and the mesh run
+   equal to the 1x1 run bit for bit; one large step of ``--kernel eager``
+   (no kernel launched) within the driver's gate of the fused run; then
+   one RK3 step at 74x61x32
    against the oracle's RK3 golden, with and without ``inner_steps=2``
    (acoustic_steps 4 and 8), with and without ``with_w`` (the oracle
    composition advance_uv -> advance_mu_t -> advance_w) and with
@@ -91,8 +117,10 @@ not 0 and no result line is printed):
    --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
    --fast) for 100 steps under the three lateral BCs, coupled --with-w
    (S=1, 2, 4) and coupled-eager --with-w for 100 steps (specified BC),
-   coupled --mesh 2x2 --halo-backend rdma and sharded-cuda --mesh 2x2 for
-   100 steps under the three BCs,
+   coupled --mesh 2x2 --halo-backend rdma (and rdma_overlap) and
+   sharded-cuda --mesh 2x2 for 100 steps under the three BCs, sharded-cuda
+   and coupled with --precision bf16-const for 1 and 100 steps (specified
+   BC; gate 2e-2 of field scale),
    then the blocked main paths at 512x512x50: sharded-cuda --inner-steps 8
    for 17 steps (K2 4 launches, K1 2), coupled --inner-steps 4 for 9
    steps (K3 4 launches, K1 2) and the same with --with-w; every run
@@ -109,8 +137,14 @@ not 0 and no result line is printed):
     at n=65/257 and fast S=32 at n=129/513 at 512x512x50, exact S=8 at
     74x61x32; the coupled loop (``SmallStepLoop``) S=1, exact S=2, 4, 8
     and fast S=4 at n=65/257 at 512x512x50, with ``with_w`` S=1, 2, 4, and
-    on the (2,2) and (4,1) meshes under ``ppermute`` and ``rdma``, and
-    with ``smdiv=0.1`` on 1x1 and on (2,2) under both backends.
+    on the (2,2) and (4,1) meshes under ``ppermute``, ``rdma`` and
+    ``rdma_overlap``, with ``smdiv=0.1`` on 1x1 and on both meshes under
+    the three backends, blocked S=2 on (2,2) under ``ppermute`` and
+    ``rdma_overlap``, and both loops with bf16 constant streams; every row
+    on the host clock and on CUDA events;
+11. one ``torch.profiler`` trace per halo backend of the damped (2,2)
+    loop: per substep the device's busy share, the copy kernels, K1's and
+    K5's launches and K5's device time.
 
 The last three lines of standard output are the card's name and power
 limit (again), the kernel table ``{"kernels": [...]}`` (six kernels, each
@@ -850,23 +884,546 @@ def phase_k3_vs_k1(grid=BIG_GRID, S=4, with_w=False):
 
 def chain_marginal_ms(step, n1=20, n2=100, repeats=12):
     """Marginal ms per call of ``step(i)`` between chains of n1 and n2
-    calls (CUDA events, best of ``repeats`` each): the method of
-    ``measure_copy_gbps``, for the library yardstick."""
+    calls, best of ``repeats`` each: the method of ``measure_copy_gbps``.
+    Every chain is read on two clocks, CUDA events around it and the host
+    clock around it and the synchronise that ends it; returns ``(events_ms,
+    host_ms)``.  The two agree when the card is the bottleneck; the host
+    clock reads more when the chain is bound by what the host submits and
+    the events' own records wait behind it."""
     import torch
 
     def chain(n):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         start.record()
         for i in range(n):
             step(i)
         stop.record()
         stop.synchronize()
-        return start.elapsed_time(stop)
+        return start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
 
     chain(2)
-    best = {n: min(chain(n) for _ in range(repeats)) for n in (n1, n2)}
-    return (best[n2] - best[n1]) / (n2 - n1)
+    best = {n: [min(x) for x in zip(*(chain(n) for _ in range(repeats)))]
+            for n in (n1, n2)}
+    return tuple((b2 - b1) / (n2 - n1) for b1, b2 in zip(best[n1], best[n2]))
+
+
+POISON = 1e30
+#: the meshes the in-kernel exchange is checked on: a ring of one (the loop's
+#: ``force_exchange``: the neighbour is the shard itself), of two, of four,
+#: and two rings of two with sharded i (corners through the i refresh)
+OVERLAP_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+
+
+def loop_shards(case, shape, prepared, backend="rdma_overlap", **kw):
+    """A ``SmallStepLoop`` on a mesh of ``shape`` shards on the one card and
+    what its first substep starts from, built by the loop's own glue: the
+    loop, every shard's padded fields, the launches' common keywords, the
+    carried state and ``(nj_loc, ni_loc)``.  ``prepared``: a dict that
+    keeps the last layout's scattered arrays on the card (the loops leave
+    them alone)."""
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import (
+        case_to_domain, pad_local, shard_offsets,
+    )
+
+    b = case.bounds
+    mesh = make_mesh(["cuda:0"] * (shape[0] * shape[1]), shape)
+    loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=2,
+                         device="cuda", mesh=mesh, halo_backend=backend,
+                         force_exchange=shape == (1, 1), **kw)
+    key = (id(case), shape, loop.with_w)
+    if key not in prepared:
+        prepared.clear()   # one layout on the card at a time
+        prepared[key] = loop.prepare(case_to_domain(case, with_w=loop.with_w))
+    arrays = prepared[key]
+    nj_loc, _, ni_loc = arrays["t"][0, 0].shape
+    local = pad_local({n: arrays[n] for n in loop._names}, mesh, loop._j_sh,
+                      loop._i_sh)
+    offs = {c: shard_offsets(c, nj_loc, ni_loc) for c in local}
+    scalars = dict(rdx=case.rdx, rdy=case.rdy, dts=case.dts,
+                   epssm=case.epssm)
+    common, state = loop._fused_inputs(local, scalars, offs)
+    return loop, local, common, state, (nj_loc, ni_loc)
+
+
+def rdma_twin(loop, case):
+    """The same loop under the ``rdma`` backend: its ``_refresh_fused`` is
+    the exchange-then-compute refresh (K5, then the i copies)."""
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+
+    b = case.bounds
+    return SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=2,
+                         device="cuda", mesh=loop.mesh, halo_backend="rdma",
+                         force_exchange=loop.mesh.shape == (1, 1),
+                         with_w=loop.with_w, smdiv=loop.smdiv)
+
+
+def random_mudf(loop, case, seed=7):
+    """A previous substep's ``mudf`` for every shard: one random ring-shaped
+    field, scattered and given its halos by the loop's own glue, so that
+    neighbouring blocks agree where they overlap."""
+    import torch
+    from wrf_tpu_torch.parallel import halo
+    from wrf_tpu_torch.parallel.sharded import pad_to_mesh, scatter
+
+    b = case.bounds
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    field = torch.randn((b.jde + 2, b.ide + 2), device="cuda", generator=g)
+    return halo.halo2(scatter(pad_to_mesh(field, loop.mesh), loop.mesh),
+                      loop.mesh, j_sharded=loop._j_sh, i_sharded=loop._i_sh)
+
+
+def cloned(state):
+    return {c: {k: v.clone() for k, v in st.items()}
+            for c, st in state.items()}
+
+
+def check_interior(tag, got, want, ring, bit_exact=True):
+    """Every shard's outputs away from the ``ring`` pass-through rows on
+    either side (stale under the in-kernel exchange, refreshed otherwise);
+    one ``different=`` line for all shards and fields.  A poisoned row that
+    a kernel read shows as a difference from the launch on refreshed rows."""
+    n = 0
+    for c in want:
+        if sorted(got[c]) != sorted(want[c]):
+            raise AssertionError(f"{tag}: outputs {sorted(got[c])} vs "
+                                 f"{sorted(want[c])}")
+        for name in want[c]:
+            n += count_different(got[c][name][ring:-ring],
+                                 want[c][name][ring:-ring])
+    print(f"[{tag}] different={n}")
+    if n and bit_exact:
+        raise AssertionError(f"{tag}: {n} elements differ")
+    return n
+
+
+K1_LOOP_MODES = {
+    "scan": dict(fuse_uv=True, with_tave=False, ww_mode="lite", lean=True),
+    "final": dict(fuse_uv=True, with_tave=True, ww_mode="final"),
+}
+
+
+def phase_k1_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+                            (REF_GRID, "open"), (BIG_GRID, "specified")),
+                     card=""):
+    """K1's ``overlap`` (the j exchange inside the kernel) on the shards'
+    blocks a mesh loop builds, the memory halo rows of mu, v and mudf_in
+    POISONED: against its plain version, and against K1 fed halos that the
+    ``rdma`` refresh (K5, then the i copies) restored, bit for bit away
+    from the pass-through rows; the scan and the final substep, with and
+    without ``fuse_w`` and ``smdiv``, on rings of 1, 2 and 4 and on the
+    (2,2) mesh at the reference grid under the three BCs, and on (2,2) at
+    512x512x50 (a shard's block: 259x50x259), where the fused scan substep
+    is also timed with and without, beside the plain version (CUDA events,
+    order plain, without, with, with, without, plain; the scan substep
+    updates t and ww_row in place, so the launches of a chain run on).
+    Returns the timings."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, advance_mu_t_fused_plain, lean_kwargs,
+    )
+
+    timings, prepared = {}, {}
+    for grid, bc in cases:
+        case = case_at(grid, bc, balanced=grid == BIG_GRID)
+        for shape in (OVERLAP_MESHES if grid == REF_GRID else ((2, 2),)):
+            for with_w, damp in ((False, False), (False, True), (True, False),
+                                 (True, True)):
+                kw = dict(with_w=with_w, smdiv=SMDIV if damp else 0.0)
+                loop, local, common, state, n_loc = loop_shards(
+                    case, shape, prepared, **kw)
+                refresher = rdma_twin(loop, case)
+                if damp:
+                    for c, blk in random_mudf(loop, case).items():
+                        state[c]["mudf"] = blk
+                lean = {c: lean_kwargs(p, case.rdx, case.rdy, case.dts,
+                                       *loop.window[4:])
+                        for c, p in local.items()}
+                carry = loop.carry_keys
+                const = {c: {k: v for k, v in p.items() if k not in carry}
+                         for c, p in local.items()}
+
+                def launch(fn, st, mode, ov, keep=True):
+                    out = {}
+                    for c in st:
+                        ins = dict(st[c])
+                        if damp:
+                            ins.update(mudf_in=ins.pop("mudf"), smdiv=SMDIV)
+                        cst = dict(const[c])
+                        if keep:   # final updates ww and t_ave in place
+                            for n in ("ww", "t_ave"):
+                                cst[n] = cst[n].clone()
+                        out[c] = fn(**cst, **ins, **common[c], **ov[c],
+                                    **K1_LOOP_MODES[mode],
+                                    **(lean[c] if mode == "scan" else {}))
+                    return out
+
+                def poisoned():
+                    st = cloned(state)
+                    for s_ in st.values():
+                        for n in ("mu", "v") + (("mudf",) if damp else ()):
+                            s_[n][0] = s_[n][-1] = POISON
+                    return st
+
+                tag0 = (f"k1 overlap {grid[0]}x{grid[1]}x{grid[2]} {bc} mesh "
+                        f"{shape[0]}x{shape[1]}{' +w' if with_w else ''}"
+                        f"{' smdiv' if damp else ''}")
+                for mode in K1_LOOP_MODES:
+                    st = poisoned()   # restored by K5 and the i copies
+                    none = refresher._refresh_fused(st, n_loc)
+                    ref = launch(advance_mu_t_fused, st, mode, none)
+                    st = poisoned()
+                    ov = loop._refresh_fused(st, n_loc)
+                    got = launch(advance_mu_t_fused, st, mode, ov)
+                    st = poisoned()
+                    ov = loop._refresh_fused(st, n_loc)
+                    want = launch(advance_mu_t_fused_plain, st, mode, ov)
+                    torch.cuda.synchronize()
+                    check_interior(f"{tag0} {mode} vs plain", got, want, 1)
+                    check_interior(f"{tag0} {mode} vs rdma-refreshed halos",
+                                   got, ref, 1)
+                if grid == BIG_GRID and not with_w:
+                    c = (0, 0)
+                    st = cloned(state)
+                    none = refresher._refresh_fused(st, n_loc)
+                    ov = loop._refresh_fused(st, n_loc)
+                    one = {c: st[c]}
+                    t = abba_ms({
+                        "plain": lambda: launch(advance_mu_t_fused_plain,
+                                                one, "scan", ov, keep=False),
+                        "without": lambda: launch(advance_mu_t_fused, one,
+                                                  "scan", none, keep=False),
+                        "with": lambda: launch(advance_mu_t_fused, one,
+                                               "scan", ov, keep=False)},
+                        reps=10)
+                    timings["smdiv" if damp else "scan"] = t
+                    J, K, I = st[c]["t"].shape
+                    print(f"[k1 overlap time {J}x{K}x{I} scan"
+                          f"{' smdiv' if damp else ''}] kernel without "
+                          f"{t['without'][0]:.4f} / {t['without'][1]:.4f} ms, "
+                          f"with {t['with'][0]:.4f} / {t['with'][1]:.4f} ms, "
+                          f"plain with {t['plain'][0]:.3f} / "
+                          f"{t['plain'][1]:.3f} ms (one shard of 2x2; order "
+                          f"plain, without, with, with, without, plain; "
+                          f"{card})")
+                del loop, local, common, state, const, lean, refresher
+                torch.cuda.empty_cache()
+    return timings
+
+
+def phase_k3_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+                            (REF_GRID, "open"), (BIG_GRID, "specified")),
+                     card=""):
+    """K3's ``overlap`` (the j leg of the width-S exchange inside the
+    kernel) on the ring-S blocks the blocked mesh loop builds, the ring rows
+    of mu, u and v POISONED: against its plain version (exact bit for bit,
+    fast at KERNEL_TOL) and against K3 on ring rows that the width-S
+    ``ppermute`` refresh restored (bit for bit), at S=2, 4 and 8, with and
+    without ``fuse_w``; meshes and grids as :func:`phase_k1_overlap`.  At
+    512x512x50 the S=2 launch is timed with and without, beside the plain
+    version.  Returns the timings (ms per substep)."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
+        coupled_multistep, coupled_multistep_plain,
+    )
+    from wrf_tpu_torch.parallel import halo
+
+    timings, prepared = {}, {}
+    for grid, bc in cases:
+        case = case_at(grid, bc, balanced=grid == BIG_GRID)
+        for shape in (OVERLAP_MESHES if grid == REF_GRID else ((2, 2),)):
+            for with_w in (False, True):
+                for S, fast in ((2, False), (4, False), (8, False), (4, True)):
+                    if (case.bounds.jde + 2) // shape[0] < S:
+                        continue   # fewer rows per shard than the ring
+                    loop, local, common, state, n_loc = loop_shards(
+                        case, shape, prepared, inner_steps=S, fast=fast,
+                        with_w=with_w)
+                    const, st0, com = loop._block_inputs(local, state, common,
+                                                         n_loc)
+                    mesh = loop.mesh
+
+                    def launch(fn, st, ov, keep=True):
+                        out = {}
+                        for c in st:
+                            ins = dict(st[c])
+                            for n in ("t", "ww_row", "w", "pp"):
+                                if keep and n in ins:   # updated in place
+                                    ins[n] = ins[n].clone()
+                            out[c] = fn(**const[c], **ins, **com[c], **ov[c],
+                                        n_inner=S, fast=fast)
+                        return out
+
+                    def poisoned():
+                        st = cloned(st0)
+                        for s_ in st.values():
+                            for n in ("mu", "u", "v"):
+                                s_[n][:S] = POISON
+                                s_[n][-S:] = POISON
+                        return st
+
+                    def refresh(st, j_leg):
+                        for n in ("mu", "u", "v"):
+                            blocks = {c: s_[n] for c, s_ in st.items()}
+                            if j_leg:
+                                halo.refresh_axis_w(blocks, 0, "j", mesh,
+                                                    n_loc[0], S)
+                            if loop._i_sh:
+                                halo.refresh_axis_w(blocks, blocks[0, 0].ndim
+                                                    - 1, "i", mesh, n_loc[1],
+                                                    S)
+                        return st
+
+                    def rows(st):
+                        return {c: {"overlap": r} for c, r in
+                                loop._k3_overlap_rows(st, n_loc[0]).items()}
+
+                    none = {c: {} for c in st0}
+                    tag0 = (f"k3 overlap {grid[0]}x{grid[1]}x{grid[2]} {bc} "
+                            f"mesh {shape[0]}x{shape[1]} "
+                            f"{'fast' if fast else 'exact'} S={S}"
+                            f"{' +w' if with_w else ''}")
+                    ref = launch(coupled_multistep,
+                                 refresh(poisoned(), True), none)
+                    st = refresh(poisoned(), False)
+                    got = launch(coupled_multistep, st, rows(st))
+                    st = refresh(poisoned(), False)
+                    want = launch(coupled_multistep_plain, st, rows(st))
+                    torch.cuda.synchronize()
+                    n = check_interior(f"{tag0} vs plain", got, want, S,
+                                       bit_exact=not fast)
+                    if n:   # fast: the plain version runs the cumsums
+                        for c in want:
+                            check_fields(
+                                f"{tag0} vs plain, shard {c}",
+                                {k: v[S:-S] for k, v in got[c].items()},
+                                {k: v[S:-S] for k, v in want[c].items()})
+                    check_interior(f"{tag0} vs refreshed ring rows", got, ref,
+                                   S)
+                    if grid == BIG_GRID and S == 2 and not with_w:
+                        c = (0, 0)
+                        st = refresh(cloned(st0), True)
+                        one, ov = {c: st[c]}, rows(st)
+                        t = abba_ms({
+                            "plain": lambda: launch(coupled_multistep_plain,
+                                                    one, ov, keep=False),
+                            "without": lambda: launch(coupled_multistep, one,
+                                                      none, keep=False),
+                            "with": lambda: launch(coupled_multistep, one,
+                                                   ov, keep=False)}, reps=10)
+                        timings["S=2"] = {k: [x / S for x in v]
+                                          for k, v in t.items()}
+                        t = timings["S=2"]
+                        J, K, I = st[c]["t"].shape
+                        print(f"[k3 overlap time {J}x{K}x{I} exact S=2] ms "
+                              f"per substep: kernel without "
+                              f"{t['without'][0]:.4f} / {t['without'][1]:.4f}"
+                              f", with {t['with'][0]:.4f} / "
+                              f"{t['with'][1]:.4f}, plain with "
+                              f"{t['plain'][0]:.3f} / {t['plain'][1]:.3f} "
+                              f"(one shard of 2x2; order plain, without, "
+                              f"with, with, without, plain; {card})")
+                    del loop, local, common, state, const, st0, com
+                    torch.cuda.empty_cache()
+    return timings
+
+
+def narrowed(d, names):
+    """``d`` with the tensors ``names`` as bf16 (rounded to nearest even)."""
+    import torch
+
+    return {k: (v.to(torch.bfloat16) if k in names else v)
+            for k, v in d.items()}
+
+
+def rounded(d, names):
+    """``d`` with the tensors ``names`` rounded to bf16 and widened back:
+    what a kernel that widens on load computes on."""
+    import torch
+
+    return {k: (v.to(torch.bfloat16).float() if k in names else v)
+            for k, v in d.items()}
+
+
+def expect_bf16_state_refused(tag, fn, kwargs, name):
+    import torch
+
+    bad = dict(kwargs, **{name: kwargs[name].to(torch.bfloat16)})
+    try:
+        fn(**bad)
+    except ValueError as e:
+        if f"bf16 {name!r} is not a constant stream" not in str(e):
+            raise
+        print(f"[{tag}] bf16 {name!r} (state) raises ValueError")
+        return
+    raise AssertionError(f"{tag}: a bf16 {name!r} was accepted")
+
+
+#: K1's modes with bf16 constant streams: the eligible operands each one
+#: reads (the loops narrow the whole set)
+K1_BF16_MODES = {
+    "scan": ("t_1", "tconst", "dvdxi_const"),
+    "final": ("t_1", "ww_1", "u_1", "v_1", "ft"),
+    "full": ("t_1", "ww_1", "u_1", "v_1", "ft", "u", "v"),
+    "lite_ws": ("t_1", "tconst", "dvdxi_const", "u", "v"),
+    "final_ws": ("t_1", "ww_1", "u_1", "v_1", "ft", "u", "v"),
+}
+
+
+def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
+                      (REF_GRID, "open"), (BIG_GRID, "specified")), card=""):
+    """K1, K2, K3 and K4 with bf16 constant streams: against their plain
+    versions on the same narrow inputs and against the float32 kernels on
+    the rounded inputs, bit for bit (widening is exact); a mixed set (the
+    wrapper widens the minority) likewise; a bf16 state operand raises.
+    K1 in the five modes of MODES (the fused ones also with ``fuse_w``), K2
+    exact S=8 and fast S=8, K3 exact S=2, 4, 8 (also with ``fuse_w``) and
+    K4.  At 512x512x50 every form the loops run is timed beside its float32
+    form (CUDA events, order float32, bf16, bf16, float32).  Returns the
+    timings."""
+    import torch
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
+        coupled_multistep, coupled_multistep_plain, coupled_two_step,
+    )
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import (
+        advance_mu_t_fused, advance_mu_t_fused_plain,
+    )
+    from wrf_tpu_torch.ops.advance_mu_t_msteps_cuda import (
+        advance_mu_t_multistep, advance_mu_t_multistep_plain,
+    )
+
+    timings = {}
+
+    def pair_ms(name, f32, bf16, per=1):
+        t = abba_ms({"f32": f32, "bf16": bf16})
+        timings[name] = {k: [x / per for x in v] for k, v in t.items()}
+        t = timings[name]
+        print(f"[bf16 time {name}] ms{' per substep' if per > 1 else ''}: "
+              f"float32 {t['f32'][0]:.4f} / {t['f32'][1]:.4f}, bf16 "
+              f"{t['bf16'][0]:.4f} / {t['bf16'][1]:.4f} (order float32, "
+              f"bf16, bf16, float32; {card})")
+
+    for grid, bc in cases:
+        gtag = f"{grid[0]}x{grid[1]}x{grid[2]} {bc}"
+        big = grid == BIG_GRID
+        for with_w in (False, True):
+            arr, static = padded_inputs(case_at(grid, bc), "cuda",
+                                        with_w=with_w)
+            for mode, names in K1_BF16_MODES.items():
+                if with_w and mode not in W_MODES:
+                    continue
+                mkw = mode_kwargs(mode, arr, static)
+                both = {**arr, **mkw}
+                tag = f"k1{'+w' if with_w else ''} bf16 {gtag} {mode}"
+
+                def call(fn, src):
+                    a, m = fresh({k: src[k] for k in arr},
+                                 {k: src[k] for k in mkw})
+                    return fn(**a, **static, **m)
+
+                got = call(advance_mu_t_fused, narrowed(both, names))
+                want = call(advance_mu_t_fused_plain, narrowed(both, names))
+                wide = call(advance_mu_t_fused, rounded(both, names))
+                mixed = call(advance_mu_t_fused, narrowed(both, names[::2]))
+                mixed_w = call(advance_mu_t_fused, rounded(both, names[::2]))
+                f32 = call(advance_mu_t_fused, both)
+                torch.cuda.synchronize()
+                check_bits(f"{tag} vs plain", got, want)
+                check_bits(f"{tag} vs float32 kernel on rounded inputs", got,
+                           wide)
+                check_bits(f"{tag} mixed set vs rounded inputs", mixed,
+                           mixed_w)
+                if not count_different(got["t"], f32["t"]):
+                    raise AssertionError(f"{tag}: bf16 changed nothing")
+                if not with_w:
+                    a, m = fresh(arr, mkw)
+                    expect_bf16_state_refused(
+                        tag, advance_mu_t_fused, {**a, **static, **m}, "t")
+                if big and mode in ("scan", "lite_ws", "final"):
+                    a_f, m_f = fresh(arr, mkw)
+                    nb = narrowed(both, names)
+                    a_b, m_b = fresh({k: nb[k] for k in arr},
+                                     {k: nb[k] for k in mkw})
+                    pair_ms(f"k1{'+w' if with_w else ''} {mode}",
+                            lambda: advance_mu_t_fused(**a_f, **static,
+                                                       **m_f),
+                            lambda: advance_mu_t_fused(**a_b, **static,
+                                                       **m_b))
+            if not with_w:
+                ins = k2_inputs(arr, static)
+                names = ("u", "v", "t_1", "tconst", "dvdxi_const")
+                for mode in ("exact S=8", "fast S=8"):
+                    mkw = dict(K2_MODES[mode], wind_scale_step=DW)
+                    tag = f"k2 bf16 {gtag} {mode}"
+                    got = advance_mu_t_multistep(
+                        **fresh_state(narrowed(ins, names)), **static, **mkw)
+                    want = advance_mu_t_multistep_plain(
+                        **fresh_state(narrowed(ins, names)), **static, **mkw)
+                    wide = advance_mu_t_multistep(
+                        **fresh_state(rounded(ins, names)), **static, **mkw)
+                    mixed = advance_mu_t_multistep(
+                        **fresh_state(narrowed(ins, names[::2])), **static,
+                        **mkw)
+                    mixed_w = advance_mu_t_multistep(
+                        **fresh_state(rounded(ins, names[::2])), **static,
+                        **mkw)
+                    torch.cuda.synchronize()
+                    check_fields(f"{tag} vs plain", got, want,
+                                 bit_exact=not mkw.get("fast"))
+                    check_bits(f"{tag} vs float32 kernel on rounded inputs",
+                               got, wide)
+                    check_bits(f"{tag} mixed set vs rounded inputs", mixed,
+                               mixed_w)
+                expect_bf16_state_refused(
+                    f"k2 bf16 {gtag}", advance_mu_t_multistep,
+                    {**fresh_state(ins), **static, "n_inner": 2}, "t")
+                if big:
+                    mkw = dict(K2_MODES["exact S=8"], wind_scale_step=DW)
+                    a_f = fresh_state(ins)
+                    a_b = fresh_state(narrowed(ins, names))
+                    pair_ms("k2 exact S=8",
+                            lambda: advance_mu_t_multistep(**a_f, **static,
+                                                           **mkw),
+                            lambda: advance_mu_t_multistep(**a_b, **static,
+                                                           **mkw), per=8)
+                del ins
+            names = ("t_1", "tconst", "dvdxi_const")
+            runs = {f"exact S={S}": (coupled_multistep, S, dict(n_inner=S))
+                    for S in (2, 4, 8)}
+            runs["k4 pair"] = (coupled_two_step, 2, {})
+            for mode, (fn, S, mkw) in runs.items():
+                ins, st = k3_inputs(arr, static, S)
+                tag = f"k3{'+w' if with_w else ''} bf16 {gtag} {mode}"
+                got = fn(**fresh_k3(narrowed(ins, names)), **st, **mkw)
+                want = coupled_multistep_plain(
+                    **fresh_k3(narrowed(ins, names)), **st, n_inner=S)
+                wide = fn(**fresh_k3(rounded(ins, names)), **st, **mkw)
+                mixed = fn(**fresh_k3(narrowed(ins, names[:1])), **st, **mkw)
+                mixed_w = fn(**fresh_k3(rounded(ins, names[:1])), **st, **mkw)
+                torch.cuda.synchronize()
+                check_bits(f"{tag} vs plain", got, want)
+                check_bits(f"{tag} vs float32 kernel on rounded inputs", got,
+                           wide)
+                check_bits(f"{tag} mixed set vs rounded inputs", mixed,
+                           mixed_w)
+                if not with_w:
+                    expect_bf16_state_refused(tag, fn,
+                                              {**fresh_k3(ins), **st, **mkw},
+                                              "u")
+                if big and not with_w:
+                    a_f = fresh_k3(ins)
+                    a_b = fresh_k3(narrowed(ins, names))
+                    pair_ms(f"k3 {mode}",
+                            lambda: fn(**a_f, **st, **mkw),
+                            lambda: fn(**a_b, **st, **mkw), per=S)
+                del ins, got, want, wide, mixed, mixed_w
+            del arr
+            torch.cuda.empty_cache()
+    return timings
 
 
 def phase_copy_ceiling(card=""):
@@ -917,7 +1474,7 @@ def phase_copy_ceiling(card=""):
         a = torch.ones(shape, device="cuda")
         b = torch.empty_like(a)
         bufs = (a, b)
-        lib_ms = chain_marginal_ms(
+        lib_ms, _ = chain_marginal_ms(
             lambda i: bufs[(i + 1) % 2].copy_(bufs[i % 2]))
         lib = nbytes / (lib_ms * 1e-3) / 1e9
         over = [p for p, r in rates.items() if r > k6.HBM_SPEC_GBPS]
@@ -967,8 +1524,11 @@ def phase_k5_vs_plain(card=""):
     the scalar path); every comparison bit for bit.  Then the times at the
     2x2 row size: K5 per launch (one shard's mu and v rows of a substep),
     its plain version, and the ``ppermute`` refresh of the same fields
-    (``Tensor.copy_``, the library yardstick), CUDA events in the order
-    plain, kernel, kernel, plain."""
+    (``Tensor.copy_``, the library yardstick): marginal ms between chains
+    of 50 and 250 calls on CUDA events, the host clock's reading of the
+    same chains beside it, in the order plain, kernel, kernel, plain.
+    Returns the events' readings, the host clock's and the bytes per
+    shard."""
     import torch
     from wrf_tpu_torch.ops import halo_rdma_cuda as k5
     from wrf_tpu_torch.parallel import halo
@@ -1045,21 +1605,28 @@ def phase_k5_vs_plain(card=""):
     if k5.LAUNCHES - before != n_shards:
         raise AssertionError(f"k5: {k5.LAUNCHES - before} launches for "
                              f"{n_shards} shards")
+    # two-count marginals (50 and 250 calls, best of 5), each chain on both
+    # clocks: the wrapper's rows are bound by what the host submits
     out = {"cuda": [], "plain": [], "library": [], "bare": []}
+    host = {name: [] for name in out}
     for name, fn in (("plain", plain), ("library", library), ("cuda", kern),
                      ("bare", bare), ("bare", bare),
                      ("cuda", kern), ("library", library), ("plain", plain)):
-        out[name].append(cuda_ms(fn, 200) / n_shards)
+        ev, hc = chain_marginal_ms(lambda i: fn(), n1=50, n2=250, repeats=5)
+        out[name].append(ev / n_shards)
+        host[name].append(hc / n_shards)
     row_bytes = 4 * ((nil + 2) * 2 + K * (nil + 2))   # mu x2, v x1
+    names = {"cuda": "kernel", "plain": "plain", "library": "ppermute "
+             "refresh (Tensor.copy_)", "bare": "kernel launched from a "
+             "prebuilt plan"}
     print(f"[k5 time 2x2, rows of {nil + 2} (mu both ways, v up: "
-          f"{row_bytes} bytes per shard)] ms per shard: kernel "
-          f"{out['cuda'][0]:.5f} / {out['cuda'][1]:.5f}, plain "
-          f"{out['plain'][0]:.5f} / {out['plain'][1]:.5f}, ppermute refresh "
-          f"(Tensor.copy_) {out['library'][0]:.5f} / {out['library'][1]:.5f}, "
-          f"kernel launched from a prebuilt plan {out['bare'][0]:.5f} / "
-          f"{out['bare'][1]:.5f} (order plain, library, kernel, prebuilt, "
-          f"prebuilt, kernel, library, plain; {card})")
-    return out, row_bytes
+          f"{row_bytes} bytes per shard)] marginal ms per shard, CUDA events "
+          f"(host clock): " + ", ".join(
+              f"{names[k]} {out[k][0]:.5f} / {out[k][1]:.5f} "
+              f"({host[k][0]:.5f} / {host[k][1]:.5f})" for k in names)
+          + f" (order plain, library, kernel, prebuilt, prebuilt, kernel, "
+          f"library, plain; {card})")
+    return out, host, row_bytes
 
 
 def phase_mesh_loops():
@@ -1072,10 +1639,17 @@ def phase_mesh_loops():
     printed (per-column arithmetic does not depend on the block, so 0 is
     expected).  With divergence damping (``smdiv``) the 1x1 loop is held
     against the oracle's golden loop at DEVICE_TOL, and (2,2) and (4,1)
-    under both backends against it and each other bit for bit.  Returns
-    the K5 launches of the (2,2) rdma loop."""
+    under both backends against it and each other bit for bit.  Under
+    ``rdma_overlap`` (the j exchange inside K1 and K3) every one of these
+    loops, also blocked S=2 and S=4 on (4,1), must equal its ``ppermute``
+    and ``rdma`` twins and the 1x1 loop bit for bit, with one K1 (K3)
+    launch per shard per substep (block) and no K5 launch.  Returns the K5
+    launches of the (2,2) rdma loop and the launches of the (2,2)
+    rdma_overlap loops."""
     import torch
     from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
     from wrf_tpu_torch.ops import halo_rdma_cuda as k5
     from wrf_tpu_torch.parallel.mesh import make_mesh
     from wrf_tpu_torch.parallel.sharded import (
@@ -1123,7 +1697,32 @@ def phase_mesh_loops():
     check_state(f"1x1 smdiv={SMDIV} vs the oracle's golden loop, {n} substeps",
                 got, {k: gold[k] for k in got})
     ref_w = run(SmallStepLoop, None, with_w=True)
-    launches = None
+    launches, ov_launches = None, {}
+
+    def overlap(tag, shape, twins, **kw):
+        """The loop under rdma_overlap against its ``twins`` (bit for bit),
+        with its launches: K1 (and K3) once per shard per substep (block),
+        K5 never."""
+        shards = shape[0] * shape[1] if shape else 1
+        S = kw.get("inner_steps", 1)
+        blocks = (n - 1) // S if S > 1 else 0
+        k1.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+        got = run(SmallStepLoop, shape, halo_backend="rdma_overlap", **kw)
+        counts = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES, "k5": k5.LAUNCHES}
+        want = {"k1": shards * (n - blocks * S), "k3": shards * blocks,
+                "k5": 0}
+        print(f"[mesh {shape} rdma_overlap {tag}] launches {counts}")
+        if counts != want:
+            raise AssertionError(f"mesh {shape} rdma_overlap {tag}: launches "
+                                 f"{counts}, expected {want}")
+        for name, twin in twins.items():
+            check_state(f"mesh {shape} rdma_overlap {tag} vs {name}", got,
+                        twin, bit_exact=True)
+        return counts
+
+    overlap("1x1 force_exchange", None,
+            {"ppermute": run(SmallStepLoop, None, force_exchange=True)},
+            force_exchange=True)
     for shape in ((2, 2), (4, 1)):
         perm_d = run(SmallStepLoop, shape, smdiv=SMDIV)
         k5.LAUNCHES = 0
@@ -1135,6 +1734,9 @@ def phase_mesh_loops():
                     bit_exact=True)
         check_state(f"mesh {shape} smdiv vs 1x1 smdiv", perm_d, ref_d,
                     bit_exact=True)
+        ov_launches[shape, "smdiv"] = overlap(
+            "smdiv", shape, {"ppermute": perm_d, "rdma": rdma_d,
+                             "1x1": ref_d}, smdiv=SMDIV)
         del perm_d, rdma_d
         perm = run(SmallStepLoop, shape)
         k5.LAUNCHES = 0
@@ -1144,20 +1746,29 @@ def phase_mesh_loops():
                                  f"launches for {n} substeps")
         if shape == (2, 2):
             launches = k5.LAUNCHES
-            for S in (2, 4):   # K3 on blocks that are ring-S in i too
-                check_state(f"mesh (2, 2) blocked S={S} vs 1x1 blocked S={S}",
-                            run(SmallStepLoop, shape, inner_steps=S),
-                            ref_blk[S])
+        for S in (2, 4):   # K3 on blocks that are ring-S in i too on (2,2)
+            blk = run(SmallStepLoop, shape, inner_steps=S)
+            check_state(f"mesh {shape} blocked S={S} vs 1x1 blocked S={S}",
+                        blk, ref_blk[S])
+            ov_launches[shape, f"S={S}"] = overlap(
+                f"blocked S={S}", shape,
+                {"ppermute": blk, "1x1": ref_blk[S]}, inner_steps=S)
+            del blk
+        if shape == (2, 2):
             check_state("mu/t mesh (2, 2) vs 1x1",
                         run(ShardedAdvanceMuT, shape, n_steps=9,
                             inner_steps=4), ref_mut)
         check_state(f"mesh {shape} rdma vs ppermute", rdma, perm,
                     bit_exact=True)
         check_state(f"mesh {shape} vs 1x1", perm, ref)
-    check_state("mesh (2, 2) rdma +w vs 1x1 +w",
-                run(SmallStepLoop, (2, 2), with_w=True, halo_backend="rdma"),
-                ref_w)
-    return launches
+        ov_launches[shape, "S=1"] = overlap(
+            "S=1", shape, {"ppermute": perm, "rdma": rdma, "1x1": ref})
+        del perm, rdma
+    rdma_w = run(SmallStepLoop, (2, 2), with_w=True, halo_backend="rdma")
+    check_state("mesh (2, 2) rdma +w vs 1x1 +w", rdma_w, ref_w)
+    ov_launches[(2, 2), "+w"] = overlap(
+        "+w", (2, 2), {"rdma": rdma_w, "1x1": ref_w}, with_w=True)
+    return launches, ov_launches
 
 
 def phase_golden_file(tmp: Path):
@@ -1352,7 +1963,8 @@ def phase_slice(tmp: Path, fx: Path):
     substeps; at S=2 only the last blocks, one K3 launch, one lite and the
     final K1 substep), then RK3 steps against the oracle.  Returns the
     launches and ms per large step of each run."""
-    runs = {"S=1": ((), {"k1": 21, "k3": 0, "k4": 0}),
+    runs = {"S=1": (("--checkpoint-every", "1"),
+                    {"k1": 21, "k3": 0, "k4": 0}),
             "S=2": (("--inner-steps", "2"), {"k1": 15, "k3": 3, "k4": 0}),
             "S=2 fast": (("--inner-steps", "2", "--fast"),
                          {"k1": 15, "k3": 3, "k4": 0}),
@@ -1366,7 +1978,22 @@ def phase_slice(tmp: Path, fx: Path):
             "2x2 rdma": (("--mesh", "2x2", "--halo-backend", "rdma"),
                          {"k1": 84, "k3": 0, "k4": 0, "k5": 84}),
             "2x2 ppermute": (("--mesh", "2x2"),
-                             {"k1": 84, "k3": 0, "k4": 0})}
+                             {"k1": 84, "k3": 0, "k4": 0}),
+            # the j exchange inside the kernels: the same K1 launches and
+            # no K5 launch; blocked, K3 once per shard per block
+            "2x2 overlap": (("--mesh", "2x2", "--halo-backend",
+                             "rdma_overlap"),
+                            {"k1": 84, "k3": 0, "k4": 0, "k5": 0}),
+            "S=2 2x2 overlap": (("--mesh", "2x2", "--halo-backend",
+                                 "rdma_overlap", "--inner-steps", "2"),
+                                {"k1": 60, "k3": 12, "k4": 0, "k5": 0}),
+            # bf16 constant streams: the launches of the float32 runs
+            "bf16": (("--precision", "bf16-const", "--checkpoint-every",
+                      "1"), {"k1": 21, "k3": 0, "k4": 0}),
+            "bf16 2x2 overlap": (("--precision", "bf16-const", "--mesh",
+                                  "2x2", "--halo-backend", "rdma_overlap",
+                                  "--checkpoint-every", "1"),
+                                 {"k1": 84, "k3": 0, "k4": 0, "k5": 0})}
     # a namelist record with divergence damping (and the fixture's own
     # dynamics: dts = time_step / time_step_sound), every step checkpointed
     case = case_at(BIG_GRID, balanced=True)
@@ -1383,6 +2010,9 @@ def phase_slice(tmp: Path, fx: Path):
     runs["smdiv 2x2 rdma"] = (
         damped + ("--mesh", "2x2", "--halo-backend", "rdma"),
         {"k1": 84, "k3": 0, "k4": 0, "k5": 84})
+    runs["smdiv 2x2 overlap"] = (
+        damped + ("--mesh", "2x2", "--halo-backend", "rdma_overlap"),
+        {"k1": 84, "k3": 0, "k4": 0, "k5": 0})
     out, states = {}, {}
     for name, (flags, expected) in runs.items():
         launches, step_ms, states[name] = run_sim_launches(
@@ -1395,6 +2025,16 @@ def phase_slice(tmp: Path, fx: Path):
         check_state(f"run_sim {name} vs 1x1", states[name], states["S=1"])
     check_state("run_sim 2x2 rdma vs ppermute", states["2x2 rdma"],
                 states["2x2 ppermute"], bit_exact=True)
+    # this slice's path: step 3 under rdma_overlap equals the rdma run's and
+    # the 1x1 run's bit for bit; blocked, the 1x1 blocked run's
+    for name, twins in (("2x2 overlap", ("2x2 rdma", "S=1")),
+                        ("S=2 2x2 overlap", ("S=2",)),
+                        ("smdiv 2x2 overlap", ("smdiv 2x2 rdma", "smdiv")),
+                        ("bf16 2x2 overlap", ("bf16",))):
+        for twin in twins:
+            check_state(f"run_sim {name} vs {twin}, step 3", states[name],
+                        states[twin], bit_exact=True)
+    slice_bf16(tmp, states)
     slice_damped(tmp, fx, case, damped, states)
     for name in runs:   # steps 2 and 3: step 1 includes the allocations
         step_ms = out[name][1]
@@ -1419,6 +2059,29 @@ def embed_checkpoint(case, state):
     inner = slice(RING, -RING)
     return embed_outputs(case, {k: v[inner, ..., inner]
                                 for k, v in state.items()})
+
+
+#: the contract of the bf16 constant-stream mode against float32 inputs
+BF16_TOL = dict(rtol=2e-2, atol_scale=2e-2)
+
+
+def slice_bf16(tmp: Path, states):
+    """``run_sim --precision bf16-const``: large step 1 against the float32
+    run's at the mode's gate (2e-2 of field scale; later steps of the
+    closure-less shell are amplified noise on either side), different from
+    it, and the mesh run's step 1 equal to the 1x1 run's bit for bit."""
+    import numpy as np
+    from wrf_tpu_torch.io import checkpoint
+
+    first = {name: checkpoint.load_checkpoint(
+        tmp / name.replace(" ", "_") / "step_000001")[0]
+        for name in ("S=1", "bf16", "bf16 2x2 overlap")}
+    check_state("run_sim --precision bf16-const vs float32, large step 1",
+                first["bf16"], first["S=1"], tol=BF16_TOL)
+    if np.array_equal(first["bf16"]["t"], first["S=1"]["t"]):
+        raise AssertionError("run_sim --precision bf16-const changed nothing")
+    check_state("run_sim bf16 2x2 overlap vs bf16 1x1, large step 1",
+                first["bf16 2x2 overlap"], first["bf16"], bit_exact=True)
 
 
 def slice_damped(tmp: Path, fx: Path, case, damped, states):
@@ -1487,7 +2150,17 @@ COUPLED_TIERS = {
 MESH_TIERS = {
     "coupled 2x2 rdma": ("--tier", "coupled", "--mesh", "2x2",
                          "--halo-backend", "rdma"),
+    "coupled 2x2 rdma_overlap": ("--tier", "coupled", "--mesh", "2x2",
+                                 "--halo-backend", "rdma_overlap"),
     "sharded-cuda 2x2": ("--tier", "sharded-cuda", "--mesh", "2x2"),
+}
+
+#: the two loop tiers with bf16 constant streams, gated at 2e-2 / 2e-2
+#: (one lateral BC, 1 and 100 steps)
+BF16_TIERS = {
+    "sharded-cuda bf16": ("--tier", "sharded-cuda", "--precision",
+                          "bf16-const"),
+    "coupled bf16": ("--tier", "coupled", "--precision", "bf16-const"),
 }
 
 
@@ -1516,6 +2189,7 @@ def phase_driver(tmp: Path, fx_big: Path, big_steps: int,
             fx = fixtures.write_case(case, tmp / f"ref_{bc}_{steps}",
                                      steps=steps)
             tiers = {**DRIVER_TIERS,
+                     **(BF16_TIERS if bc == "specified" else {}),
                      **({**COUPLED_TIERS, **MESH_TIERS} if steps == 100
                         else {}),
                      **(COUPLED_W_TIERS
@@ -1627,12 +2301,16 @@ def phase_capture_driver(tmp: Path, steps: int = 5, device="cuda"):
 
 
 def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
-                     **kw):
+                     prepared=None, **kw):
     """ms per substep of ShardedAdvanceMuT (the coupled SmallStepLoop with
-    ``coupled``) by the difference of two step counts (host clock around a
-    call that ends in a synchronise; best of ``reps``), so the per-call
-    set-up cancels.  ``mesh_shape``: that many shards, all on the one
-    card."""
+    ``coupled``) by the difference of two step counts, best of ``reps``
+    each, so the per-call set-up cancels; every call is read on two
+    clocks, the host clock around the call and the synchronise that ends
+    it, and CUDA events around the call.  Returns ``(host_ms, events_ms)``.
+    ``mesh_shape``: that many shards, all on the one card.  ``prepared``:
+    a dict that keeps the last layout's arrays on the card between calls
+    (the loops leave their prepared arrays alone, and a copy of a
+    512x512x50 case to the card costs more than the timed substeps)."""
     import math
 
     import torch
@@ -1655,23 +2333,38 @@ def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
             loop = ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags,
                                      n_steps=n, vary_winds=True,
                                      device="cuda", **kw)
-        arrays = loop.prepare(
-            case_to_domain(case, with_w=bool(kw.get("with_w"))))
+        with_w = bool(kw.get("with_w"))
+        key = (id(case), mesh_shape, with_w)
+        if prepared is None or key not in prepared:
+            if prepared is not None:
+                prepared.clear()   # one layout on the card at a time
+            arrays = loop.prepare(case_to_domain(case, with_w=with_w))
+            if prepared is not None:
+                prepared[key] = arrays
+        else:
+            arrays = prepared[key]
         checksum = float(loop(arrays, case.rdx, case.rdy, case.dts,
                               case.epssm)["t"].sum())
         if not math.isfinite(checksum):
             raise AssertionError(f"non-finite loop state at n={n} {kw}")
-        best[n] = float("inf")
+        best[n] = [float("inf")] * 2
         for _ in range(reps):
-            t0 = time.perf_counter()
-            loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
-            best[n] = min(best[n], time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            start.record()
+            loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+            stop.record()
+            torch.cuda.synchronize()
+            best[n] = [min(best[n][0], (time.perf_counter() - t0) * 1e3),
+                       min(best[n][1], start.elapsed_time(stop))]
         del arrays, loop
     n1, n2 = counts
-    return (best[n2] - best[n1]) / (n2 - n1) * 1e3
+    return tuple((b2 - b1) / (n2 - n1) for b1, b2 in zip(best[n1], best[n2]))
 
 
+MESH_BACKENDS = ("ppermute", "rdma", "rdma_overlap")
 LOOP_ROWS = {
     "512x512x50 S=1": (BIG_GRID, (65, 257), dict()),
     "512x512x50 exact S=8": (BIG_GRID, (65, 257), dict(inner_steps=8)),
@@ -1690,25 +2383,127 @@ LOOP_ROWS = {
     **{f"coupled 512x512x50 mesh {nj}x{ni} {backend}": (
         BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(nj, ni),
                                   halo_backend=backend))
-       for nj, ni in ((2, 2), (4, 1)) for backend in ("ppermute", "rdma")},
+       for nj, ni in ((2, 2), (4, 1)) for backend in MESH_BACKENDS},
     # the same with divergence damping: mudf carried and exchanged
     "coupled smdiv 512x512x50 S=1": (BIG_GRID, (65, 257),
                                      dict(coupled=True, smdiv=SMDIV)),
-    **{f"coupled smdiv 512x512x50 mesh 2x2 {backend}": (
-        BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(2, 2),
+    **{f"coupled smdiv 512x512x50 mesh {nj}x{ni} {backend}": (
+        BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(nj, ni),
                                   halo_backend=backend, smdiv=SMDIV))
-       for backend in ("ppermute", "rdma")},
+       for nj, ni in ((2, 2), (4, 1)) for backend in MESH_BACKENDS},
+    # blocked on the mesh: the width-S exchange per block, its j leg by
+    # copies or inside K3
+    **{f"coupled 512x512x50 exact S=2 mesh 2x2 {backend}": (
+        BIG_GRID, (65, 257), dict(coupled=True, mesh_shape=(2, 2),
+                                  halo_backend=backend, inner_steps=2))
+       for backend in ("ppermute", "rdma_overlap")},
+    # bf16 constant streams
+    "512x512x50 bf16 S=1": (BIG_GRID, (65, 257), dict(const_dtype="bf16")),
+    "512x512x50 bf16 exact S=8": (BIG_GRID, (65, 257),
+                                  dict(inner_steps=8, const_dtype="bf16")),
+    "coupled 512x512x50 bf16 S=1": (BIG_GRID, (65, 257),
+                                    dict(coupled=True, const_dtype="bf16")),
+    "coupled 512x512x50 bf16 exact S=2": (
+        BIG_GRID, (65, 257), dict(coupled=True, inner_steps=2,
+                                  const_dtype="bf16")),
 }
 
 
 def phase_loop_timings(card=""):
+    """Every row of LOOP_ROWS: ``{row: host-clock ms per substep}`` and the
+    same from CUDA events."""
+    import torch
 
     cases = {g: case_at(g, balanced=True) for g in (BIG_GRID, REF_GRID)}
-    out = {}
-    for name, (grid, counts, kw) in LOOP_ROWS.items():
-        out[name] = loop_marginal_ms(cases[grid], counts, **kw)
+    host, events, prepared = {}, {}, {}
+    # rows of one layout (grid, mesh, with_w) side by side: they share
+    # the arrays on the card
+    rows = sorted(LOOP_ROWS.items(), key=lambda r: (
+        r[1][0], r[1][2].get("mesh_shape") or (), bool(r[1][2].get("with_w"))))
+    for name, (grid, counts, kw) in rows:
+        kw = dict(kw)
+        if kw.get("const_dtype") == "bf16":
+            kw["const_dtype"] = torch.bfloat16
+        host[name], events[name] = loop_marginal_ms(
+            cases[grid], counts, prepared=prepared, **kw)
         print(f"[loop {name}] n={counts[0]}/{counts[1]}: "
-              f"{out[name]:.4f} ms per substep ({card})")
+              f"{host[name]:.4f} ms per substep on the host clock, "
+              f"{events[name]:.4f} on CUDA events ({card})")
+    return host, events
+
+
+def phase_mesh_profile(card="", counts=(9, 33), shapes=((2, 2),)):
+    """One ``torch.profiler`` trace per halo backend of the damped coupled
+    loop at 512x512x50 on the meshes ``shapes`` ((2,2); pass (4,1) too for
+    the mesh with an unsharded i), four shards on the one card, at two
+    step counts; per substep (the difference of the two traces over the
+    difference of the counts, so the per-call set-up cancels): the host
+    span, the device's busy time and its share of the span, the K1
+    launches, the copy kernels (``Tensor.copy_`` between blocks: the
+    ``ppermute`` rows and columns), and K5's launches and device time.  The
+    host span is read under the profiler, which slows a host-bound loop:
+    the share is a lower bound of the unprofiled one.  Returns the rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+
+    case = case_at(BIG_GRID, balanced=True)
+    b = case.bounds
+    kinds = {"k1": ("advance_mu_t_kernel",), "k5": ("put_kernel",),
+             "copy": ("copy", "Memcpy")}
+
+    def trace(shape, backend, n):
+        mesh = make_mesh(["cuda:0"] * 4, shape)
+        loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=n,
+                             device="cuda", mesh=mesh, halo_backend=backend,
+                             smdiv=SMDIV)
+        arrays = loop.prepare(case_to_domain(case))
+        loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+            torch.cuda.synchronize()
+            span = (time.perf_counter() - t0) * 1e3
+        row = {"span_ms": span, "busy_ms": 0.0}
+        for k in kinds:
+            row[k + "_n"], row[k + "_ms"] = 0, 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue   # a host-side row; the kernels have their own
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            row["busy_ms"] += ms
+            for k, words in kinds.items():
+                if any(w in e.key for w in words):
+                    row[k + "_n"] += e.count
+                    row[k + "_ms"] += ms
+                    break
+        if not row["busy_ms"] > 0:
+            raise AssertionError("torch.profiler traced no device time")
+        return row
+
+    n1, n2 = counts
+    out = {}
+    for shape in shapes:
+        for backend in MESH_BACKENDS:
+            lo, hi = trace(shape, backend, n1), trace(shape, backend, n2)
+            r = {k: (hi[k] - lo[k]) / (n2 - n1) for k in lo}
+            r["busy_share"] = r["busy_ms"] / r["span_ms"]
+            r["k5_us_each"] = (1e3 * r["k5_ms"] / r["k5_n"] if r["k5_n"]
+                               else 0.0)
+            out[shape, backend] = r
+            print(f"[profile smdiv {shape[0]}x{shape[1]} {backend}] per "
+                  f"substep (n={n1}/{n2}): host span {r['span_ms']:.4f} ms "
+                  f"under the profiler, device busy {r['busy_ms']:.4f} ms "
+                  f"({100 * r['busy_share']:.1f} %); K1 {r['k1_n']:.2f} "
+                  f"launches, {r['k1_ms']:.4f} ms; copy kernels "
+                  f"{r['copy_n']:.2f}, {r['copy_ms']:.4f} ms; K5 "
+                  f"{r['k5_n']:.2f} launches, {r['k5_us_each']:.2f} us each "
+                  f"({card})")
     return out
 
 
@@ -1725,9 +2520,9 @@ OPS_PER_CELL = {"k1": 46, "k2": 42, "w": 25}
 
 def field_bytes(shape, n3, n2, n1):
     """Bytes of ``n3`` 3-D, ``n2`` 2-D and ``n1`` vertical float32 fields
-    of a (J, K, I) block."""
+    of a (J, K, I) block (a bf16 field counts as half a field)."""
     J, K, I = shape
-    return 4 * (n3 * J * K * I + n2 * J * I + n1 * K)
+    return int(4 * (n3 * J * K * I + n2 * J * I + n1 * K))
 
 
 def bound_ms(nbytes, ops):
@@ -1776,6 +2571,33 @@ def kernel_bounds():
                 nb, ops * ring[0] * ring[1] * ring[2])
     out["k2 S=8"] = bound_ms(field_bytes(blk, 7, 8, 4) / 8,
                              OPS_PER_CELL["k2"] * cells)
+    # the mu/t loop's lean lite substep: reads u, v, t, t_1, tconst,
+    # dvdxi_const and writes t (7 passes), 10 2-D fields in and 5 out
+    out["k1 lite_ws"] = bound_ms(field_bytes(blk, 7, 15, 4),
+                                 OPS_PER_CELL["k2"] * cells)
+    # bf16 constant streams: a narrow pass is half a float32 pass.  K1's
+    # fused scan reads t_1, tconst and dvdxi_const narrow (3 of 9), its
+    # lite substep and K2 also u and v (5 of 7), K3 the same 3 of 9
+    ops = OPS_PER_CELL["k1"]
+    out["k1 bf16"] = bound_ms(field_bytes(blk, 7.5, 16, 4), ops * cells)
+    out["k1 lite_ws bf16"] = bound_ms(field_bytes(blk, 4.5, 15, 4),
+                                      OPS_PER_CELL["k2"] * cells)
+    out["k2 S=8 bf16"] = bound_ms(field_bytes(blk, 4.5, 8, 4) / 8,
+                                  OPS_PER_CELL["k2"] * cells)
+    for S in (2, 4, 8):
+        ring = (blk[0] + 2 * (S - 1), K, blk[2])
+        out[f"k3 S={S} bf16"] = bound_ms(
+            field_bytes(ring, 7.5, 11, 4) / S,
+            ops * ring[0] * ring[1] * ring[2])
+    # one (2,2) shard's block, where the in-kernel exchange is timed: the
+    # neighbours' rows are 2 (+2 under damping) more row reads, nothing
+    # beside the block
+    sh = ((ny + 2) // 2 + 2, K, (nx + 2) // 2 + 2)
+    sh_cells = sh[0] * sh[1] * sh[2]
+    out["k1 shard"] = bound_ms(field_bytes(sh, 9, 16, 4), ops * sh_cells)
+    ring = (sh[0] + 2, K, sh[2] + 2)
+    out["k3 S=2 shard"] = bound_ms(field_bytes(ring, 9, 11, 4) / 2,
+                                   ops * ring[0] * ring[1] * ring[2])
     return out
 
 
@@ -1811,9 +2633,13 @@ def main() -> int:
     print(f"[k3 vs k1] different= counts: {k3_vs_k1}")
     k3w_vs_k1w = timed("k3+w vs k1+w", phase_k3_vs_k1, with_w=True)
     print(f"[k3+w vs k1+w] different= counts: {k3w_vs_k1w}")
+    k1o_times = timed("k1 overlap", phase_k1_overlap, card=smi)
+    k3o_times = timed("k3 overlap", phase_k3_overlap, card=smi)
+    bf16_times = timed("bf16 constant streams", phase_bf16, card=smi)
     k6, k6_launches = timed("copy ceiling", phase_copy_ceiling, card=smi)
-    k5_times, k5_bytes = timed("k5 vs plain", phase_k5_vs_plain, card=smi)
-    k5_loop_launches = timed("mesh loops", phase_mesh_loops)
+    k5_times, k5_host, k5_bytes = timed("k5 vs plain", phase_k5_vs_plain,
+                                        card=smi)
+    k5_loop_launches, ov_launches = timed("mesh loops", phase_mesh_loops)
     _, k1_shard = timed("k1 at a 2x2 shard's block", phase_kernel_vs_plain,
                         cases=((SHARD_GRID, "specified"),),
                         time_grids=(SHARD_GRID,), card=smi)
@@ -1832,7 +2658,9 @@ def main() -> int:
         drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
         timed("driver --dump-intermediates and the native executable",
               phase_capture_driver, tmp)
-    loops = timed("loop timings", phase_loop_timings, card=smi)
+    loops, loops_ev = timed("loop timings", phase_loop_timings, card=smi)
+    profile = timed("profile of the damped 2x2 loop", phase_mesh_profile,
+                    card=smi)
     borrowed = [m for m in sys.modules
                 if m == "jax" or m == "wrf_tpu" or m.startswith("wrf_tpu.")]
     if borrowed:
@@ -1863,22 +2691,28 @@ def main() -> int:
           + ", ".join(f"{k.split('50 ')[1]} {v:.4f}" for k, v in loops.items()
                       if "+w" in k))
 
-    print("[loops mesh] marginal ms per substep (1x1: "
-          f"{loops['coupled 512x512x50 S=1']:.4f}): "
-          + ", ".join(f"{k.split('mesh ')[1]} {v:.4f}"
+    print("[loops mesh] marginal ms per substep, host clock (CUDA events) "
+          f"(1x1: {loops['coupled 512x512x50 S=1']:.4f}): "
+          + ", ".join(f"{k.split('50 ')[1]} {v:.4f} ({loops_ev[k]:.4f})"
                       for k, v in loops.items()
-                      if "mesh" in k and "smdiv" not in k))
+                      if "mesh" in k and "smdiv" not in k) + f" ({smi})")
     shard_ms = mean(k1_shard[SHARD_GRID, "scan"]["cuda"])
     print(f"[loops mesh] K1 fused scan substep on one 2x2 shard's block "
           f"(259x50x259): {shard_ms:.4f} ms per launch, {4 * shard_ms:.4f} "
           f"for the four; on the whole 516x50x516 "
           f"{mean(k1_times[BIG_GRID, 'scan']['cuda']):.4f} ({smi})")
-    print("[loops smdiv] marginal ms per substep with divergence damping "
-          "(without): " + ", ".join(
-              f"{k.split('50 ')[1]} {v:.4f} "
-              f"({loops[k.replace(' smdiv', '')]:.4f})"
+    print("[loops smdiv] marginal ms per substep with divergence damping, "
+          "host clock (CUDA events; host clock without): " + ", ".join(
+              f"{k.split('50 ')[1]} {v:.4f} ({loops_ev[k]:.4f}; "
+              f"{loops[k.replace(' smdiv', '')]:.4f})"
               for k, v in loops.items() if "smdiv" in k) + f" ({smi})")
-    for run in ("S=1", "2x2 ppermute", "2x2 rdma", "smdiv", "smdiv 2x2 rdma"):
+    print("[loops bf16] marginal ms per substep with bf16 constant streams "
+          "(float32): " + ", ".join(
+              f"{k} {v:.4f} ({loops[k.replace(' bf16', '')]:.4f})"
+              for k, v in loops.items() if "bf16" in k) + f" ({smi})")
+    for run in ("S=1", "2x2 ppermute", "2x2 rdma", "2x2 overlap", "S=2",
+                "S=2 2x2 overlap", "smdiv", "smdiv 2x2 rdma",
+                "smdiv 2x2 overlap", "bf16", "bf16 2x2 overlap"):
         print(f"[slice] run_sim {run}: step 3 alone {sim[run][1][2]:.3f} ms "
               f"({smi})")
 
@@ -1886,7 +2720,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "advance_mu_t_fused",
         "route": "cuda",
-        "source": "wrf_tpu_torch/csrc/advance_mu_t.cu",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t_kernel.cuh",
         "replaces": "wrf_tpu/ops/advance_mu_t_pallas.py:114",
         "launches": sim["S=1"][0]["k1"],
         "launches_by_path": {
@@ -1895,6 +2729,17 @@ def main() -> int:
             "run_sim --with-w": sim["S=1 +w"][0]["k1"],
             "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k1"],
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k1"],
+            "run_sim --mesh 2x2 --halo-backend rdma_overlap":
+                sim["2x2 overlap"][0]["k1"],
+            "run_sim --mesh 2x2 --halo-backend rdma_overlap --inner-steps 2":
+                sim["S=2 2x2 overlap"][0]["k1"],
+            "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend "
+            "rdma_overlap": sim["smdiv 2x2 overlap"][0]["k1"],
+            "run_sim --precision bf16-const": sim["bf16"][0]["k1"],
+            "run_sim --precision bf16-const --mesh 2x2 --halo-backend "
+            "rdma_overlap": sim["bf16 2x2 overlap"][0]["k1"],
+            "SmallStepLoop 2x2 rdma_overlap, 5 substeps":
+                ov_launches[(2, 2), "S=1"]["k1"],
             "run_sim --namelist (smdiv 0.1)": sim["smdiv"][0]["k1"],
             "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
                 sim["smdiv 2x2 rdma"][0]["k1"],
@@ -1934,6 +2779,32 @@ def main() -> int:
                     "bound_ms": bounds["k1 capture"][0],
                     "bound_by": bounds["k1 capture"][1],
                     "without_bound_ms": bounds["k1 full"][0]},
+        # the j exchange inside the kernel: the fused scan substep on one
+        # (2,2) shard's block, its edge rows reading the neighbours' rows,
+        # beside the same launch on refreshed halos; bit-equal to its plain
+        # version and to that launch
+        "overlap": {"launches": sim["2x2 overlap"][0]["k1"],
+                    "ms": mean(k1o_times["scan"]["with"]),
+                    "without_ms": mean(k1o_times["scan"]["without"]),
+                    "plain_ms": mean(k1o_times["scan"]["plain"]),
+                    "smdiv_ms": mean(k1o_times["smdiv"]["with"]),
+                    "smdiv_without_ms": mean(k1o_times["smdiv"]["without"]),
+                    "max_abs_err": 0.0,
+                    "bound_ms": bounds["k1 shard"][0],
+                    "bound_by": bounds["k1 shard"][1]},
+        # bf16 constant streams, beside the float32 form in one order;
+        # bit-equal to the plain version and to the float32 kernel on the
+        # rounded inputs
+        "bf16": {"launches": sim["bf16"][0]["k1"],
+                 "max_abs_err": 0.0,
+                 "ms_by_mode": {m: ms_of(bf16_times, f"k1 {m}")
+                                for m in ("scan", "lite_ws", "final")},
+                 "fuse_w_ms_by_mode": {m: ms_of(bf16_times, f"k1+w {m}")
+                                       for m in ("scan", "final")},
+                 "bound_ms": bounds["k1 bf16"][0],
+                 "bound_by": bounds["k1 bf16"][1],
+                 "lite_ws_bound_ms": bounds["k1 lite_ws bf16"][0],
+                 "lite_ws_float32_bound_ms": bounds["k1 lite_ws"][0]},
     }, {
         "name": "advance_mu_t_multistep",
         "route": "cuda",
@@ -1947,16 +2818,23 @@ def main() -> int:
         "plain_ms": mean(k2_times["exact S=8"]["plain"]),
         "bound_ms": bounds["k2 S=8"][0], "bound_by": bounds["k2 S=8"][1],
         "library_ms": None,
+        "bf16": {**ms_of(bf16_times, "k2 exact S=8"), "max_abs_err": 0.0,
+                 "bound_ms": bounds["k2 S=8 bf16"][0],
+                 "bound_by": bounds["k2 S=8 bf16"][1]},
     }, {
         "name": "coupled_multistep",
         "route": "cuda",
-        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled.cu",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled_kernel.cuh",
         "replaces": "wrf_tpu/ops/advance_mu_t_msteps.py:1273",
         "launches": sim["S=2"][0]["k3"],
         "launches_by_path": {
             "run_sim --inner-steps 2": sim["S=2"][0]["k3"],
             "run_sim --inner-steps 2 --fast": sim["S=2 fast"][0]["k3"],
             "run_sim --with-w --inner-steps 2": sim["S=2 +w"][0]["k3"],
+            "run_sim --mesh 2x2 --halo-backend rdma_overlap --inner-steps 2":
+                sim["S=2 2x2 overlap"][0]["k3"],
+            "SmallStepLoop 2x2 rdma_overlap S=2, 5 substeps":
+                ov_launches[(2, 2), "S=2"]["k3"],
             "driver coupled S=4": drv["coupled"]["k3"],
             "driver coupled S=4 --with-w": drv["coupled +w"]["k3"]},
         "max_abs_err": k3_abs["k3"],
@@ -1975,10 +2853,26 @@ def main() -> int:
                    "bound_by": bounds["k3 S=2+w"][1],
                    "ms_by_mode": {m: ms_of(k3w_times, m) for m in K3_MODES},
                    "different_vs_k1": k3w_vs_k1w},
+        # the j leg of the width-S exchange inside the kernel: S=2 on one
+        # (2,2) shard's ring-2 block, ms per substep
+        "overlap": {"launches": sim["S=2 2x2 overlap"][0]["k3"],
+                    "ms": mean(k3o_times["S=2"]["with"]),
+                    "without_ms": mean(k3o_times["S=2"]["without"]),
+                    "plain_ms": mean(k3o_times["S=2"]["plain"]),
+                    "max_abs_err": 0.0,
+                    "bound_ms": bounds["k3 S=2 shard"][0],
+                    "bound_by": bounds["k3 S=2 shard"][1]},
+        "bf16": {"max_abs_err": 0.0,
+                 "ms_by_mode": {f"exact S={S}":
+                                ms_of(bf16_times, f"k3 exact S={S}")
+                                for S in (2, 4, 8)},
+                 "bound_ms_by_depth": {f"S={S}": bounds[f"k3 S={S} bf16"][0]
+                                       for S in (2, 4, 8)},
+                 "bound_by": bounds["k3 S=2 bf16"][1]},
     }, {
         "name": "coupled_two_step",
         "route": "cuda",
-        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled.cu",
+        "source": "wrf_tpu_torch/csrc/advance_mu_t_coupled_kernel.cuh",
         "replaces": "wrf_tpu/ops/advance_mu_t_msteps.py:818",
         # no loop of the port calls it: the loop runs K3 at every depth,
         # S=2 included (the same template instance), so this reads 0
@@ -1997,6 +2891,9 @@ def main() -> int:
                    "max_abs_err": k3w_abs["k4"],
                    "bound_ms": bounds["k3 S=2+w"][0],
                    "bound_by": bounds["k3 S=2+w"][1]},
+        "bf16": {**ms_of(bf16_times, "k3 k4 pair"), "max_abs_err": 0.0,
+                 "bound_ms": bounds["k3 S=2 bf16"][0],
+                 "bound_by": bounds["k3 S=2 bf16"][1]},
     }, {
         "name": "remote_refresh_multi",
         "route": "cuda",
@@ -2008,12 +2905,21 @@ def main() -> int:
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k5"],
             "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
                 sim["smdiv 2x2 rdma"][0]["k5"],
-            "SmallStepLoop 2x2 rdma, 5 substeps": k5_loop_launches},
+            "SmallStepLoop 2x2 rdma, 5 substeps": k5_loop_launches,
+            # under rdma_overlap the exchange is inside K1 and K3
+            "run_sim --mesh 2x2 --halo-backend rdma_overlap":
+                sim["2x2 overlap"][0]["k5"],
+            "SmallStepLoop 2x2 rdma_overlap, 5 substeps":
+                ov_launches[(2, 2), "S=1"]["k5"]},
         "max_abs_err": 0.0,
-        # ms per launch (one shard's mu rows both ways and v row up, at the
-        # 2x2 mesh's row size) in a chain of launches through the wrapper:
-        # the chain is bound by the launch, not by the bytes
+        # marginal ms per launch (one shard's mu rows both ways and v row
+        # up, at the 2x2 mesh's row size) between two chains of launches
+        # through the wrapper, on CUDA events (host_ms: the host clock's
+        # reading of the same chains): bound by the launch, not the bytes
         "ms": mean(k5_times["cuda"]),
+        "host_ms": {k: mean(v) for k, v in k5_host.items()},
+        # its device time per launch in the damped (2,2) loop's profile
+        "profiled_device_us": profile[(2, 2), "rdma"]["k5_us_each"],
         "plain_ms": mean(k5_times["plain"]),
         "bound_ms": 2 * k5_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",

@@ -138,14 +138,31 @@ def test_in_place_contract(small_case):
     assert not (tarr["t"].numpy() == before["t"]).all()
 
 
-@pytest.mark.parametrize("unported", [
-    dict(overlap={"axis_name": "j"}),
-])
-def test_unported_modes_raise(small_case, unported):
+@pytest.mark.parametrize("mode", ["overlap"])
+def test_unported_modes_raise(small_case, mode):
+    """``overlap`` was refused until it was ported; now it runs: on a ring
+    of one the neighbour rows are the block's own first and last interior
+    rows, and the call equals, bit for bit, the call on halo rows that
+    were refreshed with them (the memory halo rows poisoned)."""
+    assert mode == "overlap"
     arr, sc, static = _inputs(small_case)
+    kw = dict(fuse_uv=True, cs2=DEFAULT_CS2)
+    ref = {k: torch.tensor(v) for k, v in arr.items()}
+    for n in ("mu", "v"):
+        ref[n][0], ref[n][-1] = ref[n][-2].clone(), ref[n][1].clone()
+    want = k1.advance_mu_t_fused(**ref, **sc, **static, **kw)
     tarr = {k: torch.tensor(v) for k, v in arr.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k1.advance_mu_t_fused(**tarr, **sc, **static, **unported)
+    rows = dict(mu_lo=tarr["mu"][-2].clone(), mu_hi=tarr["mu"][1].clone(),
+                v_hi=tarr["v"][1].clone())
+    for n in ("mu", "v"):
+        tarr[n][0] = tarr[n][-1] = 1e30
+    got = k1.advance_mu_t_fused(**tarr, **sc, **static, **kw, overlap=rows)
+    assert sorted(got) == sorted(want)
+    for n in want:
+        assert torch.equal(got[n][1:-1], want[n][1:-1]), n
+        assert got[n][1:-1].abs().max() < 1e20, f"poison leaked into {n}"
+    with pytest.raises(ValueError, match="overlap requires fuse_uv"):
+        k1.advance_mu_t_fused(**tarr, **sc, **static, overlap=rows)
 
 
 WIND_SCALE_MODES = {
@@ -182,10 +199,21 @@ def test_fuse_uv_with_wind_scale_raises(small_case):
 
 
 def test_bf16_inputs_raise(small_case):
+    """A bf16 constant stream was refused until it was ported; now it is
+    widened on load: the call equals, bit for bit, the float32 call on the
+    rounded values.  A bf16 STATE operand raises, with the JAX message."""
     arr, sc, static = _inputs(small_case)
     tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    ref = {k: v.clone() for k, v in tarr.items()}
+    ref["t_1"] = ref["t_1"].to(torch.bfloat16).float()
+    want = k1.advance_mu_t_fused(**ref, **sc, **static)
     tarr["t_1"] = tarr["t_1"].to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    got = k1.advance_mu_t_fused(**tarr, **sc, **static)
+    for n in want:
+        assert got[n].dtype == torch.float32
+        assert torch.equal(got[n], want[n]), n
+    tarr["t"] = tarr["t"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 't' is not a constant stream"):
         k1.advance_mu_t_fused(**tarr, **sc, **static)
 
 

@@ -215,13 +215,40 @@ def test_wrapper_contract():
                for k in arr)
     with pytest.raises(ValueError, match="n_inner"):
         k3.coupled_multistep(**tarr, **static, n_inner=1)
-    for bad in (dict(ti=128), dict(overlap={"axis_name": "j"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            k3.coupled_multistep(**tarr, **static, n_inner=S, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k3.coupled_multistep(**tarr, **static, n_inner=S, ti=128)
     with pytest.raises(NotImplementedError, match="own \\(j, i\\) tiles"):
         k3.coupled_multistep(**tarr, **static, n_inner=S, ti=128)
+    # overlap and bf16 constant streams were refused until they were
+    # ported; now they run.  On a ring of one the neighbours' slabs are the
+    # block's own last and first S interior rows: bit-equal to the call on
+    # ring rows refreshed with them, the memory ring rows poisoned.
+    ref = {k: torch.tensor(v) for k, v in arr.items()}
+    ov = {k: torch.tensor(v) for k, v in arr.items()}
+    rows = {}
+    for n in ("mu", "u", "v"):
+        rows[n + "_lo"] = ov[n][-2 * S:-S].clone()
+        rows[n + "_hi"] = ov[n][S:2 * S].clone()
+        ref[n][:S], ref[n][-S:] = rows[n + "_lo"], rows[n + "_hi"]
+        ov[n][:S] = ov[n][-S:] = 1e30
+    want = k3.coupled_multistep(**ref, **static, n_inner=S)
+    got = k3.coupled_multistep(**ov, **static, n_inner=S, overlap=rows)
+    for n in want:
+        assert torch.equal(got[n][S:-S], want[n][S:-S]), n
+        assert got[n][S:-S].abs().max() < 1e20, f"poison leaked into {n}"
+    with pytest.raises(ValueError, match="missing \\['v_hi'\\]"):
+        k3.coupled_multistep(**ov, **static, n_inner=S,
+                             overlap={k: v for k, v in rows.items()
+                                      if k != "v_hi"})
+    ref = {k: torch.tensor(v) for k, v in arr.items()}
+    ref["t_1"] = ref["t_1"].to(torch.bfloat16).float()
+    want = k3.coupled_multistep(**ref, **static, n_inner=S)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
     tarr["t_1"] = tarr["t_1"].to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    got = k3.coupled_multistep(**tarr, **static, n_inner=S)
+    assert all(torch.equal(got[n], want[n]) for n in want)
+    tarr["u"] = tarr["u"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 'u' is not a constant stream"):
         k3.coupled_multistep(**tarr, **static, n_inner=S)
 
 

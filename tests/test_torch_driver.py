@@ -68,14 +68,15 @@ def test_coupled_native_bit_exact(fx9, capsys):
 def test_all_tiers(fx9, capsys):
     rc, out = _main(capsys, fx9, "--tier", "all")
     assert rc == 0, out
-    assert out.count("PASS") == len(driver.ALL_ROWS) == 16
-    # the JAX driver's matrix without its two bf16 rows
+    assert out.count("PASS") == len(driver.ALL_ROWS) == 18
+    # the JAX driver's matrix, row for row and in its order
     assert [r.replace("eager", "xla").replace("cuda", "pallas")
             for r in driver.ALL_ROWS] == [
         "numpy", "native", "xla", "pallas", "sharded-xla", "sharded-pallas",
         "coupled", "coupled-xla", "coupled-native", "coupled+w",
-        "coupled-xla+w", "coupled-native+w", "sharded-pallas~blk",
-        "sharded-pallas~blkfast", "coupled~blk", "coupled~blkfast"]
+        "coupled-xla+w", "coupled-native+w", "sharded-pallas~bf16",
+        "coupled~bf16", "sharded-pallas~blk", "coupled~blk",
+        "sharded-pallas~blkfast", "coupled~blkfast"]
     assert "FAIL" not in out and "ERROR" not in out
     for tier in ("numpy", "native"):
         line = next(ln for ln in out.splitlines()
@@ -100,12 +101,31 @@ def test_device_cuda_without_gpu_exits(fx9):
 
 @pytest.mark.parametrize("args", [
     ("--tier", "coupled", "--halo-backend", "rdma_overlap"),
-    ("--precision", "bf16-const"),
+    ("--tier", "coupled", "--precision", "bf16-const"),
     ("--tier", "coupled", "--mesh", "2x2", "--halo-backend", "rdma_overlap"),
+    ("--tier", "sharded-cuda", "--precision", "bf16-const"),
+    ("--tier", "sharded-cuda", "--precision", "bf16-const", "--inner-steps",
+     "4", "--mesh", "2x2"),
+    ("--tier", "coupled", "--mesh", "4x1", "--halo-backend", "rdma_overlap",
+     "--inner-steps", "2", "--with-w", "--precision", "bf16-const"),
 ])
-def test_unported_options_exit(fx9, args):
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
-        driver.main([str(fx9), *args, "--device", "cpu"])
+def test_unported_options_exit(fx9, capsys, args):
+    """The options that exited "not yet ported" until their kernels were
+    ported: each now runs its tier and passes its gate (bf16-const at
+    2e-2 of field scale)."""
+    rc, out = _main(capsys, fx9, *args)
+    assert rc == 0, out
+    assert "FAILED" not in out
+
+
+def test_precision_applies_to_the_fused_loop_tiers(fx9, capsys):
+    """The JAX driver's p.error, with the port's tier names."""
+    for tier in ("cuda", "eager", "coupled-eager", "all"):
+        with pytest.raises(SystemExit):
+            driver.main([str(fx9), "--tier", tier, "--precision",
+                         "bf16-const", "--device", "cpu"])
+        assert ("--precision bf16-const applies to the fused-kernel loop "
+                "tiers (sharded-cuda, coupled)") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("args", [

@@ -405,8 +405,12 @@ def test_loop_leaves_prepared_blocks_alone(small_case):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(halo_backend="nccl"), ValueError, "bad halo_backend 'nccl'"),
-    (dict(halo_backend="rdma_overlap"), NotImplementedError,
-     "rdma_overlap.*ROADMAP"),
+    (dict(halo_backend="rdma_overlap", const_dtype=torch.bfloat16), None,
+     "runs: ported"),
+    (dict(const_dtype=torch.bfloat16, kernel="eager"), ValueError,
+     "const_dtype requires the fused kernel"),
+    (dict(const_dtype=torch.float16), ValueError,
+     "const_dtype must be torch.bfloat16 or None"),
     (dict(halo_backend="rdma_overlap", kernel="eager"), ValueError,
      "rdma_overlap requires the fused"),
     (dict(inner_steps=2.0), ValueError,
@@ -424,6 +428,14 @@ def test_loop_validation_messages(small_case, kw, err, match):
     kw = dict(kw)
     if "mesh" in kw:
         kw["mesh"] = _cpu_mesh(kw["mesh"])
+    if err is None:   # an option that was refused until it was ported
+        loop = SmallStepLoop(*_dims(small_case), small_case.flags, n_steps=5,
+                             device="cpu", **kw)
+        out = loop(loop.prepare(port_sharded.case_to_domain(small_case)),
+                   small_case.rdx, small_case.rdy, small_case.dts,
+                   small_case.epssm)
+        assert all(torch.isfinite(x).all() for x in out.values())
+        return
     with pytest.raises(err, match=match):
         SmallStepLoop(*_dims(small_case), small_case.flags, n_steps=5,
                       device="cpu", **kw)

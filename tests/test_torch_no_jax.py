@@ -56,6 +56,14 @@ _CHILD = textwrap.dedent("""
                          case.rdy, case.dts, case.epssm))
         assert torch.isfinite(outs[-1]["t"]).all()
     assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+    # the exchange inside the kernels, with bf16 constant streams, blocked
+    loop = SmallStepLoop(case.bounds.ide, case.bounds.jde, case.bounds.kdim,
+                         case.flags, n_steps=6, inner_steps=2, device="cpu",
+                         mesh=mesh, halo_backend="rdma_overlap",
+                         const_dtype=torch.bfloat16)
+    out = loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy,
+               case.dts, case.epssm)
+    assert torch.isfinite(out["t"]).all() and out["t"].dtype == torch.float32
     assert "jax" not in sys.modules, "jax was imported"
     borrowed = [m for m in sys.modules
                 if m == "wrf_tpu" or m.startswith("wrf_tpu.")]
@@ -140,5 +148,10 @@ def test_library_name_tracks_sources():
     assert p.name.startswith("libwrf_tpu_torch_") and p.suffix == ".so"
     assert p == _build.library_path()
     assert [s.name for s in _build.sources()] == [
-        "advance_mu_t.cu", "advance_mu_t_coupled.cu",
-        "advance_mu_t_msteps.cu", "copy.cu", "halo_rdma.cu", "w_solve.cuh"]
+        "advance_mu_t.cu", "advance_mu_t_bf16.cu",
+        "advance_mu_t_bf16_overlap.cu", "advance_mu_t_coupled.cu",
+        "advance_mu_t_coupled_bf16.cu", "advance_mu_t_coupled_bf16_overlap.cu",
+        "advance_mu_t_coupled_overlap.cu", "advance_mu_t_msteps.cu",
+        "advance_mu_t_overlap.cu", "copy.cu", "halo_rdma.cu",
+        "advance_mu_t_coupled_kernel.cuh", "advance_mu_t_kernel.cuh",
+        "const_stream.cuh", "w_solve.cuh"]

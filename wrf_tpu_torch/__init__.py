@@ -19,7 +19,7 @@ wrf_tpu_torch.driver``):
   models.small_step  SmallStepLoop: the coupled acoustic substep loop
               (``with_w``: plus the vertically-implicit w/pp substep)
   parallel.sharded   ShardedAdvanceMuT: the mu/t loop; ring-shaped glue
-  ops.advance_mu_t_cuda  K1, the fused substep (csrc/advance_mu_t.cu)
+  ops.advance_mu_t_cuda  K1, the fused substep (csrc/advance_mu_t_kernel.cuh)
   ops.advance_mu_t_msteps_cuda  K2, S mu/t substeps per pass
   ops.advance_mu_t_coupled_cuda  K3/K4, S coupled substeps per pass
   ops.thomas, csrc/w_solve.cuh  the w/pp Thomas solve inside K1 and K3

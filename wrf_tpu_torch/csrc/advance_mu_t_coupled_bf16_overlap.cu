@@ -1,0 +1,16 @@
+// K3 instances: bf16 constant streams with the in-kernel j exchange
+// (OVERLAP).
+// The kernel and its dispatch are in csrc/advance_mu_t_coupled_kernel.cuh;
+// the C entry is in csrc/advance_mu_t_coupled.cu.  A source of its own so
+// that the instances build in parallel.
+
+#include "advance_mu_t_coupled_kernel.cuh"
+
+namespace k3 {
+
+cudaError_t launch_bf16_overlap(const Args& a, int n_inner, bool fuse_w,
+                 cudaStream_t s) {
+  return dispatch_group<true, __nv_bfloat16>(a, n_inner, fuse_w, s);
+}
+
+}  // namespace k3

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel wrf_tpu/ops/advance_mu_t_msteps.py::_kernel,
 // launched there by advance_mu_t_multistep_pallas.  It runs S scan
 // substeps of the mu/t loop (parallel/sharded.py ShardedAdvanceMuT) in one
-// pass: each is K1's lean/lite substep (csrc/advance_mu_t.cu with LEAN,
+// pass: each is K1's lean/lite substep (csrc/advance_mu_t_kernel.cuh, LEAN,
 // WW_MODE lite, no FUSE_UV) with the winds scaled on load by the ramp
 // ws(s) = 1 + (w0 + s)*dw.  The plain PyTorch version of the same
 // arithmetic is advance_mu_t_multistep_plain in
@@ -50,6 +50,11 @@
 // one pass 1 and one pass 2 per launch, whatever S.  Held to a tolerance,
 // not to bit-equality.
 //
+// CT, the element type of the constant streams u, v, t_1, tconst and
+// dvdxi_const (float or __nv_bfloat16): they are widened to float on load
+// (exact), once per level and chunk, outside the substep loop; t, mu,
+// ww_row and all arithmetic stay float.
+//
 // Bound: memory (a few dozen flops per level and substep against ~11 loads
 // per level shared by the chunk).  Times on the card are in PERF.md.
 //
@@ -62,6 +67,8 @@
 
 #include <cstddef>
 
+#include "const_stream.cuh"
+
 namespace {
 
 constexpr int kChunk = 8;    // substeps whose state is held in registers
@@ -69,13 +76,13 @@ constexpr int kBlockX = 32;  // threads along i (one warp)
 constexpr int kBlockY = 4;   // rows per block
 
 struct Args {
-  // 3-D fields (J, K, I)
-  const float* u;
-  const float* v;
+  // 3-D fields (J, K, I); the void pointers are the constant streams (CT)
+  const void* u;
+  const void* v;
   float* t;  // updated in place
-  const float* t_1;
-  const float* tconst;
-  const float* dvdxi_const;
+  const void* t_1;
+  const void* tconst;
+  const void* dvdxi_const;
   // 2-D fields (J, I)
   const float* ww1_k0;
   float* ww_row;  // updated in place
@@ -132,10 +139,16 @@ __device__ bool column(const Args& a, Column& c) {
   return true;
 }
 
+template <typename CT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 msteps_exact_kernel(const Args a) {
   Column c;
   if (!column(a, c)) return;
+  const CT* const a_u = static_cast<const CT*>(a.u);
+  const CT* const a_v = static_cast<const CT*>(a.v);
+  const CT* const a_t_1 = static_cast<const CT*>(a.t_1);
+  const CT* const a_tconst = static_cast<const CT*>(a.tconst);
+  const CT* const a_dvdxi_const = static_cast<const CT*>(a.dvdxi_const);
   const int I = a.I;
   const int c2 = c.c2;
   const float rdx = a.rdx, rdy = a.rdy, dts = a.dts;
@@ -158,9 +171,9 @@ msteps_exact_kernel(const Args a) {
     // ---- pass 1: dmdt(s), the column sum in k order --------------------
     for (int k = k0; k <= k1; ++k) {
       const size_t x = c.col + (size_t)k * I;
-      const float u_c = a.u[x], u_e = a.u[x - c.i + c.ip];
-      const float v_c = a.v[x], v_n = a.v[x + c.row];
-      const float dc = a.dvdxi_const[x], dn = a.dnw[k];
+      const float u_c = ldf(a_u, x), u_e = ldf(a_u, x - c.i + c.ip);
+      const float v_c = ldf(a_v, x), v_n = ldf(a_v, x + c.row);
+      const float dc = ldf(a_dvdxi_const, x), dn = a.dnw[k];
 #pragma unroll
       for (int s = 0; s < kChunk; ++s) {
         if (s < ns) {
@@ -184,24 +197,24 @@ msteps_exact_kernel(const Args a) {
     }
 
     // ---- pass 2: ww scan and theta, k ascending, substeps inside --------
-    float t1_k = a.t_1[c.col + (size_t)k0 * I];
+    float t1_k = ldf(a_t_1, c.col + (size_t)k0 * I);
     for (int k = k0; k <= k1; ++k) {
       const size_t x = c.col + (size_t)k * I;
       const size_t xe = x - c.i + c.ip, xw = x - c.i + c.im;
       const size_t xn = x + c.row, xs = x - c.row;
-      const float u_c = a.u[x], u_e = a.u[xe];
-      const float v_c = a.v[x], v_n = a.v[xn];
-      const float dc = a.dvdxi_const[x], dn = a.dnw[k];
+      const float u_c = ldf(a_u, x), u_e = ldf(a_u, xe);
+      const float v_c = ldf(a_v, x), v_n = ldf(a_v, xn);
+      const float dc = ldf(a_dvdxi_const, x), dn = a.dnw[k];
       const bool up = k < k1;  // level k+1 exists (0 above k1)
       float t1_up = 0.f, interp_up = 0.f;
       if (up) {
-        t1_up = a.t_1[x + I];
+        t1_up = ldf(a_t_1, x + I);
         interp_up = a.fnm[k + 1] * t1_up + a.fnp[k + 1] * t1_k;
       }
       const float rdnw = a.rdnw[k];
-      const float ty_n = a.t_1[xn] + t1_k, ty_s = t1_k + a.t_1[xs];
-      const float tx_e = a.t_1[xe] + t1_k, tx_w = t1_k + a.t_1[xw];
-      const float tc = a.tconst[x];
+      const float ty_n = ldf(a_t_1, xn) + t1_k, ty_s = t1_k + ldf(a_t_1, xs);
+      const float tx_e = ldf(a_t_1, xe) + t1_k, tx_w = t1_k + ldf(a_t_1, xw);
+      const float tc = ldf(a_tconst, x);
       float t = a.t[x];
 #pragma unroll
       for (int s = 0; s < kChunk; ++s) {
@@ -232,10 +245,16 @@ msteps_exact_kernel(const Args a) {
   a.ww_row[c2] = seed;
 }
 
+template <typename CT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 msteps_fast_kernel(const Args a) {
   Column c;
   if (!column(a, c)) return;
+  const CT* const a_u = static_cast<const CT*>(a.u);
+  const CT* const a_v = static_cast<const CT*>(a.v);
+  const CT* const a_t_1 = static_cast<const CT*>(a.t_1);
+  const CT* const a_tconst = static_cast<const CT*>(a.tconst);
+  const CT* const a_dvdxi_const = static_cast<const CT*>(a.dvdxi_const);
   const int I = a.I;
   const int c2 = c.c2;
   const float rdx = a.rdx, rdy = a.rdy, dts = a.dts;
@@ -249,11 +268,11 @@ msteps_fast_kernel(const Args a) {
   float dmdt_c = 0.f, dmdt_d = 0.f;
   for (int k = k0; k <= k1; ++k) {
     const size_t x = c.col + (size_t)k * I;
-    const float u_c = a.u[x], u_e = a.u[x - c.i + c.ip];
-    const float v_c = a.v[x], v_n = a.v[x + c.row];
+    const float u_c = ldf(a_u, x), u_e = ldf(a_u, x - c.i + c.ip);
+    const float v_c = ldf(a_v, x), v_n = ldf(a_v, x + c.row);
     const float dn = a.dnw[k];
     const float dyn = msft2 * (rdy * (v_n - v_c) + rdx * (u_e - u_c));
-    dmdt_c += dn * a.dvdxi_const[x];
+    dmdt_c += dn * ldf(a_dvdxi_const, x);
     dmdt_d += dn * dyn;
   }
 
@@ -270,30 +289,32 @@ msteps_fast_kernel(const Args a) {
   // ---- pass 2: the ww cumsums, the G terms and the summed update -------
   float yc = 0.f, yd = 0.f;           // sum over m < k of steps(m), m >= k0
   float wa = 0.f, wb = 0.f, wc = 0.f;  // interp * (...) at level k (0 at k0)
-  float t1_k = a.t_1[c.col + (size_t)k0 * I];
+  float t1_k = ldf(a_t_1, c.col + (size_t)k0 * I);
   for (int k = k0; k <= k1; ++k) {
     const size_t x = c.col + (size_t)k * I;
     const size_t xe = x - c.i + c.ip, xw = x - c.i + c.im;
     const size_t xn = x + c.row, xs = x - c.row;
-    const float u_c = a.u[x], u_e = a.u[xe];
-    const float v_c = a.v[x], v_n = a.v[xn];
+    const float u_c = ldf(a_u, x), u_e = ldf(a_u, xe);
+    const float v_c = ldf(a_v, x), v_n = ldf(a_v, xn);
     float t1_up = 0.f, wa_up = 0.f, wb_up = 0.f, wc_up = 0.f;
     if (k < k1) {
       const float dn = a.dnw[k];
       const float dyn = msft2 * (rdy * (v_n - v_c) + rdx * (u_e - u_c));
-      yc = yc + (-dn * ((dmdt_c + a.dvdxi_const[x]) + mt)) * rmsfty;
+      yc = yc + (-dn * ((dmdt_c + ldf(a_dvdxi_const, x)) + mt)) * rmsfty;
       yd = yd + (-dn * (dmdt_d + dyn)) * rmsfty;
-      t1_up = a.t_1[x + I];
+      t1_up = ldf(a_t_1, x + I);
       const float interp_up = a.fnm[k + 1] * t1_up + a.fnp[k + 1] * t1_k;
       wa_up = interp_up * (seed + yc);
       wb_up = -(interp_up * ww1k0);
       wc_up = interp_up * yd;
     }
     const float rdnw = a.rdnw[k];
-    const float fy = v_n * (a.t_1[xn] + t1_k) - v_c * (t1_k + a.t_1[xs]);
-    const float fx = u_e * (a.t_1[xe] + t1_k) - u_c * (t1_k + a.t_1[xw]);
+    const float fy =
+        v_n * (ldf(a_t_1, xn) + t1_k) - v_c * (t1_k + ldf(a_t_1, xs));
+    const float fx =
+        u_e * (ldf(a_t_1, xe) + t1_k) - u_c * (t1_k + ldf(a_t_1, xw));
     const float horiz = c.msftx * (hrdy * fy + hrdx * fx);
-    const float g0 = a.tconst[x] - dm * (rdnw * (wa_up - wa));
+    const float g0 = ldf(a_tconst, x) - dm * (rdnw * (wa_up - wa));
     const float g1 = -(dm * (rdnw * (wb_up - wb)));
     const float g2 = -(dm * (horiz + rdnw * (wc_up - wc)));
     a.t[x] = a.t[x] + ((sn * g0 + ss * g1) + sws * g2);
@@ -307,17 +328,19 @@ msteps_fast_kernel(const Args a) {
 }  // namespace
 
 // Plain C entry for ctypes.  t, mu and ww_row are updated in place.
+// ``const_bf16``: u, v, t_1, tconst and dvdxi_const point at bf16 elements.
 // Launches on ``stream`` and returns cudaGetLastError() of the launch
 // (0 on success); it neither allocates nor synchronises.
 extern "C" int wrf_tpu_torch_advance_mu_t_msteps(
-    const float* u, const float* v, float* t, const float* t_1,
-    const float* tconst, const float* dvdxi_const, const float* ww1_k0,
+    const void* u, const void* v, float* t, const void* t_1,
+    const void* tconst, const void* dvdxi_const, const float* ww1_k0,
     float* ww_row, float* mu, const float* mu_tend, const float* msftx,
     const float* msfty, const float* dnw, const float* fnm, const float* fnp,
     const float* rdnw,
     float rdx, float rdy, float dts, float w0, float dw,
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
-    int i_off, int k0, int k1, int n_inner, int fast, void* stream) {
+    int i_off, int k0, int k1, int n_inner, int fast, int const_bf16,
+    void* stream) {
   if (J < 3 || K < 1 || I < 1 || k0 < 0 || k1 >= K || k0 > k1 ||
       n_inner < 1)
     return cudaErrorInvalidValue;
@@ -329,9 +352,16 @@ extern "C" int wrf_tpu_torch_advance_mu_t_msteps(
   const dim3 grid((I + kBlockX - 1) / kBlockX,
                   (J - 2 + kBlockY - 1) / kBlockY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast)
-    msteps_fast_kernel<<<grid, block, 0, s>>>(a);
-  else
-    msteps_exact_kernel<<<grid, block, 0, s>>>(a);
+  if (const_bf16) {
+    if (fast)
+      msteps_fast_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(a);
+    else
+      msteps_exact_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(a);
+  } else {
+    if (fast)
+      msteps_fast_kernel<float><<<grid, block, 0, s>>>(a);
+    else
+      msteps_exact_kernel<float><<<grid, block, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,18 @@
+// K1 instances: float constant streams with the in-kernel j exchange
+// (OVERLAP).
+// The kernel and its dispatch are in csrc/advance_mu_t_kernel.cuh; the C
+// entry is in csrc/advance_mu_t.cu.  A source of its own so that the
+// instances build in parallel.
+
+#include "advance_mu_t_kernel.cuh"
+
+namespace k1 {
+
+cudaError_t launch_f32_overlap(
+    const Args& a, int fuse_uv, int lean, int ww_mode, int with_tave,
+    int fuse_w, int block_x, cudaStream_t s) {
+  return dispatch_group<true, float, true>(
+      a, fuse_uv, lean, ww_mode, with_tave, fuse_w, block_x, s);
+}
+
+}  // namespace k1

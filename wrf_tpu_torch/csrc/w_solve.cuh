@@ -1,6 +1,6 @@
 // The fused vertically-implicit w/pp substep of K1 and K3: one column's
-// Thomas solve, shared by csrc/advance_mu_t.cu and
-// csrc/advance_mu_t_coupled.cu.
+// Thomas solve, shared by csrc/advance_mu_t_kernel.cuh and
+// csrc/advance_mu_t_coupled_kernel.cuh.
 //
 // Replaces the fuse_w block of the TPU kernels
 // (wrf_tpu/ops/advance_mu_t_pallas.py::_kernel and

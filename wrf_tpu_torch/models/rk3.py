@@ -17,10 +17,12 @@ stage's loop (a stage too short to block runs K1 only); ``with_w`` adds
 the vertically-implicit w/pp substep to every substep, and w and pp join
 the evolved state; ``smdiv`` turns on divergence damping in every stage's
 loop (each stage starts from a zero ``mudf``).  ``mesh`` and
-``halo_backend`` pass to every stage's loop too, except that a stage whose
-blocked path engages under ``rdma``
-downgrades to the width-S ppermute refresh, loudly (there is no width-S
-exchange kernel).  The slow-tendency hook (``tendency_fn``), the closures
+``halo_backend`` pass to every stage's loop too (``rdma_overlap`` to every
+stage, blocked or not: K3 carries its own width-S exchange), except that a
+stage whose blocked path engages under plain ``rdma`` downgrades to the
+width-S ppermute refresh, loudly (there is no width-S exchange kernel).
+``const_dtype`` (bf16 constant streams) passes to every stage's loop.  The
+slow-tendency hook (``tendency_fn``), the closures
 that use it and the device-resident ``multi_step`` are not ported yet.
 """
 
@@ -55,7 +57,7 @@ class RK3Integrator:
                  snapshot: str = "base", device="cuda",
                  inner_steps: int = 1, fast: bool = False,
                  with_w: bool = False, smdiv: float = 0.0, *, mesh=None,
-                 halo_backend: str = "ppermute"):
+                 halo_backend: str = "ppermute", const_dtype=None):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
         self.snapshot = snapshot
@@ -81,7 +83,8 @@ class RK3Integrator:
             SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
                           device=device, inner_steps=inner_steps, fast=fast,
                           with_w=with_w, smdiv=smdiv, mesh=mesh,
-                          halo_backend=stage_backend(n_sub))
+                          halo_backend=stage_backend(n_sub),
+                          const_dtype=const_dtype)
             for (_, n_sub) in self.stages
         ]
         self.prepare = self.loops[0].prepare

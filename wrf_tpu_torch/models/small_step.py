@@ -21,14 +21,25 @@ and feeds the wind update's pressure as ``mudf_in``.
 ``halo_backend="ppermute"`` copies the rows between the blocks
 (``parallel/halo.py``); ``"rdma"`` moves every j-halo row of a substep
 with one launch per shard of the hand-written exchange kernel (K5,
-``ops/halo_rdma_cuda.py``), i halos staying on the ppermute form.
+``ops/halo_rdma_cuda.py``), i halos staying on the ppermute form;
+``"rdma_overlap"`` puts the j exchange inside the substep kernel: only the
+i halos of mu (and mudf) are refreshed, and every shard's K1 launch reads
+its ring neighbours' edge rows itself (``advance_mu_t_fused(overlap=)``),
+so the j leg costs no launch and no copy.
 
 With ``inner_steps`` = S > 1 the scan substeps are temporally blocked:
 ``(n_steps-1)//S`` launches of K3 (the coupled trapezoid,
 ``coupled_multistep``) on ring-S copies of the state and constants, then
 the remaining lite substeps and the final one on K1 as above.  On sharded
 axes the ring-S cells hold the neighbours' data, and mu, u and v are
-refreshed with one width-S exchange per block of S substeps.
+refreshed with one width-S exchange per block of S substeps; under
+``"rdma_overlap"`` the j leg of that exchange is inside K3 too.
+
+``const_dtype=torch.bfloat16`` narrows the never-written 3-D bases (u_1,
+v_1, ww_1, ft, t_1 and the 3-D lean constants; on the blocked path t_1,
+tconst and dvdxi_const of the widened constants) once per call, outside
+the substeps; the kernels widen them on load, and the state, u and v
+included, stays float32.
 
 ``kernel="eager"`` is the counterpart of the JAX loop's ``kernel="xla"``:
 each substep is three whole-array calls, ``advance_uv`` ->
@@ -155,8 +166,20 @@ class SmallStepLoop:
       launch per shard per substep; i-axis refreshes stay on ppermute.
       The blocked (``inner_steps``) path has no width-S exchange kernel:
       it runs on ppermute or not at all;
-    * "rdma_overlap" — the exchange fused INTO the substep kernel; not
-      ported yet.
+    * "rdma_overlap" — the j exchange fused INTO the substep kernel (K1's
+      and K3's ``overlap``): the kernel's edge rows load the ring
+      neighbours' rows through device pointers, so a substep (a block) is
+      ONE launch per shard, with no K5 launch and no row copy; i-axis
+      refreshes stay on ppermute and run before any shard's launch, so a
+      corner cell arrives through the neighbour's refreshed i halo.  Same
+      bits as the other two backends.  Requires the fused kernel;
+      composes with ``smdiv``, ``with_w`` and ``inner_steps``.  On a TPU
+      the point is to hide the transfer behind the interior tiles; with
+      every shard on one card there is no transfer to hide, and what is
+      left is the launches and copies it saves the host.
+
+    ``const_dtype`` (``torch.bfloat16`` or None): reduced-precision
+    constant streams, see the module docstring; requires the fused kernel.
 
     ``force_exchange`` runs the per-substep halo refreshes even on 1-shard
     axes (a ring of one: self-exchange).  This corrupts the boundary-ring
@@ -172,19 +195,21 @@ class SmallStepLoop:
                  with_w: bool = False,
                  cw: float = DEFAULT_CW, gw: float = DEFAULT_GW, *,
                  mesh: Mesh | None = None, halo_backend: str = "ppermute",
-                 force_exchange: bool = False):
+                 force_exchange: bool = False, const_dtype=None):
         if kernel not in ("cuda", "plain", "eager"):
             raise ValueError(f"bad kernel {kernel!r}")
         if halo_backend not in HALO_BACKENDS:
             raise ValueError(f"bad halo_backend {halo_backend!r}")
-        if halo_backend == "rdma_overlap":
-            if kernel == "eager":
-                raise ValueError("rdma_overlap requires the fused kernel "
-                                 "(the exchange lives inside it)")
-            raise NotImplementedError(
-                "SmallStepLoop: halo_backend 'rdma_overlap' (the exchange "
-                "fused into K1 and K3) is not ported yet (ROADMAP.md, queue: "
-                "'rdma_overlap', K1 slice (f) and K3 overlap)")
+        if halo_backend == "rdma_overlap" and kernel == "eager":
+            raise ValueError("rdma_overlap requires the fused kernel "
+                             "(the exchange lives inside it)")
+        if const_dtype is not None and kernel == "eager":
+            raise ValueError("const_dtype requires the fused kernel "
+                             "(kernel='cuda' or 'plain'; the JAX loop's "
+                             "'pallas')")
+        if const_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"const_dtype must be torch.bfloat16 or None, "
+                             f"got {const_dtype!r}")
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         if not isinstance(inner_steps, int) or inner_steps < 1:
@@ -224,8 +249,11 @@ class SmallStepLoop:
         self.with_w = with_w
         self.cw, self.gw = cw, gw
         self.halo_backend = halo_backend
+        self.const_dtype = const_dtype
         self._j_sh = nj > 1 or force_exchange
         self._i_sh = ni > 1 or force_exchange
+        # the j exchange inside the kernels, where there is one to make
+        self._overlap = halo_backend == "rdma_overlap" and self._j_sh
         self.window = domain_window(nx, ny, nz, flags)
         plain = kernel == "plain"
         self._step = advance_mu_t_fused_plain if plain else advance_mu_t_fused
@@ -293,49 +321,105 @@ class SmallStepLoop:
         in-kernel wind update reads its i-1/j-1/j+1 neighbours; v's high
         halo row feeds the last row's j+1 mass flux (its low halo is never
         read).  Under damping mudf is read at the same points as mu: it
-        rides the same exchange (a third field of the one rdma launch)."""
+        rides the same exchange (a third field of the one rdma launch).
+        Under ``rdma_overlap`` the j leg is the kernel's: only the i halos
+        are refreshed here, and the result is every shard's ``overlap``
+        rows (else no keyword)."""
         if not (self._j_sh or self._i_sh):
-            return
+            return {c: {} for c in state}
         mu = [{c: st[k] for c, st in state.items()}
               for k in ("mu",) + self._damp]
-        if self._j_sh:
+        if self._j_sh and not self._overlap:
             v = {c: st["v"] for c, st in state.items()}
             self._refresh_j([mu[0], v] + mu[1:], n_loc[0],
                             recv_only=("", "hi") + ("",) * len(self._damp))
         if self._i_sh:
             self._refresh_i(mu, n_loc[1])
+        if not self._overlap:
+            return {c: {} for c in state}
+        return {c: {"overlap": rows}
+                for c, rows in self._k1_overlap_rows(state, n_loc[0]).items()}
+
+    def _k1_overlap_rows(self, state, nj_loc):
+        """Every shard's K1 ``overlap`` rows: the rows the rdma refresh
+        would have moved, named where they lie.  They are views of the
+        neighbours' state of BEFORE this substep's launches (and keep it
+        alive through them), to be taken after every shard's i refresh."""
+        rows = {}
+        for c in state:
+            prv = state[self.mesh.neighbour(c, "j", -1)]
+            nxt = state[self.mesh.neighbour(c, "j", +1)]
+            rows[c] = dict(mu_lo=prv["mu"][nj_loc], mu_hi=nxt["mu"][1],
+                           v_hi=nxt["v"][1])
+            if self.smdiv:
+                rows[c].update(mudf_lo=prv["mudf"][nj_loc],
+                               mudf_hi=nxt["mudf"][1])
+        return rows
+
+    def _k3_overlap_rows(self, st, nj_loc):
+        """Every shard's K3 ``overlap`` slabs on ring-S blocks: the ring
+        rows ``refresh_axis_w`` would have filled, named where they lie in
+        the neighbours' state of BEFORE this block's launches."""
+        S = self.inner_steps
+        rows = {}
+        for c in st:
+            prv = st[self.mesh.neighbour(c, "j", -1)]
+            nxt = st[self.mesh.neighbour(c, "j", +1)]
+            rows[c] = {}
+            for name in ("mu", "u", "v"):
+                rows[c][name + "_lo"] = prv[name][nj_loc:nj_loc + S]
+                rows[c][name + "_hi"] = nxt[name][S:2 * S]
+        return rows
+
+    def _launch_all(self, launch, shards):
+        """One kernel launch per shard.  Under ``rdma_overlap`` a launch
+        reads its neighbours' blocks, so shards on several cards order their
+        streams around the launches (``Mesh.join_streams``: nothing on one
+        card, whose stream orders them)."""
+        if self._overlap:
+            self.mesh.join_streams()
+        out = {c: launch(c) for c in shards}
+        if self._overlap:
+            self.mesh.join_streams()
+        return out
 
     # ------------------------------------------------------------------
     # the fused path: K1 per substep, K3 per block of S
     # ------------------------------------------------------------------
-    def _run_fused(self, local, scalars, offs, n_loc):
+    def _fused_inputs(self, local, scalars, offs):
+        """What every K1 and K3 launch of a call shares, per shard: the
+        common keywords (window, offsets, vertical bounds, scalars, and with
+        ``with_w`` the Thomas K-vectors of this dts, computed once per
+        device; fast: with the cumsum scale vectors), and the carried state
+        at the start (``ww_row`` from ww's seed level, a zero ``mudf`` under
+        damping: no divergence tendency before the first substep)."""
         _, _, nz = self.domain
         i0, i1, j0, j1, k0, k1 = self.window
-        rdx, rdy, dts, epssm = (scalars[k] for k in ("rdx", "rdy", "dts",
-                                                     "epssm"))
         common, thomas = {}, {}
         for c, padded in local.items():
             common[c] = dict(window=(i0, i1, j0, j1), offsets=offs[c], k0=k0,
                              k1=k1, kde=nz - 1, cs2=self.cs2, **scalars)
             if self.with_w:
-                # the Thomas K-vectors of this dts, computed once per device
-                # for every launch of this call (fast: with the cumsum
-                # scale vectors)
                 dev = padded["rdn"].device
                 if dev not in thomas:
                     thomas[dev] = thomas_vectors(
-                        rdn=padded["rdn"], rdnw=padded["rdnw"], dts=dts,
-                        epssm=epssm, cw=self.cw, gw=self.gw, k0=k0, k1=k1,
-                        fast=self.fast)
+                        rdn=padded["rdn"], rdnw=padded["rdnw"],
+                        dts=scalars["dts"], epssm=scalars["epssm"],
+                        cw=self.cw, gw=self.gw, k0=k0, k1=k1, fast=self.fast)
                 common[c].update(fuse_w=True, cw=self.cw, gw=self.gw,
                                  thomas=thomas[dev])
             padded["ww_row"] = padded["ww"][:, k0, :].contiguous()
-            if self.smdiv:   # no divergence tendency before the first substep
+            if self.smdiv:
                 padded["mudf"] = torch.zeros_like(padded["mu"])
-        carry = self.carry_keys
-        const = {c: {k: v for k, v in p.items() if k not in carry}
+        state = {c: {k: p[k] for k in self.carry_keys}
                  for c, p in local.items()}
-        state = {c: {k: p[k] for k in carry} for c, p in local.items()}
+        return common, state
+
+    def _run_fused(self, local, scalars, offs, n_loc):
+        k0, k1 = self.window[4:]
+        rdx, rdy, dts = (scalars[k] for k in ("rdx", "rdy", "dts"))
+        common, state = self._fused_inputs(local, scalars, offs)
+        carry = self.carry_keys
 
         rem = self.n_steps - 1
         S = self.inner_steps
@@ -345,6 +429,22 @@ class SmallStepLoop:
         if rem:
             lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
                        for c, p in local.items()}
+        if self.const_dtype is not None:
+            # reduced-precision constant streams: cast ONCE per call,
+            # outside the substeps, after every constant was computed from
+            # the float32 fields.  u and v are carried state here and stay
+            # float32; only the never-written 3-D bases narrow.
+            cd = self.const_dtype
+            for p in local.values():
+                for n in ("u_1", "v_1", "ww_1", "ft", "t_1"):
+                    p[n] = p[n].to(cd)
+            if rem:
+                lean_kw = {c: {k: (x.to(cd) if x.ndim == 3 else x)
+                               for k, x in kw.items()}
+                           for c, kw in lean_kw.items()}
+        const = {c: {k: v for k, v in p.items() if k not in carry}
+                 for c, p in local.items()}
+
         def ins(c):
             # the carried mudf is the kernel's mudf_in; its mudf output, a
             # fresh buffer, is the next substep's (nothing is copied)
@@ -354,28 +454,24 @@ class SmallStepLoop:
             return st
 
         for _ in range(rem):
-            self._refresh_fused(state, n_loc)
-            for c in local:
-                out = self._step(**const[c], **ins(c), **lean_kw[c],
-                                 **common[c], fuse_uv=True, with_tave=False,
-                                 ww_mode="lite", lean=True)
-                state[c] = {k: out[k] for k in carry}
-        self._refresh_fused(state, n_loc)
-        return {c: self._step(**const[c], **ins(c), **common[c],
-                              fuse_uv=True, with_tave=True, ww_mode="final")
-                for c in local}
+            ov = self._refresh_fused(state, n_loc)
+            outs = self._launch_all(
+                lambda c: self._step(**const[c], **ins(c), **lean_kw[c],
+                                     **common[c], **ov[c], fuse_uv=True,
+                                     with_tave=False, ww_mode="lite",
+                                     lean=True), local)
+            state = {c: {k: out[k] for k in carry}
+                     for c, out in outs.items()}
+        ov = self._refresh_fused(state, n_loc)
+        return self._launch_all(
+            lambda c: self._step(**const[c], **ins(c), **common[c], **ov[c],
+                                 fuse_uv=True, with_tave=True,
+                                 ww_mode="final"), local)
 
-    def _run_blocks(self, local, state, common, n_blocks, n_loc):
-        """``n_blocks`` K3 launches per shard of S substeps on ring-S copies
-        of the state; returns the state back in the ring-1 layout.  The
-        ring-S layout is built ONCE: j is widened and, when i is sharded, i
-        too (an unsharded i keeps its ring-1 layout and wraps); on sharded
-        axes the outer cells hold the neighbours' data and the
-        block-carried mu, u and v halos are refreshed per block with a
-        width-S exchange.  The constants are computed ON the widened
-        inputs, in the JAX loop's order (computed first and widened after,
-        dvdxi_const's rolls would leave wrapped values in ring cells the
-        trapezoid reads)."""
+    def _block_inputs(self, local, state, common, n_loc):
+        """What the K3 launches of the blocked path take, per shard: the
+        constants on ring-S blocks, the carried state widened to ring S and
+        the launches' common keywords (see :meth:`_run_blocks`)."""
         S = self.inner_steps
         mesh = self.mesh
         nj_loc, ni_loc = n_loc
@@ -407,12 +503,35 @@ class SmallStepLoop:
                         "msftx": wide["msftx"], "msfty": wide["msfty"],
                         **vert, **lean,
                         **coupled_lean_kwargs(wide, rdx, rdy, dts)}
+            if self.const_dtype is not None:
+                for n in ("t_1", "tconst", "dvdxi_const"):
+                    const[c][n] = const[c][n].to(self.const_dtype)
             if self.with_w:
                 const[c]["rdn"] = padded["rdn"]
             st[c] = {k: b[c] for k, b in wide_s.items()}
             j_off, i_off = common[c]["offsets"]
             com[c] = dict(common[c], offsets=(
                 j_off, i_off - (S - 1 if self._i_sh else 0)))
+        return const, st, com
+
+    def _run_blocks(self, local, state, common, n_blocks, n_loc):
+        """``n_blocks`` K3 launches per shard of S substeps on ring-S copies
+        of the state; returns the state back in the ring-1 layout.  The
+        ring-S layout is built ONCE: j is widened and, when i is sharded, i
+        too (an unsharded i keeps its ring-1 layout and wraps); on sharded
+        axes the outer cells hold the neighbours' data and the
+        block-carried mu, u and v halos are refreshed per block with a
+        width-S exchange.  The constants are computed ON the widened
+        inputs, in the JAX loop's order (computed first and widened after,
+        dvdxi_const's rolls would leave wrapped values in ring cells the
+        trapezoid reads).  Under ``rdma_overlap`` the j leg of that exchange
+        is K3's own (``coupled_multistep(overlap=)``): only the i leg runs
+        here.  With ``const_dtype`` the three 3-D constants K3 streams are
+        narrowed after they were computed in float32."""
+        S = self.inner_steps
+        mesh = self.mesh
+        nj_loc, ni_loc = n_loc
+        const, st, com = self._block_inputs(local, state, common, n_loc)
 
         for _ in range(n_blocks):
             if self._j_sh or self._i_sh:
@@ -422,14 +541,18 @@ class SmallStepLoop:
                 for name in ("mu", "u", "v"):
                     blocks = {c: s[name] for c, s in st.items()}
                     ndim = next(iter(blocks.values())).ndim
-                    if self._j_sh:
+                    if self._j_sh and not self._overlap:
                         halo.refresh_axis_w(blocks, 0, "j", mesh, nj_loc, S)
                     if self._i_sh:
                         halo.refresh_axis_w(blocks, ndim - 1, "i", mesh,
                                             ni_loc, S)
-            for c in st:
-                st[c] = self._block(**const[c], **st[c], **com[c], n_inner=S,
-                                    fast=self.fast)
+            ov = {c: {} for c in st}
+            if self._overlap:   # after every shard's i refresh
+                ov = {c: {"overlap": rows} for c, rows in
+                      self._k3_overlap_rows(st, nj_loc).items()}
+            st = self._launch_all(
+                lambda c: self._block(**const[c], **st[c], **com[c], **ov[c],
+                                      n_inner=S, fast=self.fast), st)
 
         def strip(x):
             x = halo.strip_ring(x, 0, S)

@@ -25,6 +25,22 @@ only at their own column and are updated IN PLACE; u, v and mu are read at
 neighbour rows while other blocks update them, so they come back in fresh
 tensors whose S ring rows pass through from the inputs.
 
+``overlap`` is the j leg of the width-S ring exchange inside the kernel:
+the S ring rows on either side of ``mu``, ``u`` and ``v`` in memory are
+taken as stale, and every read of one goes to the ring neighbours' blocks
+instead.  The TPU wrapper's ``overlap`` names a mesh axis; here one process
+holds every shard, so it names the rows: a dict of contiguous row-slab
+views ``{"mu_lo", "u_lo", "v_lo"}`` (the previous shard's last S interior
+rows) and ``{"mu_hi", "u_hi", "v_hi"}`` (the next shard's first S).  The
+kernel loads them through their device pointers: nothing is copied, staged
+or waited for, and the result equals the one on refreshed ring rows bit for
+bit.  The ring rows of the outputs pass the stale memory rows through.
+
+bf16 constant streams: ``t_1``, ``tconst`` and ``dvdxi_const`` may arrive
+as ``torch.bfloat16`` and are widened to float32 on load; a bf16 ``u``,
+``v`` or ``t`` is a ``ValueError``.  When all three are bf16 the kernel
+reads them narrow; a mixed set is widened before the launch (exact).
+
 Two modes: exact (the ww scan and the Thomas sweeps sequential in k) and
 ``fast`` (the scan, and both sweeps of the w solve, as the TPU kernel's
 log-depth masked cumsums, a re-association).  The CUDA kernel runs them
@@ -32,10 +48,11 @@ sequentially in both, so its fast mode is its exact mode; its plain
 version keeps the cumsums.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
-hand-written kernel (``csrc/advance_mu_t_coupled.cu``) and count one in
-:data:`LAUNCHES` (:data:`PAIR_LAUNCHES` for :func:`coupled_two_step`);
-CPU tensors run :func:`coupled_multistep_plain`.  There is no fallback
-from one to the other.
+hand-written kernel (``csrc/advance_mu_t_coupled_kernel.cuh``) and count
+one in :data:`LAUNCHES` (:data:`PAIR_LAUNCHES` for
+:func:`coupled_two_step`); CPU tensors run
+:func:`coupled_multistep_plain`.  There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -45,7 +62,10 @@ import ctypes
 import torch
 
 from .. import _build
-from .advance_mu_t_cuda import _f32, checked_pointers, w_step_plain
+from .advance_mu_t_cuda import (
+    _f32, check_const_streams, check_overlap_rows, checked_pointers,
+    narrow_streams, overlap_pointers, w_step_plain, widen,
+)
 from .thomas import ThomasVectors, thomas_vectors
 
 #: CUDA launches of :func:`coupled_multistep` since import
@@ -60,16 +80,18 @@ MAX_INNER = 8
 #: the trapezoid's S-1 extra cells on every side
 TILE = (16, 32)
 
+#: the 3-D operands that may arrive as bf16
+CONST_STREAMS = ("t_1", "tconst", "dvdxi_const")
+
+#: the neighbour row slabs ``overlap`` names, in the C entry's order
+OVERLAP_ROWS = ("mu_lo", "mu_hi", "u_lo", "u_hi", "v_lo", "v_hi")
+
 _kernel_fn = None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"coupled_multistep: {what} is not ported yet (ROADMAP.md, {item})")
-
-
 def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
-    """The Pallas wrapper's argument checks, plus the modes not ported."""
+    """The Pallas wrapper's argument checks (``tensors``: the 3-D operands
+    by name), and the port's own on the buffers updated in place."""
     if n_inner < 2:
         raise ValueError("n_inner must be >= 2 (use the single-step kernel "
                          "for S=1)")
@@ -80,15 +102,13 @@ def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
             "coupled_multistep: ti (the TPU's 128-lane tiled layout) is met "
             f"by the kernel's own (j, i) tiles of {TILE}; pass no ti "
             "(ROADMAP.md, §2, closed)")
-    if overlap is not None:
-        raise _not_ported("overlap", "modules to port: 'Multi-GPU "
-                          "decomposition and halo backends'")
-    for x in tensors:
-        if x.dtype == torch.bfloat16:
-            raise _not_ported("bf16 inputs",
-                              "modules to port: 'bf16 constant streams'")
+    check_const_streams(tensors, CONST_STREAMS)
     if J2 - 2 * n_inner < 1:
         raise ValueError(f"J2={J2}: no row inside the ring-{n_inner} rows")
+    if overlap is not None:
+        check_overlap_rows(overlap, OVERLAP_ROWS, OVERLAP_ROWS, in_place={
+            "t": tensors["t"], "w": w if fuse_w else None,
+            "pp": pp if fuse_w else None})
 
 
 def coupled_lean_kwargs(padded: dict, rdx, rdy, dts) -> dict:
@@ -128,7 +148,8 @@ def coupled_multistep(
     :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle of a loop."""
     global LAUNCHES
     del kde   # API parity
-    _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=n_inner,
+    _check(tensors=dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst,
+                        dvdxi_const=dvdxi_const), n_inner=n_inner,
            fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=ti, overlap=overlap,
            J2=t.shape[0])
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
@@ -136,7 +157,7 @@ def coupled_multistep(
               msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
               rdy=rdy, dts=dts, cs2=cs2, dnw=dnw, fnm=fnm, fnp=fnp,
               rdnw=rdnw, window=window, offsets=offsets, k0=k0, k1=k1,
-              n_inner=n_inner,
+              n_inner=n_inner, overlap=overlap,
               **_w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1,
                           fast and t.device.type == "cpu", thomas))
     if t.device.type == "cpu":
@@ -180,10 +201,12 @@ def coupled_two_step(
     TPU's hand-unrolled pair computes what the depth-S trapezoid computes
     at S=2, so this runs K3's S=2 instance (its own template instance of
     the CUDA kernel; :func:`coupled_multistep_plain` with ``n_inner=2`` on
-    CPU tensors)."""
+    CPU tensors).  Like the TPU pair it takes no ``overlap``: S=2 with the
+    in-kernel exchange goes through :func:`coupled_multistep`."""
     global PAIR_LAUNCHES
     del kde   # API parity
-    _check(tensors=(u, v, t, t_1, tconst, dvdxi_const), n_inner=2,
+    _check(tensors=dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst,
+                        dvdxi_const=dvdxi_const), n_inner=2,
            fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=None, overlap=None,
            J2=t.shape[0])
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
@@ -210,6 +233,7 @@ def coupled_multistep_plain(
     fast: bool = False, kde=None, epssm=0.0,
     fuse_w: bool = False, w=None, pp=None, rdn=None, cw: float = 0.0,
     gw: float = 0.0, thomas: ThomasVectors | None = None,
+    overlap: dict | None = None,
 ):
     """Whole-array PyTorch version of the kernel, on any device.
 
@@ -220,9 +244,21 @@ def coupled_multistep_plain(
     dmdt column sum in k order; exact mode's ww scan as a k loop).  Under
     ``fuse_w`` every substep ends with :func:`w_step_plain` on the own
     rows, on that substep's new theta (``fast``: the cumsum form).  Same
-    in-place contract as :func:`coupled_multistep`.
+    in-place contract as :func:`coupled_multistep`.  bf16 constant streams
+    are widened on entry; under ``overlap`` the ring rows of copies of
+    ``mu``, ``u`` and ``v`` take the neighbours' rows first (the caller's
+    tensors are not written, and the outputs' ring rows keep the stale
+    values, as the kernel's do).
     """
     del kde   # API parity
+    t_1, tconst, dvdxi_const = (widen(x) for x in (t_1, tconst, dvdxi_const))
+    mem = (u, v, mu)    # what the ring rows of the outputs pass through
+    if overlap is not None:
+        n_ring = int(n_inner)
+        mu, u, v = mu.clone(), u.clone(), v.clone()
+        for x, n in ((mu, "mu"), (u, "u"), (v, "v")):
+            x[:n_ring] = overlap[n + "_lo"]
+            x[x.shape[0] - n_ring:] = overlap[n + "_hi"]
     if fuse_w and (thomas is None or (fast and thomas.fast is None)):
         if w is None or pp is None or rdn is None:
             raise ValueError("fuse_w requires w, pp and rdn")
@@ -337,7 +373,7 @@ def coupled_multistep_plain(
 
     t[c] = t_c
     ww_row[c] = seed[:, 0]
-    u_out, v_out, mu_out = u.clone(), v.clone(), mu.clone()
+    u_out, v_out, mu_out = (x.clone() for x in mem)
     u_out[c], v_out[c], mu_out[c] = u_c, v_c[:nc], mu_c[:, 0]
     res = {"t": t, "mu": mu_out, "ww_row": ww_row, "u": u_out, "v": v_out}
     if fuse_w:
@@ -355,8 +391,8 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_coupled_multistep
-        fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_float] * 8
-                       + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 35 + [ctypes.c_float] * 8
+                       + [ctypes.c_int] * 16 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -365,7 +401,7 @@ def _kernel():
 def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
             mu_tend, msftx, msfty, cu, cv, msft2, rdx, rdy, dts, cs2, dnw,
             fnm, fnp, rdnw, window, offsets, k0, k1, n_inner, fuse_w=False,
-            w=None, pp=None, thomas=None):
+            w=None, pp=None, thomas=None, overlap=None):
     S = int(n_inner)
     if S > MAX_INNER:
         raise ValueError(f"n_inner={S}: the CUDA kernel is built for depths "
@@ -388,7 +424,13 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
     )
     th_scalars = ((thomas.c_w, thomas.g_t, thomas.beta, thomas.alfa)
                   if fuse_w else (0.0,) * 4)
-    ptrs = checked_pointers(fields, {3: (J2, K, I), 2: (J2, I), 1: (K,)}, dev)
+    fields, const_bf16 = narrow_streams(fields, CONST_STREAMS)
+    ptrs = checked_pointers(fields, {3: (J2, K, I), 2: (J2, I), 1: (K,)}, dev,
+                            narrow=CONST_STREAMS if const_bf16 else ())
+    # contiguous slabs of S rows each
+    rows = overlap_pointers(overlap, {
+        n: (S, I) if n.startswith("mu") else (S, K, I)
+        for n in OVERLAP_ROWS}, dev)
     res = {"u": torch.empty_like(u), "v": torch.empty_like(v),
            "mu": torch.empty_like(mu)}
     i0, i1, j0, j1 = (int(x) for x in window)
@@ -398,9 +440,10 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, res["u"].data_ptr(), res["v"].data_ptr(),
-                 res["mu"].data_ptr(), _f32(rdx), _f32(rdy), _f32(dts),
-                 _f32(cs2), *th_scalars, J2, K, I, i0, i1, j0, j1, j_off,
-                 i_off, int(k0), int(k1), S, int(fuse_w), tj, ti, stream)
+                 res["mu"].data_ptr(), *rows, _f32(rdx), _f32(rdy),
+                 _f32(dts), _f32(cs2), *th_scalars, J2, K, I, i0, i1, j0, j1,
+                 j_off, i_off, int(k0), int(k1), S, int(fuse_w),
+                 int(const_bf16), tj, ti, stream)
     if err != 0:
         raise RuntimeError(f"coupled_multistep kernel launch failed: CUDA "
                            f"error {err}")

@@ -27,10 +27,29 @@ wrapper's keyword contract and result dict for the modes ported so far:
 * ``capture`` — five extra outputs ``muave_``, ``mu_``, ``mudf_``, ``muts_``
   and ``ww_before_theta``: the phase-A state between the mu/ww pass and the
   theta pass, in fresh buffers, zero on rows 0 and J-1 (``ww_mode="full"``
-  without ``lean`` only).
+  without ``lean`` only);
+* ``overlap`` — the j halo exchange inside the kernel (``fuse_uv`` only):
+  the block's halo rows 0 and J-1 of ``mu``, ``v`` and ``mudf_in`` are
+  taken as stale, and rows 1 and J-2 read the ring neighbours' rows
+  instead.  The TPU wrapper's ``overlap`` names a mesh axis, because each
+  shard is a program of its own there; here one process holds every shard,
+  so ``overlap`` names the rows themselves: a dict of row views
+  ``{"mu_lo": prev's mu[J-2], "mu_hi": next's mu[1], "v_hi": next's v[1]}``
+  plus ``"mudf_lo"`` / ``"mudf_hi"`` under damping.  The kernel loads them
+  through their device pointers, so nothing is copied, staged or waited
+  for; the rows are those the ``rdma`` and ``ppermute`` refreshes would
+  have moved, so the result is bit-equal to theirs;
+* bf16 constant streams — the read-only 3-D operands ``t_1``, ``tconst``,
+  ``dvdxi_const``, ``ww_1``, ``u_1``, ``v_1``, ``ft`` (and ``u``, ``v``
+  without ``fuse_uv``) may arrive as ``torch.bfloat16``; they are widened
+  to float32 on load, and all arithmetic, state and outputs stay float32.
+  A bf16 state operand is a ``ValueError``.  The kernel has one element
+  type for all its constant streams: when every one of them is bf16 it
+  reads them narrow, and a mixed set is widened before the launch (exact,
+  so the result is the same).
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
-hand-written kernel (``csrc/advance_mu_t.cu``) and count one in
+hand-written kernel (``csrc/advance_mu_t_kernel.cuh``) and count one in
 :data:`LAUNCHES`; CPU tensors run :func:`advance_mu_t_fused_plain`, the
 whole-array transcription of the same arithmetic.  There is no fallback
 from one to the other.
@@ -52,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .halo_rdma_cuda import _enable_peer
 from .thomas import ThomasVectors, thomas_vectors
 
 #: CUDA kernel launches since import (one per launch, and only there)
@@ -68,10 +88,28 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"advance_mu_t_fused: {what} is not ported yet (ROADMAP.md, modules "
-        f"to port: {item})")
+#: the 3-D operands that may arrive as bf16 (plus u and v without fuse_uv)
+CONST_STREAMS = ("t_1", "tconst", "dvdxi_const", "ww_1", "u_1", "v_1", "ft")
+
+#: the neighbour rows ``overlap`` names (the mudf rows only under damping)
+OVERLAP_ROWS = ("mu_lo", "mu_hi", "v_hi", "mudf_lo", "mudf_hi")
+
+
+def check_const_streams(named: dict, const_ok, suffix: str = "") -> None:
+    """The TPU wrappers' ``_ingest3`` check: of the 3-D operands ``named``
+    only those in ``const_ok`` may be bf16."""
+    for name, x in named.items():
+        if (x is not None and x.dtype == torch.bfloat16
+                and name not in const_ok):
+            raise ValueError(f"bf16 {name!r} is not a constant stream"
+                             f"{suffix}")
+
+
+def widen(x):
+    """A bf16 tensor as float32 (exact); anything else as it is."""
+    if x is not None and x.dtype == torch.bfloat16:
+        return x.float()
+    return x
 
 
 #: the five phase-A outputs of ``capture`` (the 2-D ones, then ww's)
@@ -82,7 +120,8 @@ CAPTURE_NAMES = ("muave_before_theta", "mu_before_theta",
 def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                  fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
                  ww_row, ww, lean, tconst, dvdxi_const, ww1_k0):
-    """The TPU wrapper's argument checks, plus the modes not ported yet."""
+    """The TPU wrapper's argument checks (``tensors``: the 3-D operands by
+    name), and the port's own on the buffers a launch updates in place."""
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
     if capture and (ww_mode != "full" or lean):
@@ -96,16 +135,25 @@ def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
         raise ValueError("mudf_in must not alias ww_row, which is updated "
                          "in place")
     if overlap is not None:
-        raise _not_ported("overlap", "'Multi-GPU decomposition and halo "
-                          "backends', K1 slice (f)")
+        if not fuse_uv:
+            raise ValueError("overlap requires fuse_uv (the coupled "
+                             "substep; the mu_t-only loop has no per-"
+                             "substep exchange to hide)")
+        want = OVERLAP_ROWS[:3] + (OVERLAP_ROWS[3:] if mudf_in is not None
+                                   else ())
+        check_overlap_rows(overlap, want, OVERLAP_ROWS, in_place=dict(
+            t=tensors["t"], t_ave=t_ave if with_tave else None,
+            ww=ww if ww_mode != "lite" else None,
+            ww_row=ww_row if ww_mode != "full" else None,
+            w=w if fuse_w else None, pp=pp if fuse_w else None))
     if fuse_uv and wind_scale != 1.0:
         # both model the wind->mass coupling; combined, the scaled winds
         # would be written back out and the scale compound every substep
         raise ValueError("fuse_uv and wind_scale != 1 are mutually "
                          "exclusive")
-    for x in tensors:
-        if x is not None and x.dtype == torch.bfloat16:
-            raise _not_ported("bf16 inputs", "'bf16 constant streams'")
+    check_const_streams(
+        tensors, CONST_STREAMS + (() if fuse_uv else ("u", "v")),
+        " here (state/aliased operands must be f32)")
     if with_tave and t_ave is None:
         raise ValueError("t_ave is required when with_tave=True")
     if ww_mode not in _WW_MODES:
@@ -120,6 +168,48 @@ def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                              "with_tave=False")
         if tconst is None or dvdxi_const is None or ww1_k0 is None:
             raise ValueError("lean mode requires tconst, dvdxi_const, ww1_k0")
+
+
+def check_overlap_rows(overlap: dict, want, known, in_place: dict) -> None:
+    """``overlap`` names the neighbour rows ``want`` and nothing outside
+    ``known``, and none of them lies in a buffer the launch updates in
+    place (``in_place``: name -> tensor or None): the kernel reads them
+    while other blocks write those."""
+    missing = [n for n in want if overlap.get(n) is None]
+    extra = sorted(set(overlap) - set(known))
+    if missing or extra:
+        raise ValueError(f"overlap names the neighbours' rows {tuple(want)}; "
+                         f"missing {missing}, unknown {extra}")
+    for n in want:
+        for name, buf in in_place.items():
+            if (buf is not None
+                    and overlap[n].untyped_storage().data_ptr()
+                    == buf.untyped_storage().data_ptr()):
+                raise ValueError(f"overlap[{n!r}] must not alias {name}, "
+                                 f"which is updated in place")
+
+
+def overlap_pointers(overlap, shapes: dict, dev) -> list:
+    """The neighbour-row pointers of a launch, in the order of ``shapes``
+    (name -> expected shape, or None for a row the launch does not read):
+    each row a contiguous float32 view on a CUDA device.  A row on another
+    device than ``dev`` is read through a peer pointer (peer access is
+    enabled here, once per pair); the caller orders the devices' streams.
+    ``overlap=None``: all None."""
+    ptrs = []
+    for n, shape in shapes.items():
+        if overlap is None or shape is None:
+            ptrs.append(None)
+            continue
+        row = overlap[n]
+        if (not isinstance(row, torch.Tensor) or row.device.type != "cuda"
+                or row.dtype != torch.float32 or tuple(row.shape) != shape
+                or not row.is_contiguous()):
+            raise ValueError(f"overlap[{n!r}]: expected a contiguous float32 "
+                             f"CUDA tensor of shape {shape}")
+        _enable_peer(dev, row.device)
+        ptrs.append(row.data_ptr())
+    return ptrs
 
 
 def advance_mu_t_fused(
@@ -163,8 +253,9 @@ def advance_mu_t_fused(
     once; without it the wrapper computes the bundle from ``rdn``.
     """
     del kde   # API parity
-    _check_modes(tensors=(u, v, t, t_1, ww_1, u_1, v_1, ft, tconst,
-                          dvdxi_const),
+    _check_modes(tensors=dict(u=u, v=v, t=t, t_1=t_1, ww_1=ww_1, u_1=u_1,
+                              v_1=v_1, ft=ft, tconst=tconst,
+                              dvdxi_const=dvdxi_const, ww=ww, t_ave=t_ave),
                  t_ave=t_ave, wind_scale=wind_scale, fuse_uv=fuse_uv,
                  mudf_in=mudf_in, fuse_w=fuse_w, w=w, pp=pp,
                  rdn=rdn, capture=capture,
@@ -180,7 +271,7 @@ def advance_mu_t_fused(
               fuse_uv=fuse_uv, cs2=cs2, with_tave=with_tave, ww_mode=ww_mode,
               ww_row=ww_row, lean=lean, tconst=tconst,
               dvdxi_const=dvdxi_const, ww1_k0=ww1_k0, mudf_in=mudf_in,
-              smdiv=smdiv, capture=capture)
+              smdiv=smdiv, capture=capture, overlap=overlap)
     if fuse_w:
         if thomas is None:
             thomas = thomas_vectors(rdn=rdn, rdnw=rdnw, dts=dts, epssm=epssm,
@@ -205,6 +296,7 @@ def advance_mu_t_fused_plain(
     fuse_w: bool = False, w=None, pp=None, rdn=None, cw: float = 0.0,
     gw: float = 0.0, thomas: ThomasVectors | None = None,
     mudf_in=None, smdiv: float = 0.0, capture: bool = False,
+    overlap: dict | None = None,
 ):
     """Whole-array PyTorch version of the kernel, on any device.
 
@@ -215,12 +307,22 @@ def advance_mu_t_fused_plain(
     dmdt column sum and the ww scan as k loops.  The column sum runs in k
     order (the oracle's and the CUDA kernel's order; the TPU kernel leaves
     the order of its jnp.sum to the compiler).  Same in-place contract as
-    :func:`advance_mu_t_fused`.
+    :func:`advance_mu_t_fused`.  bf16 constant streams are widened on entry;
+    under ``overlap`` the halo rows of copies of ``mu``, ``v`` and
+    ``mudf_in`` take the neighbours' rows before the rolls (the caller's
+    tensors are not written, and the pass-through rows of the outputs keep
+    the stale values, as the kernel's do).
     """
     del kde   # API parity
     if capture and (ww_mode != "full" or lean):
         raise ValueError("capture requires the plain full-ww path "
                          "(ww_mode='full', lean=False)")
+    if overlap is not None and not fuse_uv:
+        raise ValueError("overlap requires fuse_uv")
+    ww_1, u_1, v_1, t_1, ft, tconst, dvdxi_const = (
+        widen(x) for x in (ww_1, u_1, v_1, t_1, ft, tconst, dvdxi_const))
+    if not fuse_uv:
+        u, v = widen(u), widen(v)
     if fuse_w and thomas is None:
         if w is None or pp is None or rdn is None:
             raise ValueError("fuse_w requires w, pp and rdn")
@@ -250,13 +352,23 @@ def advance_mu_t_fused_plain(
     kmask = (kv >= k0) & (kv <= k1)
     upd = kmask & mask
 
+    mu_mem = col(mu)       # what the pass-through rows of mu's output hold
+    u_in, v_in = u, v
+    if overlap is not None:
+        # the stale halo rows take the neighbours' rows, on copies
+        mu, v = mu.clone(), v.clone()
+        mu[0], mu[J - 1] = overlap["mu_lo"], overlap["mu_hi"]
+        v[J - 1] = overlap["v_hi"]
+        if mudf_in is not None:
+            mudf_in = mudf_in.clone()
+            mudf_in[0], mudf_in[J - 1] = (overlap["mudf_lo"],
+                                          overlap["mudf_hi"])
     mu3 = col(mu)
     muu_over_msfuy = col(muu / msfuy)
     muv_msfvxi = col(muv * msfvx_inv)
     msftx3, msfty3 = col(msftx), col(msfty)
 
     # ---- fused wind substep (advance_uv) ---------------------------------
-    u_in, v_in = u, v
     if ws != 1.0:   # read-only winds, scaled on load (never with fuse_uv)
         u, v = u * ws, v * ws
     if fuse_uv:
@@ -291,7 +403,7 @@ def advance_mu_t_fused_plain(
     # ---- mu with epsilon off-centering -----------------------------------
     tend = dmdt + col(mu_tend)
     mu_new = mu3 + dts * tend
-    mu_val = torch.where(mask, mu_new, mu3)
+    mu_val = torch.where(mask, mu_new, mu_mem)
     mudf = torch.where(mask, tend, 0.0)
     muts = torch.where(mask, col(mut) + mu_new, 0.0)
     muave = torch.where(
@@ -465,8 +577,8 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t
-        fn.argtypes = ([ctypes.c_void_p] * 46 + [ctypes.c_float] * 11
-                       + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 51 + [ctypes.c_float] * 11
+                       + [ctypes.c_int] * 18 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -482,11 +594,32 @@ def block_width(K: int) -> int:
                      f"column buffer ({_SMEM_LIMIT // (32 * 4)} levels max)")
 
 
-def checked_pointers(fields: dict, shapes: dict, dev) -> list:
+def narrow_streams(fields: dict, names,
+                   narrow_ok: bool = True) -> tuple[dict, bool]:
+    """One element type for a launch's constant streams.  ``names`` are the
+    streams of ``fields`` (name -> ``(tensor, ndim, used)``) that may be
+    bf16.  When every used one is (and the kernel has a narrow instance for
+    the mode, ``narrow_ok``), the launch reads them narrow: returns the
+    fields as they are and True.  Otherwise the bf16 ones are widened to
+    float32 first (exact, so the result is the same): returns the fields
+    with those replaced and False."""
+    used = [n for n in names if fields[n][2]]
+    if (narrow_ok and used
+            and all(fields[n][0].dtype == torch.bfloat16 for n in used)):
+        return fields, True
+    out = dict(fields)
+    for n in used:
+        x, ndim, _ = fields[n]
+        out[n] = (widen(x), ndim, True)
+    return out, False
+
+
+def checked_pointers(fields: dict, shapes: dict, dev, narrow=()) -> list:
     """``data_ptr()`` of each field the launch uses (None where unused),
     after checking that it is a contiguous float32 tensor on ``dev`` of its
-    expected shape.  ``fields`` maps a name to ``(tensor, ndim, used)``;
-    ``shapes`` maps an ndim to the expected shape."""
+    expected shape (bfloat16 for the names in ``narrow``).  ``fields`` maps
+    a name to ``(tensor, ndim, used)``; ``shapes`` maps an ndim to the
+    expected shape."""
     ptrs = []
     for name, (x, ndim, used) in fields.items():
         if not used:
@@ -494,8 +627,9 @@ def checked_pointers(fields: dict, shapes: dict, dev) -> list:
             continue
         if not isinstance(x, torch.Tensor) or x.device != dev:
             raise ValueError(f"{name}: expected a tensor on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {x.dtype}")
+        want = torch.bfloat16 if name in narrow else torch.float32
+        if x.dtype != want:
+            raise TypeError(f"{name}: expected {want}, got {x.dtype}")
         if tuple(x.shape) != shapes[ndim]:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
                              f"{shapes[ndim]}")
@@ -510,7 +644,8 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
             msfvx_inv, msftx, msfty, window, k0, k1, t_ave, offsets,
             wind_scale, fuse_uv, cs2, with_tave, ww_mode, ww_row, lean,
             tconst, dvdxi_const, ww1_k0, fuse_w=False, w=None, pp=None,
-            thomas=None, mudf_in=None, smdiv=0.0, capture=False):
+            thomas=None, mudf_in=None, smdiv=0.0, capture=False,
+            overlap=None):
     global LAUNCHES
     J, K, I = t.shape
     dev = t.device
@@ -537,9 +672,18 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         **{"thomas." + n: (getattr(thomas, n, None), 1, fuse_w)
            for n in ("a", "cp", "den", "crdn", "erdn")},
     )
-    ptrs = checked_pointers(fields, shapes, dev)
+    streams = CONST_STREAMS + (() if fuse_uv else ("u", "v"))
+    # no narrow capture instance is built
+    fields, const_bf16 = narrow_streams(fields, streams,
+                                        narrow_ok=not capture)
+    ptrs = checked_pointers(fields, shapes, dev,
+                            narrow=streams if const_bf16 else ())
     th_scalars = ((thomas.c_w, thomas.g_t, thomas.beta, thomas.alfa)
                   if fuse_w else (0.0,) * 4)
+    rows = overlap_pointers(overlap, {
+        "mu_lo": (I,), "mu_hi": (I,), "v_hi": (K, I),
+        "mudf_lo": (I,) if use_damp else None,
+        "mudf_hi": (I,) if use_damp else None}, dev)
 
     res = {n: torch.empty((J, I), dtype=torch.float32, device=dev)
            for n in ("mu", "muave", "muts", "mudf")}
@@ -558,13 +702,13 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, *outs,
+        err = fn(*ptrs, *outs, *rows,
                  _f32(rdx), _f32(rdy), _f32(dts), _f32(epssm), _f32(cs2),
                  damp_coefficient(cs2, smdiv) if use_damp else 0.0,
                  _f32(wind_scale), *th_scalars, J, K, I, i0, i1, j0, j1,
                  j_off, i_off, int(k0), int(k1),
                  int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),
-                 int(fuse_w), block_width(K), stream)
+                 int(fuse_w), int(const_bf16), block_width(K), stream)
     if err != 0:
         raise RuntimeError(f"advance_mu_t kernel launch failed: CUDA error "
                            f"{err}")

@@ -19,6 +19,11 @@ hand-written kernel (``csrc/advance_mu_t_msteps.cu``) and count one in
 :data:`LAUNCHES`; CPU tensors run :func:`advance_mu_t_multistep_plain`.
 There is no fallback from one to the other.
 
+bf16 constant streams: ``u``, ``v``, ``t_1``, ``tconst`` and
+``dvdxi_const`` may arrive as ``torch.bfloat16`` and are widened to float32
+on load; ``t`` (state) may not.  When all five are bf16 the kernel reads
+them narrow; a mixed set is widened before the launch (exact).
+
 Buffers: ``t``, ``mu`` and ``ww_row`` are read only at their own column,
 so both versions update them IN PLACE and return them (the TPU kernel
 aliases the same three).
@@ -32,10 +37,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from .advance_mu_t_cuda import _f32, checked_pointers
+from .advance_mu_t_cuda import (
+    _f32, check_const_streams, checked_pointers, narrow_streams, widen,
+)
 
 #: CUDA kernel launches since import (one per launch, and only there)
 LAUNCHES = 0
+
+#: the 3-D operands that may arrive as bf16
+CONST_STREAMS = ("u", "v", "t_1", "tconst", "dvdxi_const")
 
 _kernel_fn = None
 
@@ -49,14 +59,10 @@ def wind_ramp(wind_step0, wind_scale_step, s: int) -> float:
     return float(f(1.0) + (f(wind_step0) + f(s)) * f(wind_scale_step))
 
 
-def _check(tensors, n_inner):
+def _check(tensors: dict, n_inner):
     if n_inner < 1:
         raise ValueError("n_inner must be >= 1")
-    for x in tensors:
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "advance_mu_t_multistep: bf16 inputs are not ported yet "
-                "(ROADMAP.md, modules to port: 'bf16 constant streams')")
+    check_const_streams(tensors, CONST_STREAMS)
 
 
 def advance_mu_t_multistep(
@@ -81,7 +87,8 @@ def advance_mu_t_multistep(
     in place.
     """
     del epssm, kde   # unused by the scan substep; kept for API parity
-    _check((u, v, t, t_1, tconst, dvdxi_const), n_inner)
+    _check(dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst,
+                dvdxi_const=dvdxi_const), n_inner)
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
               ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
               msftx=msftx, msfty=msfty, rdx=rdx, rdy=rdy, dts=dts, dnw=dnw,
@@ -110,9 +117,12 @@ def advance_mu_t_multistep_plain(
     and the ww scan as k loops), and fast mode the closed form with the two
     masked ww cumsums as sequential k loops (the TPU kernel's log-depth
     form is a re-association of the same sums).  Same in-place contract as
-    :func:`advance_mu_t_multistep`.
+    :func:`advance_mu_t_multistep`.  bf16 constant streams are widened on
+    entry.
     """
     del epssm, kde   # API parity
+    u, v, t_1, tconst, dvdxi_const = (
+        widen(x) for x in (u, v, t_1, tconst, dvdxi_const))
     rdx, rdy, dts = _f32(rdx), _f32(rdy), _f32(dts)
     J, K, I = t.shape
     dev = t.device
@@ -222,7 +232,7 @@ def _kernel():
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t_msteps
         fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_float] * 5
-                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -247,7 +257,9 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
         msfty=(msfty, 2, True), dnw=(dnw, 1, True), fnm=(fnm, 1, True),
         fnp=(fnp, 1, True), rdnw=(rdnw, 1, True),
     )
-    ptrs = checked_pointers(fields, {3: (J, K, I), 2: (J, I), 1: (K,)}, dev)
+    fields, const_bf16 = narrow_streams(fields, CONST_STREAMS)
+    ptrs = checked_pointers(fields, {3: (J, K, I), 2: (J, I), 1: (K,)}, dev,
+                            narrow=CONST_STREAMS if const_bf16 else ())
     i0, i1, j0, j1 = (int(x) for x in window)
     j_off, i_off = (int(x) for x in offsets)
     fn = _kernel()
@@ -255,7 +267,8 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, _f32(rdx), _f32(rdy), _f32(dts), _f32(wind_step0),
                  _f32(wind_scale_step), J, K, I, i0, i1, j0, j1, j_off,
-                 i_off, int(k0), int(k1), int(n_inner), int(fast), stream)
+                 i_off, int(k0), int(k1), int(n_inner), int(fast),
+                 int(const_bf16), stream)
     if err != 0:
         raise RuntimeError(f"advance_mu_t_msteps kernel launch failed: CUDA "
                            f"error {err}")

@@ -83,6 +83,27 @@ class Mesh:
                 seen.append(self.device(c))
         return seen
 
+    def join_streams(self) -> None:
+        """Order the devices' current streams: work queued from here on, on
+        any device of the mesh, runs after the work queued so far on every
+        other.  What a kernel that reads a neighbour shard's block through
+        a peer pointer needs before it (the neighbour's block is complete)
+        and after it (the neighbour may reuse the block).  Nothing on one
+        device, whose stream orders its shards, or on the CPU."""
+        devs = [d for d in self.unique_devices() if d.type == "cuda"]
+        if len(devs) < 2:
+            return
+        events = []
+        for d in devs:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            events.append(ev)
+        for d in devs:
+            stream = torch.cuda.current_stream(d)
+            for other, ev in zip(devs, events):
+                if other != d:
+                    stream.wait_event(ev)
+
     def _check_peer_access(self) -> None:
         for c in self.coords():
             a = self.device(c)

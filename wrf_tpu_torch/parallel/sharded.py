@@ -232,6 +232,12 @@ class ShardedAdvanceMuT:
     final K1 substep; bit-compatible with ``inner_steps=1``.  ``fast``
     runs the blocked passes in K2's closed form (a tolerance, not bits).
 
+    ``const_dtype=torch.bfloat16`` narrows the read-only 3-D streams once
+    per call, outside the substeps: u and v (read-only here, scaled on
+    load), u_1, v_1, ww_1, ft, t_1 and the 3-D lean constants; the kernels
+    widen them on load, and t, mu and ww stay float32.  Requires the cuda
+    kernel.
+
     The halos are built once, before the loop; no substep exchanges (see
     the module docstring), so every shard runs its whole loop on its own.
     """
@@ -240,9 +246,15 @@ class ShardedAdvanceMuT:
                  n_steps: int = 1, kernel: str = "cuda",
                  vary_winds: bool = False, inner_steps: int = 1,
                  fast: bool = False, device="cuda", *,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, const_dtype=None):
         if kernel not in ("cuda", "eager"):
             raise ValueError(f"bad kernel {kernel!r}")
+        if const_dtype is not None and kernel != "cuda":
+            raise ValueError("const_dtype requires the cuda kernel (the JAX "
+                             "loop's 'pallas')")
+        if const_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"const_dtype must be torch.bfloat16 or None, "
+                             f"got {const_dtype!r}")
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         if inner_steps < 1:
@@ -259,6 +271,7 @@ class ShardedAdvanceMuT:
         self.vary_winds = vary_winds
         self.inner_steps = inner_steps
         self.fast = fast
+        self.const_dtype = const_dtype
         self.device = torch.device(device)
         self._blocks = mesh is not None
         self.mesh = local_mesh(mesh, self.device)
@@ -303,6 +316,14 @@ class ShardedAdvanceMuT:
         lean_kw = lean_kwargs(padded, common["rdx"], common["rdy"],
                               common["dts"], k0, common["k1"])
         padded["ww_row"] = padded["ww"][:, k0, :].contiguous()
+        if self.const_dtype is not None:
+            # cast ONCE per call, after the constants were computed from
+            # the float32 fields: every 3-D stream but the carried t
+            cd = self.const_dtype
+            for n in ("u", "v", "u_1", "v_1", "ww_1", "ft", "t_1"):
+                padded[n] = padded[n].to(cd)
+            lean_kw = {k: (x.to(cd) if x.ndim == 3 else x)
+                       for k, x in lean_kw.items()}
         carry = ("ww_row", "mu", "t")
         const = {k: v for k, v in padded.items() if k not in carry}
         state = {k: padded[k] for k in carry}

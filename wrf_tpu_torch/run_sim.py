@@ -6,7 +6,8 @@ path:
     python -m wrf_tpu_torch.run_sim FIXTURE_DIR [--steps N] [--namelist NML] \\
         [--diagnostics] [--checkpoint-dir CK --checkpoint-every N] [--resume] \\
         [--with-w] [--inner-steps S [--fast]] [--kernel cuda|eager] \\
-        [--device cuda|cpu] [--mesh JxI [--halo-backend ppermute|rdma]]
+        [--device cuda|cpu] [--precision f32|bf16-const] \\
+        [--mesh JxI [--halo-backend ppermute|rdma|rdma_overlap]]
 
 * the grid/state comes from a fixture directory
   (``wrf_tpu_torch.io.fixtures``);
@@ -28,7 +29,12 @@ path:
   fewer (four shards may share one card; the banner line says how many
   shards sit on how many devices); ``--halo-backend rdma`` moves the
   per-substep j halos with the hand-written exchange kernel (K5) instead
-  of copies between the blocks;
+  of copies between the blocks, and ``--halo-backend rdma_overlap`` puts
+  that exchange inside the substep kernels (K1 and K3 read their ring
+  neighbours' edge rows themselves: no K5 launch, no row copy);
+* ``--precision bf16-const`` narrows the never-written 3-D bases (t_1, u_1,
+  v_1, ww_1, ft and the lean constants) to bf16 in device memory; the
+  kernels widen them on load and the state and outputs stay float32;
 * checkpoints use the fixture binary format
   (``wrf_tpu_torch.io.checkpoint``) and ``--resume`` continues from the
   newest one; checkpoints hold global arrays, so a run on one mesh
@@ -64,10 +70,7 @@ _EVOLVED = RK3Integrator._EVOLVED
 #: options of wrf_tpu.run_sim not ported yet: (flag, default, ROADMAP item)
 _M5 = "M5, 'The closure and the device-resident large step'"
 _NOT_PORTED = (
-    ("--precision", "f32", "M3, 'bf16 constant streams'"),
     ("--closure", "none", _M5),
-    ("--tau-steps", None, _M5),
-    ("--rayleigh-uv", None, _M5),
     ("--steps-per-sync", 1, _M5),
     ("--profile", None, _M5),
 )
@@ -114,8 +117,24 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["ppermute", "rdma", "rdma_overlap"],
                    help="per-substep halo exchange: copies between the "
                         "blocks, the hand-written exchange kernel (K5), or "
-                        "the exchange inside the substep kernel "
-                        "(rdma_overlap: not yet ported)")
+                        "the j exchange inside the substep kernels "
+                        "(rdma_overlap: K1 and K3 read the neighbours' "
+                        "edge rows themselves)")
+    p.add_argument("--precision", default="f32",
+                   choices=["f32", "bf16-const"],
+                   help="bf16-const narrows the never-written 3-D bases "
+                        "(t_1/u_1/v_1/ww_1/ft and the lean constants) to "
+                        "bf16 in device memory; state and outputs stay "
+                        "float32")
+    # the nudging closure's two parameters, at the JAX CLI's types and
+    # defaults; without --closure nudge (not ported) they are ignored, as
+    # there
+    p.add_argument("--tau-steps", type=float, default=5.0,
+                   help="nudging relaxation time in large steps "
+                        "(--closure nudge)")
+    p.add_argument("--rayleigh-uv", type=float, default=0.1,
+                   help="per-step Rayleigh damping factor on the "
+                        "perturbation winds (--closure nudge)")
     for flag, default, _ in _NOT_PORTED:
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true",
@@ -128,10 +147,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _reject_not_ported(args) -> None:
-    if args.halo_backend == "rdma_overlap":
-        raise SystemExit("run_sim: --halo-backend rdma_overlap is not yet "
-                         "ported to wrf_tpu_torch (ROADMAP.md, queue: "
-                         "'rdma_overlap', K1 slice (f) and K3 overlap)")
     for flag, default, item in _NOT_PORTED:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value != default:
@@ -175,7 +190,10 @@ def main(argv=None) -> int:
                         snapshot="stage", device=device,
                         inner_steps=args.inner_steps, fast=args.fast,
                         with_w=args.with_w, smdiv=dyn["smdiv"], mesh=mesh,
-                        halo_backend=args.halo_backend)
+                        halo_backend=args.halo_backend,
+                        const_dtype=(torch.bfloat16
+                                     if args.precision == "bf16-const"
+                                     else None))
 
     dom = {k: np.array(v, copy=True)
            for k, v in case_to_domain(case, with_w=args.with_w).items()}
