@@ -61,6 +61,20 @@ not 0 and no result line is printed):
    copy ceiling at 512x50x514, 1024x50x1502 and 516x50x516 with every
    probe's GB/s and ``Tensor.copy_`` on the same chain as the library
    yardstick;
+6b. K7, the tiling probe: ``run_1d`` and ``run_2d`` equal to their plain
+   versions bit for bit over the whole array (NaN outside the written
+   region) at 10x8x512, 130x50x1664 (the JAX defaults, ti 512) and
+   516x50x516 (halo 2), and to each other on the lanes both wrote; the
+   entry point ``python -m wrf_tpu_torch.tools.probe_2d --time`` at the
+   JAX defaults and at 516x50x516; both forms timed at 130x50x1664 and
+   516x50x516 for tj 2, 4 and ti 64, 128 (``utils.timing.per_step_time``
+   on the host clock and CUDA events on the same chains);
+6c. K8, the feature ladder: each of the nine rungs equal to its plain
+   version bit for bit at 26x16x512 and 258x50x1280 (rung e's second
+   output and rung i's aliased operand too; h == j, d == a on d's region);
+   the entry point ``python -m wrf_tpu_torch.tools.probe_2d_bisect
+   <rung>`` for every rung (and rung d with ``--time``); every rung timed
+   at 258x50x1280 beside its plain version;
 7a. K5, the ring-neighbour row exchange: ``rdma_rows``,
    ``remote_refresh_axis`` and ``remote_refresh_multi`` against their plain
    versions and against the ``ppermute`` refresh on rings of 1, 2, 4 and 8
@@ -147,10 +161,10 @@ not 0 and no result line is printed):
     K5's launches and K5's device time.
 
 The last three lines of standard output are the card's name and power
-limit (again), the kernel table ``{"kernels": [...]}`` (six kernels, each
-with its launches on the main paths, its time, its plain version's time,
-its bound from the compulsory bytes at the data-sheet rate and, for K6,
-and K5, the library call's time) and ``{"ok": true, "device": {...}}``.  The
+limit (again), the kernel table ``{"kernels": [...]}`` (eight kernels,
+each with its launches on the main paths, its time, its plain version's
+time, its bound from the compulsory bytes at the data-sheet rate and, for
+K6 and K5, the library call's time) and ``{"ok": true, "device": {...}}``.  The
 script uses torch and the port alone, and checks at the end that neither
 jax nor any module of the JAX package was imported.
 """
@@ -1492,6 +1506,261 @@ def phase_copy_ceiling(card=""):
     return out, k6.LAUNCHES
 
 
+def bits_different(got, want):
+    """Elements of two float32 CUDA tensors whose bits differ (a NaN equals
+    only a NaN of the same bits), counted on the card."""
+    import torch
+
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+def probe_main(module, tag, argv):
+    """``module.main(argv)`` (a probe's entry point) in this process, its
+    lines printed under ``[tag]``; raises unless it returns 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"[{tag}] {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag} {' '.join(argv)} returned {rc}")
+    return buf.getvalue()
+
+
+#: K7's checked shapes (shape, tj, ti, halo): a small one, the JAX probe's
+#: defaults (ti 512 covers 1024 of the 1408 interior lanes), and the port's
+#: padded 512x512x50 block with a 2-lane halo
+K7_CHECKS = (((10, 8, 512), 4, 128, 128), ((130, 50, 1664), 4, 512, 128),
+             ((516, 50, 516), 2, 128, 2))
+#: K7's timed shapes (shape, halo); tj in (2, 4), ti in (64, 128) divide
+#: both interiors (1408 and 512 lanes)
+K7_TIMED = (((130, 50, 1664), 128), ((516, 50, 516), 2))
+#: K8's shapes: the JAX probe's defaults and a 256x1024-interior block
+K8_CHECKS = ((26, 16, 512), (258, 50, 1280))
+K8_TIMED = (258, 50, 1280)
+
+
+def probe_input(shape, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, device="cuda", generator=g)
+
+
+def k7_ops(shape, tj, ti=None, halo=128):
+    """float32 operations K7 does on its written region: the stencil's 4
+    per cell, then one add per cell and doubling pass (ceil(log2 K))."""
+    from wrf_tpu_torch.tools import probe_2d as k7
+
+    rows, _, lanes = k7.written(shape, tj, ti, halo)
+    K = shape[1]
+    cells = (rows.stop - rows.start) * K * (lanes.stop - lanes.start)
+    return cells * (4 + max(0, (K - 1).bit_length()))
+
+
+def phase_k7(card=""):
+    """K7, the tiling probe: ``run_1d`` and ``run_2d`` against their plain
+    versions bit for bit over the whole array (the NaN left outside the
+    written region included) at K7_CHECKS, and against each other on the
+    lanes both wrote; then the probe's entry point, ``python -m
+    wrf_tpu_torch.tools.probe_2d --time``, at the JAX defaults and at the
+    port's padded block, with every launch count set to 0 just before;
+    then both forms timed at K7_TIMED for tj 2, 4 and ti 64, 128 (the 1-D
+    form does not depend on ti), marginal ms per call on the host clock
+    (``utils.timing.per_step_time``) and CUDA events around the same
+    ping-pong chains, beside the plain versions at tj 4 (2 at the padded
+    block), ti 128.  Returns the results and the entry point's launches."""
+    import torch
+    from wrf_tpu_torch.tools import probe_2d as k7
+
+    for shape, tj, ti, halo in K7_CHECKS:
+        x = probe_input(shape, 7)
+        tag = "x".join(map(str, shape)) + f" tj {tj} ti {ti} halo {halo}"
+        outs = {}
+        for form, fn, plain, args in (
+                ("1d", k7.run_1d, k7.run_1d_plain, (tj,)),
+                ("2d", k7.run_2d, k7.run_2d_plain, (tj, ti, halo))):
+            got, want = fn(x, *args), plain(x, *args)
+            torch.cuda.synchronize()
+            n = bits_different(got, want)
+            region = k7.written(shape, *args)
+            finite = bool(torch.isfinite(got[region]).all())
+            nan_out = int(torch.isnan(got).sum()) == (
+                got.numel() - got[region].numel())
+            print(f"[k7 {tag} {form}] different={n} (whole array, NaN "
+                  f"outside the region: {nan_out}; region finite: {finite})")
+            if n or not (finite and nan_out):
+                raise AssertionError(f"k7 {tag} {form}: {n} elements differ "
+                                     f"from the plain version")
+            outs[form] = got
+        region = k7.written(shape, tj, ti, halo)
+        n = bits_different(outs["1d"][region], outs["2d"][region])
+        print(f"[k7 {tag} 1d vs 2d] different={n} on the "
+              f"{region[2].stop - region[2].start} lanes both wrote")
+        if n:
+            raise AssertionError(f"k7 {tag}: the forms differ in {n}")
+        del x, outs
+    torch.cuda.empty_cache()
+
+    for form in k7.LAUNCHES:
+        k7.LAUNCHES[form] = 0
+    probe_main(k7, "k7 main", ["--time"])
+    probe_main(k7, "k7 main", ["--shape", "516", "50", "516", "--halo", "2",
+                               "--tj", "2", "--ti", "128", "--time"])
+    launches = dict(k7.LAUNCHES)
+
+    out = {}
+    for shape, halo in K7_TIMED:
+        x = probe_input(shape, 8)
+        J, K, I = shape
+        tag = "x".join(map(str, shape))
+        jax_bytes = 2 * J * K * I * 4
+        tj_plain = 2 if halo == 2 else 4
+        for tj in (2, 4):
+            for ti in (None, 64, 128):
+                def step(s, d, tj=tj, ti=ti, plain=False):
+                    if ti is None:
+                        fn = k7.run_1d_plain if plain else k7.run_1d
+                        return fn(s, tj, out=d)
+                    fn = k7.run_2d_plain if plain else k7.run_2d
+                    return fn(s, tj, ti, halo, out=d)
+
+                host, ev = k7.chain_ms(step, lambda: (x.clone(), x.clone()))
+                nbytes = k7.compulsory_bytes(shape, tj, ti, halo)
+                bound = bound_ms(nbytes, k7_ops(shape, tj, ti, halo))
+                form = "1d" if ti is None else f"2d ti {ti}"
+                r = dict(ms=ev, host_ms=host, bytes=nbytes, bound_ms=bound[0],
+                         bound_by=bound[1], share=bound[0] / ev,
+                         gbps=jax_bytes / (ev * 1e-3) / 1e9,
+                         bytes_gbps=nbytes / (ev * 1e-3) / 1e9)
+                if tj == tj_plain and ti in (None, 128):
+                    r["plain_ms"], _ = k7.chain_ms(
+                        functools.partial(step, plain=True),
+                        lambda: (x.clone(), x.clone()), 3, 9, 2)
+                out[tag, tj, form] = r
+                print(f"[k7 time {tag} tj {tj} {form}] {ev:.4f} ms/call "
+                      f"(host clock {host:.4f}), {r['gbps']:.0f} GB/s as the "
+                      f"JAX probe counts (2*J*K*I*4), {r['bytes_gbps']:.0f} "
+                      f"GB/s of its {nbytes / 1e6:.1f} MB compulsory, "
+                      f"{100 * r['share']:.1f} % of the {bound[0]:.4f} ms "
+                      f"bound" + (f"; plain {r['plain_ms']:.3f} ms"
+                                  if "plain_ms" in r else "")
+                      + (" (above the data sheet: an L2 artefact)"
+                         if r["bytes_gbps"] > HBM_BYTES_PER_S / 1e9 else "")
+                      + f" ({card})")
+        del x
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_k8(card=""):
+    """K8, the feature ladder: every rung against its plain version bit for
+    bit over the whole array (NaN outside its region included) at
+    K8_CHECKS (tj 4, ti 128), rung e's second output (kernel vs plain, and
+    2*x on its region), rung i's aliased operand (kernel vs plain, x + 1 on
+    its region, x elsewhere, the caller's x unchanged), h == j and d == a on
+    d's region; then each rung's entry point, ``python -m
+    wrf_tpu_torch.tools.probe_2d_bisect <rung>`` at its defaults (and rung
+    d with ``--time`` at K8_TIMED), with every launch count set to 0 just
+    before; then every rung timed at K8_TIMED (marginal ms per call, host
+    clock and CUDA events on the same chains) beside its plain version.
+    Returns the results and the entry points' launches."""
+    import torch
+    from wrf_tpu_torch.tools import probe_2d as k7
+    from wrf_tpu_torch.tools import probe_2d_bisect as k8
+
+    tj, ti = 4, 128
+    for shape in K8_CHECKS:
+        x = probe_input(shape, 9)
+        x0 = x.clone()
+        tag = "x".join(map(str, shape))
+        got = {}
+        for rung in k8.RUNGS:
+            ops_k, ops_p = k8.operands(rung, x), k8.operands(rung, x)
+            got[rung] = k8.FUNCS[rung](x, tj, ti, **ops_k)
+            want = k8.PLAIN[rung](x, tj, ti, **ops_p)
+            torch.cuda.synchronize()
+            n = bits_different(got[rung], want)
+            for name in ("out1", "t"):
+                if name in ops_k:
+                    n += bits_different(ops_k[name], ops_p[name])
+            region = k8.written_region(rung, shape, tj, ti)
+            finite = bool(torch.isfinite(got[rung][region]).all())
+            second = {"e": ", out1 too", "i": ", t too"}.get(rung, "")
+            print(f"[k8 {tag} rung {rung}] different={n} (whole array"
+                  f"{second}; region finite: {finite})")
+            if n or not finite:
+                raise AssertionError(f"k8 {tag} rung {rung}: {n} elements "
+                                     "differ from the plain version")
+            outside = torch.ones(shape, dtype=torch.bool, device="cuda")
+            outside[region] = False
+            if rung == "e":
+                ok = (torch.equal(ops_k["out1"][region], 2 * x[region])
+                      and bool(torch.isnan(ops_k["out1"][outside]).all()))
+            elif rung == "i":
+                ok = (torch.equal(ops_k["t"][region], x[region] + 1)
+                      and torch.equal(ops_k["t"][outside], x[outside])
+                      and torch.equal(x, x0))
+            else:
+                ok = True
+            if not ok:
+                raise AssertionError(f"k8 {tag} rung {rung}: its second "
+                                     "output is wrong")
+        region = k8.written_region("d", shape, tj, ti)
+        n_hj = bits_different(got["h"], got["j"])
+        n_da = bits_different(got["d"][region], got["a"][region])
+        print(f"[k8 {tag}] h vs j different={n_hj}; d vs a on d's region "
+              f"different={n_da}; rung e's 2*x and rung i's x + 1 on their "
+              "regions, x unchanged: ok")
+        if n_hj or n_da:
+            raise AssertionError(f"k8 {tag}: h vs j {n_hj}, d vs a {n_da}")
+        del x, x0, got
+    torch.cuda.empty_cache()
+
+    for rung in k8.LAUNCHES:
+        k8.LAUNCHES[rung] = 0
+    for rung in k8.RUNGS:
+        probe_main(k8, "k8 main", [rung])
+    probe_main(k8, "k8 main", ["d", "--shape", *map(str, K8_TIMED),
+                               "--time"])
+    launches = dict(k8.LAUNCHES)
+
+    out = {}
+    x = probe_input(K8_TIMED, 10)
+    tag = "x".join(map(str, K8_TIMED))
+    for rung in k8.RUNGS:
+        ops = k8.operands(rung, x)
+        fn, plain = k8.FUNCS[rung], k8.PLAIN[rung]
+        host, ev = k7.chain_ms(
+            lambda s, d: fn(s, tj, ti, out=d, **ops),
+            lambda: (x.clone(), x.clone()))
+        plain_ms, _ = k7.chain_ms(
+            lambda s, d: plain(s, tj, ti, out=d, **ops),
+            lambda: (x.clone(), x.clone()), 3, 9, 2)
+        nbytes = k8.compulsory_bytes(rung, K8_TIMED, tj, ti)
+        rows, _, lanes = k8.written_region(rung, K8_TIMED, tj, ti)
+        cells = (rows.stop - rows.start) * K8_TIMED[1] * (lanes.stop
+                                                          - lanes.start)
+        # _compute's 4 operations per cell; e's and f's multiply and add,
+        # i's add, the k scan's add
+        bound = bound_ms(nbytes, cells * (4 + (2 if rung in "ef" else 0)
+                                          + (1 if rung in "hij" else 0)))
+        out[rung] = dict(ms=ev, host_ms=host, plain_ms=plain_ms,
+                         bytes=nbytes, bound_ms=bound[0], bound_by=bound[1],
+                         share=bound[0] / ev)
+        print(f"[k8 time {tag} tj {tj} ti {ti} rung {rung}] {ev:.4f} ms/call "
+              f"(host clock {host:.4f}), {nbytes / (ev * 1e-3) / 1e9:.0f} "
+              f"GB/s of its {nbytes / 1e6:.1f} MB compulsory, "
+              f"{100 * bound[0] / ev:.1f} % of the {bound[0]:.4f} ms bound; "
+              f"plain {plain_ms:.3f} ms ({card})")
+    del x
+    torch.cuda.empty_cache()
+    a_ms = out["a"]["ms"]
+    print("[k8 ladder] ms over rung a: " + ", ".join(
+        f"{r} {v['ms'] - a_ms:+.4f}" for r, v in out.items()) + f" ({card})")
+    return out, launches
+
+
 def ring_blocks(mesh, shape, seed):
     """Random float32 blocks of ``shape`` for every shard of ``mesh``, on
     the card."""
@@ -2637,6 +2906,8 @@ def main() -> int:
     k3o_times = timed("k3 overlap", phase_k3_overlap, card=smi)
     bf16_times = timed("bf16 constant streams", phase_bf16, card=smi)
     k6, k6_launches = timed("copy ceiling", phase_copy_ceiling, card=smi)
+    k7, k7_launches = timed("k7 probe_2d", phase_k7, card=smi)
+    k8, k8_launches = timed("k8 probe_2d_bisect", phase_k8, card=smi)
     k5_times, k5_host, k5_bytes = timed("k5 vs plain", phase_k5_vs_plain,
                                         card=smi)
     k5_loop_launches, ov_launches = timed("mesh loops", phase_mesh_loops)
@@ -2948,6 +3219,47 @@ def main() -> int:
         "gbps_by_shape": {"x".join(map(str, sh)): {
             "ceiling": v["ceiling"], "probe": v["probe"], **v["rates"],
             "Tensor.copy_": v["library"]} for sh, v in k6.items()},
+    }, {
+        "name": "probe_2d",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/probe_2d.cu",
+        # kernel_1d; kernel_2d is :58
+        "replaces": "tools/probe_2d.py:54",
+        # its main path is the probe's entry point (python -m
+        # wrf_tpu_torch.tools.probe_2d --time, at the JAX defaults and at the
+        # port's padded block); no loop of the port runs it
+        "on_main_path": False,
+        "launches": sum(k7_launches.values()),
+        "launches_by_form": k7_launches,
+        "max_abs_err": 0.0,
+        # ms per call of the 1-D form at the JAX probe's 130x50x1664, tj 4;
+        # no single PyTorch call computes the stencil plus doubling scan
+        **{k: k7["130x50x1664", 4, "1d"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "ms_by_form": {f"{tag} tj {tj} {form}": {
+            k: r[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                              "share") if k in r}
+            for (tag, tj, form), r in k7.items()},
+    }, {
+        "name": "probe_2d_bisect",
+        "route": "cuda",
+        "source": "wrf_tpu_torch/csrc/probe_2d_bisect.cu",
+        # rung_a; the other rungs are :59, :73, :90, :112, :144, :178,
+        # :211, :239
+        "replaces": "tools/probe_2d_bisect.py:45",
+        # its main path is the probe's entry point, once per rung
+        "on_main_path": False,
+        "launches": sum(k8_launches.values()),
+        "launches_by_rung": k8_launches,
+        "max_abs_err": 0.0,
+        # ms per call of rung d at 258x50x1280, tj 4, ti 128
+        **{k: k8["d"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+        "library_ms": None,
+        "ms_by_rung": {r: {k: v[k] for k in ("ms", "host_ms", "plain_ms",
+                                             "bound_ms", "share")}
+                       for r, v in k8.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

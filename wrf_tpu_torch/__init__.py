@@ -2,8 +2,8 @@
 
 The port mirrors the JAX package's layout (``grid``, ``compare``,
 ``config``, ``io``, ``native``, ``ops``, ``models``, ``parallel``,
-``utils``, ``run_sim``, ``driver``) under the same names and stands alone:
-it imports ``torch`` and numpy, never ``jax`` and nothing of ``wrf_tpu``.
+``utils``, ``tools``, ``run_sim``, ``driver``) under the same names and
+stands alone: it imports ``torch`` and numpy, never ``jax`` and nothing of ``wrf_tpu``.
 The foundation modules (grid bounds, comparators, the namelist record, the
 binary codec, fixtures, checkpoints, the numpy golden path and the C++
 scalar oracle) are its own copies, with the same file formats, so a
@@ -25,6 +25,9 @@ wrf_tpu_torch.driver``):
   ops.thomas, csrc/w_solve.cuh  the w/pp Thomas solve inside K1 and K3
   ops.advance_uv, ops.advance_w, ops.advance_mu_t_eager  the eager tier
   utils.copy_ceiling  K6, the copy kernel that sets the card's ceiling
+  utils.timing  best-of-N and marginal (two-count) timing, profiler traces
+  tools.probe_2d, tools.probe_2d_bisect  K7 and K8, the tiling probes
+              (``python -m wrf_tpu_torch.tools.<probe>``)
   native      the C++ scalar oracle (g++, built at first use)
 
 Every kernel is hand-written CUDA beside a plain PyTorch version; CUDA
