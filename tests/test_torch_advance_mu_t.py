@@ -218,11 +218,36 @@ def test_bf16_inputs_raise(small_case):
 
 
 def test_block_width_and_cs2():
-    assert k1.block_width(50) == 128
-    assert k1.block_width(200) == 32
-    with pytest.raises(ValueError):
-        k1.block_width(1000)
+    """K1's block: 32 lanes along i by BLOCK_ROWS rows along j.  Only
+    fuse_w keeps a K-long shared-memory slice per thread (the w/pp sweep
+    state), and it takes fewer rows as K grows, up to the 48 KB a block
+    gets without opting in; without fuse_w no K is too deep."""
+    assert (k1.LANES, k1.BLOCK_ROWS) == (32, 4)
+    assert k1.launch_shape(50, fuse_w=True) == (32, 4, 50 * 32 * 4 * 4)
+    assert k1.launch_shape(200, fuse_w=True) == (32, 1, 200 * 32 * 4)
+    assert k1.launch_shape(120, fuse_w=True) == (32, 3, 120 * 32 * 3 * 4)
+    assert k1.launch_shape(384, fuse_w=True)[1:] == (1, 48 * 1024)
+    with pytest.raises(ValueError, match="385|levels"):
+        k1.launch_shape(385, fuse_w=True)
+    for K in (1, 50, 385, 1000):
+        assert k1.launch_shape(K, fuse_w=False) == (32, 4, 0)
     assert PORT_CS2 == DEFAULT_CS2
+
+
+@pytest.mark.parametrize("K,fuse_w", [(50, False), (50, True), (8, True),
+                                      (96, True), (97, True), (128, True),
+                                      (129, True), (192, True), (193, True)])
+def test_launch_shape_follows_block_rows(K, fuse_w):
+    """The rows per block are one constant of the module (measured on the
+    card, PERF.md); under fuse_w a block takes the most rows up to it whose
+    K-long slices fit 48 KB, and its shared memory follows the rows."""
+    lanes, rows, smem = k1.launch_shape(K, fuse_w)
+    assert lanes == 32 and 1 <= rows <= k1.BLOCK_ROWS
+    if not fuse_w:
+        assert (rows, smem) == (k1.BLOCK_ROWS, 0)
+        return
+    assert smem == K * 32 * rows * 4 <= 48 * 1024
+    assert rows == k1.BLOCK_ROWS or K * 32 * (rows + 1) * 4 > 48 * 1024
 
 
 # ------------------------------------------ divergence damping (smdiv) ----
@@ -269,9 +294,42 @@ def test_mudf_in_must_not_alias_ww_row(small_case):
     tarr = {k: torch.tensor(v) for k, v in arr.items()}
     mkw = _mode_kwargs("final", arr, sc, static)
     row = torch.tensor(mkw.pop("ww_row"))
-    with pytest.raises(ValueError, match="alias"):
+    with pytest.raises(ValueError, match="mudf_in must not alias ww_row"):
         k1.advance_mu_t_fused(**tarr, **sc, **static, **mkw, ww_row=row,
                               mudf_in=row, smdiv=0.1)
+
+
+@pytest.mark.parametrize("written,read,mode", [
+    ("t", "t_1", "full"), ("t", "t_1", "scan"), ("t_ave", "ft", "full"),
+    ("ww", "ww_1", "final"), ("t", "u", "full"), ("t", "mu", "final"),
+])
+def test_in_place_operand_must_not_alias_a_read_one(small_case, written,
+                                                    read, mode):
+    """K1 loads a level's operands before it stores the levels below it
+    (and other threads read the neighbour columns of every read-only
+    field), so a buffer it updates in place may not overlap one it only
+    reads: the wrapper raises, on either device, before any launch."""
+    arr, sc, static = _inputs(small_case)
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    mkw = _mode_kwargs(mode, arr, sc, static)
+    mkw = {k: (torch.tensor(v) if isinstance(v, np.ndarray) else v)
+           for k, v in mkw.items()}
+    if mkw.get("lean"):
+        mkw.update(k1.lean_kwargs(tarr, sc["rdx"], sc["rdy"], sc["dts"],
+                                  static["k0"], static["k1"]))
+    fields = {**tarr, **mkw}
+    if fields[read].shape == fields[written].shape:
+        fields[read] = fields[written]           # the same buffer
+    else:   # a 2-D read field inside the 3-D written one
+        fields[read] = fields[written][:, 0, :]
+    with pytest.raises(ValueError,
+                       match=f"{read} must not alias {written}"):
+        k1.advance_mu_t_fused(**fields, **sc, **static)
+    # a view of a different part of one storage is no overlap
+    big = torch.zeros((2,) + tarr["t"].shape)
+    big[0], big[1] = tarr["t"], tarr["t_1"]
+    ok = dict(tarr, t=big[0], t_1=big[1])
+    k1.advance_mu_t_fused(**ok, **sc, **static)
 
 
 # --------------------------------------------- the phase-A capture --------

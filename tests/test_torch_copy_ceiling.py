@@ -93,3 +93,52 @@ def test_ceiling_reports_one_failed_probe_and_raises_on_more(monkeypatch):
     readings["aliased"] = RuntimeError("again")
     with pytest.raises(RuntimeError, match="again"):
         k6.measure_copy_ceiling((1, 1, 1))
+
+
+# ------------------------------------------------- the launch plan --------
+@pytest.mark.parametrize("n,aligned", [
+    (0, True), (1, True), (3, True), (4, True), (5, True), (1027, True),
+    (1024 * 4 - 1, True), (1024 * 4, True), (1024 * 4 + 1, True),
+    (1024 * 8, True), (1024 * 8 + 1, True), (516 * 50 * 516, True),
+    (105, False), (1, False), (1024, False), (1025, False),
+    (1024 * 8 + 3, False),
+])
+def test_register_plan_covers_every_element_once(n, aligned):
+    """The grid: ``vec_blocks`` chunks of WORDS*THREADS float4 words over
+    the first n4 words (aligned only), then chunks of WORDS*THREADS floats
+    over the rest; together every element exactly once, and no block
+    without work."""
+    n4, vec_blocks, blocks = k6.launch_plan(n, aligned)
+    assert n4 == (n // 4 if aligned else 0)
+    chunk = k6.WORDS * k6.THREADS
+    assert (vec_blocks - 1) * chunk < n4 <= vec_blocks * chunk or \
+        (vec_blocks == 0 and n4 == 0)
+    tail = n - 4 * n4
+    assert tail <= (3 if aligned else n)
+    tail_blocks = blocks - vec_blocks
+    assert (tail_blocks - 1) * chunk < tail <= tail_blocks * chunk or \
+        (tail_blocks == 0 and tail == 0)
+    covered = np.zeros(n, np.int64)
+    for b in range(vec_blocks):   # words [b*chunk, (b+1)*chunk) & [0, n4)
+        lo, hi = b * chunk, min((b + 1) * chunk, n4)
+        covered[4 * lo:4 * hi] += 1
+    for b in range(tail_blocks):
+        lo = 4 * n4 + b * chunk
+        covered[lo:min(lo + chunk, n)] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("n,aligned,want", [
+    (4, True, (1, 1, 1)), (5, True, (1, 1, 2)), (4096, True, (1024, 1, 1)),
+    (4099, True, (1024, 1, 2)), (4100, True, (1025, 2, 2)),
+    (516 * 50 * 516, True, (3328200, 3251, 3251)),
+    (1024 * 50 * 1502, True, (19225600, 18775, 18775)),
+    (7 * 5 * 3, False, (0, 0, 1)), (1027, False, (0, 0, 2)),
+    (0, True, (0, 0, 0)),
+])
+def test_plan_at_the_probes_shapes_and_edges(n, aligned, want):
+    """The grid is the chunk count (1024 words a block, 1024 floats a block
+    past them): fewer elements than one chunk take one block, a ragged
+    tail one more, an unaligned pointer moves everything as floats, and an
+    empty array launches no block."""
+    assert k6.launch_plan(n, aligned) == want

@@ -9,10 +9,10 @@
 namespace k1 {
 
 cudaError_t launch_f32(const Args& a, int fuse_uv, int lean, int ww_mode,
-                       int with_tave, int fuse_w, int block_x,
+                       int with_tave, int fuse_w, int rows,
                        cudaStream_t s) {
   return dispatch_group<false, float, true>(a, fuse_uv, lean, ww_mode,
-                                            with_tave, fuse_w, block_x, s);
+                                            with_tave, fuse_w, rows, s);
 }
 
 }  // namespace k1
@@ -23,7 +23,8 @@ cudaError_t launch_f32(const Args& a, int fuse_uv, int lean, int ww_mode,
 // non-null mu_lo turns on the in-kernel exchange (mu_hi and v_hi then too,
 // and mudf_lo / mudf_hi with mudf_in).  Launches on ``stream`` and returns
 // cudaGetLastError() of the launch (0 on success); it neither allocates nor
-// synchronises.
+// synchronises.  ``rows``: the rows of a block along j (1 to kMaxRows; the
+// block is kLanes columns wide along i).
 extern "C" int wrf_tpu_torch_advance_mu_t(
     float* ww, const void* ww_1, const void* u, const void* u_1,
     const void* v, const void* v_1, float* t, const void* t_1,
@@ -48,10 +49,10 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
     int J, int K, int I, int i0, int i1, int j0, int j1, int j_off,
     int i_off, int k0, int k1,
     int fuse_uv, int lean, int ww_mode, int with_tave, int fuse_w,
-    int const_bf16, int block_x, void* stream) {
+    int const_bf16, int rows, void* stream) {
   using namespace k1;
   if (J < 3 || K < 1 || I < 1 || k0 < 0 || k1 >= K || k0 > k1 ||
-      block_x < 1 || block_x > 128)
+      rows < 1 || rows > kMaxRows)
     return cudaErrorInvalidValue;
   // damping belongs to the fused wind update; the captures come all five
   // together and only on the full-ww path; mudf_in is read at neighbour
@@ -84,5 +85,5 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
   const auto group = const_bf16 ? (overlap ? launch_bf16_overlap : launch_bf16)
                                 : (overlap ? launch_f32_overlap : launch_f32);
   return static_cast<int>(
-      group(a, fuse_uv, lean, ww_mode, with_tave, fuse_w, block_x, s));
+      group(a, fuse_uv, lean, ww_mode, with_tave, fuse_w, rows, s));
 }

@@ -9,9 +9,9 @@ namespace k1 {
 
 cudaError_t launch_bf16(
     const Args& a, int fuse_uv, int lean, int ww_mode, int with_tave,
-    int fuse_w, int block_x, cudaStream_t s) {
+    int fuse_w, int rows, cudaStream_t s) {
   return dispatch_group<false, __nv_bfloat16, false>(
-      a, fuse_uv, lean, ww_mode, with_tave, fuse_w, block_x, s);
+      a, fuse_uv, lean, ww_mode, with_tave, fuse_w, rows, s);
 }
 
 }  // namespace k1

@@ -10,9 +10,9 @@ namespace k1 {
 
 cudaError_t launch_bf16_overlap(
     const Args& a, int fuse_uv, int lean, int ww_mode, int with_tave,
-    int fuse_w, int block_x, cudaStream_t s) {
+    int fuse_w, int rows, cudaStream_t s) {
   return dispatch_group<true, __nv_bfloat16, false>(
-      a, fuse_uv, lean, ww_mode, with_tave, fuse_w, block_x, s);
+      a, fuse_uv, lean, ww_mode, with_tave, fuse_w, rows, s);
 }
 
 }  // namespace k1

@@ -44,33 +44,48 @@
 // (float streams, with the C entry), advance_mu_t_overlap.cu,
 // advance_mu_t_bf16.cu and advance_mu_t_bf16_overlap.cu.
 //
-// Geometry: one thread per (j, i) column of the padded local block.
-// threadIdx.x runs along i, the contiguous axis, so a warp's loads at one
-// level k are 32 neighbouring floats; each thread runs its column's k loops
+// Geometry: one thread per (j, i) column of the padded local block, in
+// blocks of 32 lanes along i (the contiguous axis, so a warp's loads at one
+// level k are 32 neighbouring floats) by R rows along j (R = 1-4, chosen by
+// the wrapper); the grid covers the block, so the ragged i edge wastes at
+// most one warp per row and a row's north and south neighbours sit in the
+// same block's L1.  No barrier: each thread runs its column's k loops
 // itself (the reference CUDA kernel's geometry).  Two k passes per column:
-//   pass 1 forms dvdxi(k) for k0..k1, keeps it in shared memory (a K-long
-//          slice per thread, laid out [k][threadIdx.x] so a warp hits 32
-//          banks; kept rather than recomputed in pass 2), sums dmdt in k
-//          order (the oracle's order) and writes the updated winds;
-//   pass 2 runs the ww scan from the seed and the theta update with one
-//          level of look-ahead, since vert(k) needs wdtn(k+1).  Under
-//          FUSE_W the solve's forward elimination rides this loop, level k
-//          right after t(k) is final, and a third, descending loop
-//          back-substitutes and updates pp.
-// The solve's K-long sweep state dpw lives in the thread's shared-memory
-// slice: pass 2 consumes dvdxi(k) at level k and the slot is dead from
-// then on, so dpw(k) takes it.  No scratch in device memory; what the
-// solve costs there is w and pp read twice and written once (6 field
+//   pass 1 forms dvdxi(k) for k0..k1, sums dmdt in k order (the oracle's
+//          order) and writes the updated winds;
+//   pass 2 runs the ww scan from the seed and the theta update, with one
+//          level of look-ahead, since vert(k) needs wdtn(k+1).  It loads
+//          u and v at the same four points as pass 1, so it recomputes
+//          dvdxi(k) there with the same expression (bit-equal) instead of
+//          keeping pass 1's in memory.  Under FUSE_W the solve's forward
+//          elimination rides this loop, level k right after t(k) is final,
+//          and a third, descending loop back-substitutes and updates pp.
+// Both k loops are software-pipelined in the source: the operands of level
+// k + kAhead (1 or 2) are loaded into registers before level k's stores,
+// because the compiler cannot move a load above a store it cannot prove
+// distinct, and every store here goes through an Args member (see
+// Buffers).  The operands that no thread writes (every input but t, ww,
+// ww_row, w and pp) are read with ldr (const_stream.cuh) and kept in their
+// stored type until they are used.
+// The solve's K-long sweep state dpw lives in shared memory, a K-long slice
+// per thread laid out [k][thread] so a warp hits 32 banks: FUSE_W instances
+// launch with K * 4 bytes a thread of dynamic shared memory, the others with
+// none, which leaves the SM's shared-memory carve-out to L1.  What the solve
+// costs in device memory is w and pp read twice and written once (6 field
 // passes, 4 of them compulsory: csrc/w_solve.cuh).
 //
-// Buffers: u, v and mu are read at neighbour columns and rows, and GPU
-// blocks run in no fixed order, so their updates go to fresh output
-// buffers; the caller hands those back as the next substep's inputs
-// (nothing is copied).  The same holds for mudf under damping: mudf_in is
-// read at neighbour columns and rows while mudf is written, so the two are
-// different buffers, and a loop hands each substep's mudf back as the next
-// one's mudf_in.  t, t_ave, ww and ww_row are read only at the thread's own
-// column, so they are updated in place; so are w and pp.
+// Buffers, and the contract that makes loading ahead of stores safe: u, v
+// and mu are read at neighbour columns and rows, and GPU blocks run in no
+// fixed order, so their updates go to fresh output buffers (u_out, v_out,
+// mu_out; also muave, muts and the captures); the caller hands those back as
+// the next substep's inputs (nothing is copied).  The same holds for mudf
+// under damping: mudf_in is read at neighbour columns and rows while mudf is
+// written, so the two are different buffers, and a loop hands each
+// substep's mudf back as the next one's mudf_in.  t, t_ave, ww and ww_row
+// are read only at the thread's own column and level, so they are updated
+// in place; so are w and pp.  No buffer the launch writes may overlap one it
+// only reads (the wrapper raises otherwise), so every load of a level may be
+// issued before the stores of an earlier one.
 //
 // Edges: rows 0 and J-1 are never computed.  There, and in every column
 // outside the compute window, the state passes through and muave, muts
@@ -82,14 +97,14 @@
 //
 // Bound: memory.  The lean scan substep streams nine 3-D float32 field
 // passes (reads u, v, t, t_1, tconst, dvdxi_const; writes u, v, t) and does
-// a few dozen flops per cell; pass 2 re-reads u, v and the t_1 neighbours,
-// which the design leaves to the L1/L2 caches.  Times on the card are in
-// PERF.md.
+// a few dozen flops per cell; pass 2 re-reads u, v, dvdxi_const and the t_1
+// neighbours, which the design leaves to the L1/L2 caches.  Times on the
+// card are in PERF.md.
 //
 // Numerics: built with -fmad=false (no multiply-add contraction) and IEEE
 // division.  Every expression, and the k order of the dmdt column sum,
 // follows the plain version, so the two agree bit for bit (measured on the
-// card in all three modes: PERF.md).
+// card in every mode: PERF.md).
 
 #pragma once
 
@@ -104,6 +119,10 @@
 namespace k1 {
 
 enum WwMode { kFull = 0, kLite = 1, kFinal = 2 };
+
+constexpr int kLanes = 32;       // threads of a block along i
+constexpr int kMaxRows = 4;      // rows of a block along j, at most
+constexpr int kEdgeChunk = 8;    // levels a pass-through column moves at once
 
 struct Args {
   // 3-D fields (J, K, I); the void pointers are the constant streams, of
@@ -180,9 +199,15 @@ struct Args {
 // 9 %).
 template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W,
           bool DAMP, bool CAPTURE, bool OVERLAP, typename CT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kLanes * kMaxRows)
 advance_mu_t_kernel(const Args a) {
-  extern __shared__ float s_dvdxi[];  // [K][blockDim.x]
+  extern __shared__ float s_dpw[];  // FUSE_W: [K][threads of the block]
+  // Levels loaded ahead of the stores, measured on an H100 (PERF.md): one
+  // for the lite substeps without the w solve and for the full and final
+  // ones with it but without the wind update (as fast as two, and two make
+  // ptxas spill there), two for the rest.
+  constexpr int kAhead =
+      (WW_MODE == kLite ? !FUSE_W : (FUSE_W && !FUSE_UV)) ? 1 : 2;
   // the winds are state under FUSE_UV and a constant stream otherwise
   using WT = typename std::conditional<FUSE_UV, float, CT>::type;
   const WT* const a_u = static_cast<const WT*>(a.u);
@@ -194,11 +219,10 @@ advance_mu_t_kernel(const Args a) {
   const CT* const a_ft = static_cast<const CT*>(a.ft);
   const CT* const a_tconst = static_cast<const CT*>(a.tconst);
   const CT* const a_dvdxi_const = static_cast<const CT*>(a.dvdxi_const);
-  const int tx = threadIdx.x;
-  const int i = blockIdx.x * blockDim.x + tx;
-  const int j = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int I = a.I, K = a.K;
-  if (i >= I) return;  // no block-wide barrier below
+  if (i >= I || j >= a.J) return;  // no block-wide barrier below
 
   const size_t row = (size_t)K * I;            // one j row of a 3-D field
   const size_t col = (size_t)j * row + i;      // (j, k=0, i); level k adds k*I
@@ -209,27 +233,42 @@ advance_mu_t_kernel(const Args a) {
 
   if (!(j >= 1 && j <= a.J - 2 && i_in && j_in)) {
     // edge row or outside the window: pass-through / zero
-    a.mu_out[c] = a.mu[c];
+    a.mu_out[c] = __ldg(a.mu + c);
     a.muave[c] = 0.f;
     a.muts[c] = 0.f;
     a.mudf[c] = 0.f;
-    if (FUSE_UV) {
-      for (int k = 0; k < K; ++k) {
-        const size_t x = col + (size_t)k * I;
-        a.u_out[x] = ldf(a_u, x);
-        a.v_out[x] = ldf(a_v, x);
+    const bool edge = j < 1 || j > a.J - 2;
+    // the 3-D pass-throughs, kEdgeChunk levels loaded before their stores
+    for (int kb = 0; kb < K; kb += kEdgeChunk) {
+      float uu[kEdgeChunk], vv[kEdgeChunk], ww[kEdgeChunk];
+#pragma unroll
+      for (int q = 0; q < kEdgeChunk; ++q) {
+        const size_t x = col + (size_t)(kb + q) * I;
+        if (kb + q < K) {
+          if (FUSE_UV) {
+            uu[q] = f32(ldr(a_u, x));
+            vv[q] = f32(ldr(a_v, x));
+          }
+          if (CAPTURE) ww[q] = edge ? 0.f : a.ww[x];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kEdgeChunk; ++q) {
+        const size_t x = col + (size_t)(kb + q) * I;
+        if (kb + q < K) {
+          if (FUSE_UV) {
+            a.u_out[x] = uu[q];
+            a.v_out[x] = vv[q];
+          }
+          if (CAPTURE) a.cap_ww[x] = ww[q];
+        }
       }
     }
     if (CAPTURE) {  // the outputs' values; all zero on rows 0 and J-1
-      const bool edge = j < 1 || j > a.J - 2;
       a.cap_muave[c] = 0.f;
-      a.cap_mu[c] = edge ? 0.f : a.mu[c];
+      a.cap_mu[c] = edge ? 0.f : __ldg(a.mu + c);
       a.cap_mudf[c] = 0.f;
       a.cap_muts[c] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const size_t x = col + (size_t)k * I;
-        a.cap_ww[x] = edge ? 0.f : a.ww[x];
-      }
     }
     return;
   }
@@ -247,11 +286,18 @@ advance_mu_t_kernel(const Args a) {
       !OVERLAP ? nullptr
                : (j == a.J - 2 ? a.v_hi + i
                                : static_cast<const float*>(a.v) + col + row);
-  const float msft2 = a.msftx[c] * a.msfty[c];
-  const float muu_msfuy_c = a.muu[c] / a.msfuy[c];
-  const float muu_msfuy_e = a.muu[ce] / a.msfuy[ce];
-  const float muv_msfvxi_c = a.muv[c] * a.msfvx_inv[c];
-  const float muv_msfvxi_n = a.muv[c + I] * a.msfvx_inv[c + I];
+  // every 2-D operand is read here, before the first store
+  const float msftx_c = __ldg(a.msftx + c);
+  const float msfty_c = __ldg(a.msfty + c);
+  const float msft2 = msftx_c * msfty_c;
+  const float muu_msfuy_c = __ldg(a.muu + c) / __ldg(a.msfuy + c);
+  const float muu_msfuy_e = __ldg(a.muu + ce) / __ldg(a.msfuy + ce);
+  const float muv_msfvxi_c = __ldg(a.muv + c) * __ldg(a.msfvx_inv + c);
+  const float muv_msfvxi_n =
+      __ldg(a.muv + c + I) * __ldg(a.msfvx_inv + c + I);
+  const float mu_c = __ldg(a.mu + c);
+  const float mt = __ldg(a.mu_tend + c);
+  const float mut_c = __ldg(a.mut + c);
 
   // Wind increments of this column's u(i), u(i+1), v(j), v(j+1): each
   // thread recomputes its neighbours' updated winds instead of reading
@@ -259,21 +305,23 @@ advance_mu_t_kernel(const Args a) {
   float du_c = 0.f, du_e = 0.f, dv_c = 0.f, dv_n = 0.f;
   if (FUSE_UV) {
     const float cs2 = a.cs2;
-    float p_c = cs2 * a.mu[c];
-    float p_w = cs2 * a.mu[cw];
-    float p_e = cs2 * a.mu[ce];
+    float p_c = cs2 * mu_c;
+    float p_w = cs2 * __ldg(a.mu + cw);
+    float p_e = cs2 * __ldg(a.mu + ce);
     // OVERLAP: the edge rows take the halo rows from the ring neighbours
     const bool lo_edge = OVERLAP && j == 1;
     const bool hi_edge = OVERLAP && j == a.J - 2;
-    float p_s = cs2 * (lo_edge ? a.mu_lo[i] : a.mu[c - I]);
-    float p_n = cs2 * (hi_edge ? a.mu_hi[i] : a.mu[c + I]);
+    float p_s = cs2 * (lo_edge ? __ldg(a.mu_lo + i) : __ldg(a.mu + c - I));
+    float p_n = cs2 * (hi_edge ? __ldg(a.mu_hi + i) : __ldg(a.mu + c + I));
     if (DAMP) {  // divergence damping: two roundings and a sum each
       const float dampc = a.dampc;
-      p_c = p_c + dampc * a.mudf_in[c];
-      p_w = p_w + dampc * a.mudf_in[cw];
-      p_e = p_e + dampc * a.mudf_in[ce];
-      p_s = p_s + dampc * (lo_edge ? a.mudf_lo[i] : a.mudf_in[c - I]);
-      p_n = p_n + dampc * (hi_edge ? a.mudf_hi[i] : a.mudf_in[c + I]);
+      p_c = p_c + dampc * __ldg(a.mudf_in + c);
+      p_w = p_w + dampc * __ldg(a.mudf_in + cw);
+      p_e = p_e + dampc * __ldg(a.mudf_in + ce);
+      p_s = p_s + dampc * (lo_edge ? __ldg(a.mudf_lo + i)
+                                   : __ldg(a.mudf_in + c - I));
+      p_n = p_n + dampc * (hi_edge ? __ldg(a.mudf_hi + i)
+                                   : __ldg(a.mudf_in + c + I));
     }
     const int ige = ip + a.i_off;
     const int jgn = jg + 1;
@@ -287,48 +335,170 @@ advance_mu_t_kernel(const Args a) {
       dv_n = ((dts * muv_msfvxi_n) * (-rdy)) * (p_n - p_c);
   }
 
-  // ---- pass 1: winds out, dvdxi(k) to shared memory, dmdt -------------
-  const int bdx = blockDim.x;
-  float* s = s_dvdxi + tx;  // level k at s[k * bdx]
-  const int k0 = a.k0, k1 = a.k1;
-  float dmdt = 0.f;
-  for (int k = FUSE_UV ? 0 : k0; k < (FUSE_UV ? K : k1 + 1); ++k) {
-    const size_t x = col + (size_t)k * I;
-    const float u_c = FUSE_UV ? ldf(a_u, x) + du_c : ldf(a_u, x) * ws;
-    const float v_c = FUSE_UV ? ldf(a_v, x) + dv_c : ldf(a_v, x) * ws;
-    if (FUSE_UV) {
-      a.u_out[x] = u_c;
-      a.v_out[x] = v_c;
-      if (k < k0 || k > k1) continue;
+  // ---- what a level loads, and the arithmetic both passes share ----------
+  // The constant streams stay in their stored type CT (the winds in WT)
+  // from the load to the use, where f32 widens them.
+  struct RawWind {  // u, v at x and at the east / north neighbours
+    WT u_c, u_e, v_c, v_n;
+  };
+  struct Wind {  // the same as the substep uses them
+    float u_c, u_e, v_c, v_n;
+  };
+  struct Flux {  // the static-flux operands of dvdxi(k)
+    CT dc;                  // LEAN: dvdxi_const(x)
+    CT v1c, v1n, u1c, u1e;  // otherwise: v_1, u_1 at x, xn, x, xe
+  };
+  // the winds at level k at x (whole: also at xe and xn)
+  auto load_wind = [&](size_t x, int k, bool whole) {
+    RawWind w{};
+    w.u_c = ldr(a_u, x);
+    w.v_c = ldr(a_v, x);
+    if (whole) {
+      w.u_e = ldr(a_u, x - i + ip);
+      if constexpr (OVERLAP)
+        w.v_n = __ldg(v_north + (size_t)k * I);
+      else
+        w.v_n = ldr(a_v, x + row);
     }
-    const size_t xe = x - i + ip, xn = x + row;
-    const float u_e = FUSE_UV ? ldf(a_u, xe) + du_e : ldf(a_u, xe) * ws;
-    const float v_n =
-        FUSE_UV ? (OVERLAP ? v_north[(size_t)k * I] : ldf(a_v, xn)) + dv_n
-                : ldf(a_v, xn) * ws;
-    float dvdxi;
+    return w;
+  };
+  auto load_flux = [&](size_t x) {
+    Flux f{};
     if (LEAN) {
-      dvdxi = ldf(a_dvdxi_const, x) +
-              msft2 * (rdy * (v_n - v_c) + rdx * (u_e - u_c));
+      f.dc = ldr(a_dvdxi_const, x);
     } else {
-      const float vflux = v_c + muv_msfvxi_c * ldf(a_v_1, x);
-      const float vflux_n = v_n + muv_msfvxi_n * ldf(a_v_1, xn);
-      const float uflux = u_c + muu_msfuy_c * ldf(a_u_1, x);
-      const float uflux_e = u_e + muu_msfuy_e * ldf(a_u_1, xe);
-      dvdxi = msft2 * (rdy * (vflux_n - vflux) + rdx * (uflux_e - uflux));
+      const size_t xe = x - i + ip, xn = x + row;
+      f.v1c = ldr(a_v_1, x);
+      f.v1n = ldr(a_v_1, xn);
+      f.u1c = ldr(a_u_1, x);
+      f.u1e = ldr(a_u_1, xe);
     }
-    s[k * bdx] = dvdxi;
-    dmdt += a.dnw[k] * dvdxi;
+    return f;
+  };
+  // the winds as the substep uses them: updated (FUSE_UV) or scaled
+  auto winds = [&](const RawWind& w) {
+    Wind o;
+    o.u_c = FUSE_UV ? f32(w.u_c) + du_c : f32(w.u_c) * ws;
+    o.u_e = FUSE_UV ? f32(w.u_e) + du_e : f32(w.u_e) * ws;
+    o.v_c = FUSE_UV ? f32(w.v_c) + dv_c : f32(w.v_c) * ws;
+    o.v_n = FUSE_UV ? f32(w.v_n) + dv_n : f32(w.v_n) * ws;
+    return o;
+  };
+  auto dvdxi_of = [&](const Wind& w, const Flux& f) {
+    if (LEAN)
+      return f32(f.dc) +
+             msft2 * (rdy * (w.v_n - w.v_c) + rdx * (w.u_e - w.u_c));
+    const float vflux = w.v_c + muv_msfvxi_c * f32(f.v1c);
+    const float vflux_n = w.v_n + muv_msfvxi_n * f32(f.v1n);
+    const float uflux = w.u_c + muu_msfuy_c * f32(f.u1c);
+    const float uflux_e = w.u_e + muu_msfuy_e * f32(f.u1e);
+    return msft2 * (rdy * (vflux_n - vflux) + rdx * (uflux_e - uflux));
+  };
+
+  // ---- pass 1: winds out, dmdt -----------------------------------------
+  const int k0 = a.k0, k1 = a.k1;
+  struct L1 {
+    RawWind w;
+    Flux f;
+    float dnw;
+  };
+  auto load_l1 = [&](int k) {
+    L1 l{};
+    const size_t x = col + (size_t)k * I;
+    const bool in = k >= k0 && k <= k1;  // FUSE_UV moves the winds at all k
+    l.w = load_wind(x, k, in);
+    if (in) {
+      l.f = load_flux(x);
+      l.dnw = __ldg(a.dnw + k);
+    }
+    return l;
+  };
+  const int kb1 = FUSE_UV ? 0 : k0, ke1 = FUSE_UV ? K - 1 : k1;
+  L1 q1[kAhead];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d)
+    if (kb1 + d <= ke1) q1[d] = load_l1(kb1 + d);
+  float dmdt = 0.f;
+  for (int k = kb1; k <= ke1; ++k) {
+    L1 nx{};
+    if (k + kAhead <= ke1) nx = load_l1(k + kAhead);  // before the stores
+    const L1 l = q1[0];
+#pragma unroll
+    for (int d = 0; d + 1 < kAhead; ++d) q1[d] = q1[d + 1];
+    q1[kAhead - 1] = nx;
+    const Wind w = winds(l.w);
+    if (FUSE_UV) {
+      const size_t x = col + (size_t)k * I;
+      a.u_out[x] = w.u_c;
+      a.v_out[x] = w.v_c;
+    }
+    if (!FUSE_UV || (k >= k0 && k <= k1)) dmdt += l.dnw * dvdxi_of(w, l.f);
   }
 
+  // ---- pass 2's first levels, loaded before the column's 2-D stores ------
+  struct L2 {
+    RawWind w;
+    Flux f;                 // k < k1
+    float t;                // t at x
+    CT th;                  // tconst (LEAN) or ft at x
+    CT t1n, t1s, t1e, t1w;  // t_1 at the four neighbours
+    float dnw, rdnw;
+    float w_up, pp;            // FUSE_W: w(k+1), pp(k)
+  };
+  struct Up {  // level k's values that level k-1 reads
+    CT t1, ww1;
+    float fnm, fnp;
+  };
+  // ww_1 is read unless the lean lite scan carries the raw value
+  constexpr bool kWw1 = !(WW_MODE == kLite && LEAN);
+  auto load_l2 = [&](int k) {
+    L2 l{};
+    const size_t x = col + (size_t)k * I;
+    l.w = load_wind(x, k, true);
+    if (k < k1) {
+      l.f = load_flux(x);
+      l.dnw = __ldg(a.dnw + k);
+    }
+    l.t = a.t[x];
+    l.th = LEAN ? ldr(a_tconst, x) : ldr(a_ft, x);
+    l.t1n = ldr(a_t_1, x + row);
+    l.t1s = ldr(a_t_1, x - row);
+    l.t1e = ldr(a_t_1, x - i + ip);
+    l.t1w = ldr(a_t_1, x - i + im);
+    l.rdnw = __ldg(a.rdnw + k);
+    if (FUSE_W) {
+      l.w_up = (k < k1) ? a.w[x + I] : 0.f;
+      l.pp = a.pp[x];
+    }
+    return l;
+  };
+  auto load_up = [&](int k) {
+    Up u{};
+    const size_t x = col + (size_t)k * I;
+    u.t1 = ldr(a_t_1, x);
+    if (kWw1) u.ww1 = ldr(a_ww_1, x);
+    u.fnm = __ldg(a.fnm + k);
+    u.fnp = __ldg(a.fnp + k);
+    return u;
+  };
+  const size_t x0 = col + (size_t)k0 * I;
+  L2 q2[kAhead];
+  Up up[kAhead];  // up[d]: level k + 1 + d
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d) {
+    if (k0 + d <= k1) q2[d] = load_l2(k0 + d);
+    if (k0 + 1 + d <= k1) up[d] = load_up(k0 + 1 + d);
+  }
+  float t1_k = f32(ldr(a_t_1, x0));                 // t_1 at level k
+  float ww1_k = kWw1 ? f32(ldr(a_ww_1, x0)) : 0.f;  // ww_1 at level k
+  const float seed = (WW_MODE == kFull) ? a.ww[x0] : a.ww_row[c];
+
   // ---- column mass -------------------------------------------------------
-  const float mu_c = a.mu[c];
-  const float mt = a.mu_tend[c];
   const float tend = dmdt + mt;
   const float mu_new = mu_c + dts * tend;
   a.mu_out[c] = mu_new;
   a.mudf[c] = tend;
-  const float muts_new = a.mut[c] + mu_new;
+  const float muts_new = mut_c + mu_new;
   a.muts[c] = muts_new;
   const float muave_new =
       0.5f * ((1.0f + a.epssm) * mu_new + (1.0f - a.epssm) * mu_c);
@@ -345,78 +515,85 @@ advance_mu_t_kernel(const Args a) {
   }
 
   // ---- pass 2: ww scan and theta, k ascending ----------------------------
-  const float msfty_c = a.msfty[c];
   const float rmsfty = 1.0f / msfty_c;
   const float dts_msfty = dts * msfty_c;
-  const float msftx_c = a.msftx[c];
   const float hrdx = 0.5f * rdx, hrdy = 0.5f * rdy;
-  const size_t x0 = col + (size_t)k0 * I;
-  const float seed = (WW_MODE == kFull) ? a.ww[x0] : a.ww_row[c];
   if (WW_MODE == kLite) {
     // the next substep's seed; in lean mode ww_1 lives in tconst and
     // the scan below carries the raw value
-    a.ww_row[c] = seed - (LEAN ? a.ww1_k0[c] : ldf(a_ww_1, x0));
+    a.ww_row[c] = seed - (LEAN ? __ldg(a.ww1_k0 + c) : ww1_k);
   }
   float scan = seed;       // raw scan value at level k
   float wdtn = 0.f;        // wdtn(k0): no flux through the surface
-  float t1_k = ldf(a_t_1, x0);
   const wsolve::Coef wc{a.rdnw, a.aw,  a.cpv, a.denv, a.crdn,
                         a.erdn, a.c_w, a.g_t, a.beta, a.alfa};
   wsolve::Fwd wf;
+  const size_t nthreads = (size_t)blockDim.x * blockDim.y;
+  float* const s = s_dpw + threadIdx.y * blockDim.x + threadIdx.x;
   for (int k = k0; k <= k1; ++k) {
+    L2 nx{};
+    Up nu{};
+    if (k + kAhead <= k1) nx = load_l2(k + kAhead);  // before the stores
+    if (k + 1 + kAhead <= k1) nu = load_up(k + 1 + kAhead);
+    const L2 l = q2[0];
+    const Up u = up[0];
+#pragma unroll
+    for (int d = 0; d + 1 < kAhead; ++d) {
+      q2[d] = q2[d + 1];
+      up[d] = up[d + 1];
+    }
+    q2[kAhead - 1] = nx;
+    up[kAhead - 1] = nu;
+
     const size_t x = col + (size_t)k * I;
     if (WW_MODE != kLite) {
-      const float ww_new = scan - ldf(a_ww_1, x);
+      const float ww_new = scan - ww1_k;
       a.ww[x] = ww_new;
       if (CAPTURE) a.cap_ww[x] = ww_new;  // beside theta, to its own buffer
     }
+    const Wind w = winds(l.w);
     float scan_up = 0.f, t1_up = 0.f, wdtn_up = 0.f;  // level k+1 (0 above k1)
     if (k < k1) {
-      scan_up = scan + (-a.dnw[k] * ((dmdt + s[k * bdx]) + mt)) * rmsfty;
-      t1_up = ldf(a_t_1, x + I);
+      scan_up = scan + (-l.dnw * ((dmdt + dvdxi_of(w, l.f)) + mt)) * rmsfty;
+      t1_up = f32(u.t1);
       const float ww_up =
-          (WW_MODE == kLite && LEAN) ? scan_up : scan_up - ldf(a_ww_1, x + I);
-      wdtn_up = ww_up * (a.fnm[k + 1] * t1_up + a.fnp[k + 1] * t1_k);
+          (WW_MODE == kLite && LEAN) ? scan_up : scan_up - f32(u.ww1);
+      wdtn_up = ww_up * (u.fnm * t1_up + u.fnp * t1_k);
     }
-    const float vert = a.rdnw[k] * (wdtn_up - wdtn);
+    const float vert = l.rdnw * (wdtn_up - wdtn);
 
-    const float t_c = a.t[x];
+    const float t_c = l.t;
     if (WITH_TAVE) a.t_ave[x] = t_c;
-    const float t_half =
-        LEAN ? t_c + ldf(a_tconst, x) : t_c + dts_msfty * ldf(a_ft, x);
-
-    const size_t xe = x - i + ip, xw = x - i + im, xn = x + row, xs = x - row;
-    const float u_c = FUSE_UV ? ldf(a_u, x) + du_c : ldf(a_u, x) * ws;
-    const float u_e = FUSE_UV ? ldf(a_u, xe) + du_e : ldf(a_u, xe) * ws;
-    const float v_c = FUSE_UV ? ldf(a_v, x) + dv_c : ldf(a_v, x) * ws;
-    const float v_n =
-        FUSE_UV ? (OVERLAP ? v_north[(size_t)k * I] : ldf(a_v, xn)) + dv_n
-                : ldf(a_v, xn) * ws;
+    const float th = f32(l.th);
+    const float t_half = LEAN ? t_c + th : t_c + dts_msfty * th;
     const float fy =
-        v_n * (ldf(a_t_1, xn) + t1_k) - v_c * (t1_k + ldf(a_t_1, xs));
+        w.v_n * (f32(l.t1n) + t1_k) - w.v_c * (t1_k + f32(l.t1s));
     const float fx =
-        u_e * (ldf(a_t_1, xe) + t1_k) - u_c * (t1_k + ldf(a_t_1, xw));
+        w.u_e * (f32(l.t1e) + t1_k) - w.u_c * (t1_k + f32(l.t1w));
     const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
     const float t_new = t_half - dts_msfty * (horiz + vert);
     a.t[x] = t_new;
-    if (FUSE_W) {  // dvdxi(k) in s[k] is consumed: the slot takes dpw(k)
-      wsolve::w_forward_level(wc, wf, a.w + col, a.pp + col, I, k, k0, k1,
-                              t_new, s, bdx);
-    }
+    if (FUSE_W)
+      wsolve::w_forward_step(wc, wf, k, k0, t_new, l.w_up, l.pp, s, nthreads);
 
     scan = scan_up;
     wdtn = wdtn_up;
     t1_k = t1_up;
+    ww1_k = f32(u.ww1);
   }
-  if (FUSE_W) wsolve::w_backward(wc, a.w + col, a.pp + col, I, k0, k1, s, bdx);
+  if (FUSE_W)
+    wsolve::w_backward(wc, a.w + col, a.pp + col, I, k0, k1, s, nthreads);
 }
 
+// The launch: blocks of kLanes x rows threads over the (J, I) columns, and
+// under FUSE_W K floats of shared memory per thread (the wrapper's
+// launch_shape computes the same).
 template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W,
           bool DAMP, bool OVERLAP, typename CT, bool CAPTURE = false>
-cudaError_t launch(const Args& a, int block_x, cudaStream_t stream) {
-  const dim3 block(block_x);
-  const dim3 grid((a.I + block_x - 1) / block_x, a.J);
-  const size_t smem = (size_t)a.K * block_x * sizeof(float);
+cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
+  const dim3 block(kLanes, rows);
+  const dim3 grid((a.I + kLanes - 1) / kLanes, (a.J + rows - 1) / rows);
+  const size_t smem = FUSE_W ? (size_t)a.K * kLanes * rows * sizeof(float) : 0;
   advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE, FUSE_W, DAMP,
                       CAPTURE, OVERLAP, CT><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
@@ -426,47 +603,47 @@ cudaError_t launch(const Args& a, int block_x, cudaStream_t stream) {
 // family built without CAPTURES refuses a capture
 template <bool FUSE_UV, bool WITH_TAVE, bool FUSE_W, bool DAMP, bool OVERLAP,
           typename CT, bool CAPTURES>
-cudaError_t launch_full(const Args& a, int block_x, cudaStream_t s) {
+cudaError_t launch_full(const Args& a, int rows, cudaStream_t s) {
   if (a.cap_ww) {
     if constexpr (CAPTURES)
       return launch<FUSE_UV, false, kFull, WITH_TAVE, FUSE_W, DAMP, OVERLAP,
-                    CT, true>(a, block_x, s);
+                    CT, true>(a, rows, s);
     else
       return cudaErrorInvalidValue;
   }
   return launch<FUSE_UV, false, kFull, WITH_TAVE, FUSE_W, DAMP, OVERLAP, CT>(
-      a, block_x, s);
+      a, rows, s);
 }
 
 // the modes of one (FUSE_UV, FUSE_W, DAMP, OVERLAP, CT) family
 template <bool FUSE_UV, bool FUSE_W, bool DAMP, bool OVERLAP, typename CT,
           bool CAPTURES>
 cudaError_t dispatch(const Args& a, int lean, int ww_mode, int with_tave,
-                     int block_x, cudaStream_t s) {
+                     int rows, cudaStream_t s) {
   if (lean) {  // lean is a scan-substep mode: lite, no t_ave
     if (ww_mode != kLite || with_tave) return cudaErrorInvalidValue;
     return launch<FUSE_UV, true, kLite, false, FUSE_W, DAMP, OVERLAP, CT>(
-        a, block_x, s);
+        a, rows, s);
   }
   switch (ww_mode * 2 + (with_tave ? 1 : 0)) {
     case kFull * 2:
       return launch_full<FUSE_UV, false, FUSE_W, DAMP, OVERLAP, CT, CAPTURES>(
-          a, block_x, s);
+          a, rows, s);
     case kFull * 2 + 1:
       return launch_full<FUSE_UV, true, FUSE_W, DAMP, OVERLAP, CT, CAPTURES>(
-          a, block_x, s);
+          a, rows, s);
     case kLite * 2:
       return launch<FUSE_UV, false, kLite, false, FUSE_W, DAMP, OVERLAP, CT>(
-          a, block_x, s);
+          a, rows, s);
     case kLite * 2 + 1:
       return launch<FUSE_UV, false, kLite, true, FUSE_W, DAMP, OVERLAP, CT>(
-          a, block_x, s);
+          a, rows, s);
     case kFinal * 2:
       return launch<FUSE_UV, false, kFinal, false, FUSE_W, DAMP, OVERLAP, CT>(
-          a, block_x, s);
+          a, rows, s);
     case kFinal * 2 + 1:
       return launch<FUSE_UV, false, kFinal, true, FUSE_W, DAMP, OVERLAP, CT>(
-          a, block_x, s);
+          a, rows, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -476,44 +653,44 @@ cudaError_t dispatch(const Args& a, int lean, int ww_mode, int with_tave,
 // entry checks)
 template <bool FUSE_W, bool OVERLAP, typename CT, bool CAPTURES>
 cudaError_t dispatch_uv(const Args& a, int fuse_uv, int lean, int ww_mode,
-                        int with_tave, int block_x, cudaStream_t s) {
+                        int with_tave, int rows, cudaStream_t s) {
   if (!fuse_uv) {
     if constexpr (OVERLAP)
       return cudaErrorInvalidValue;
     else
       return dispatch<false, FUSE_W, false, false, CT, CAPTURES>(
-          a, lean, ww_mode, with_tave, block_x, s);
+          a, lean, ww_mode, with_tave, rows, s);
   }
   return a.mudf_in ? dispatch<true, FUSE_W, true, OVERLAP, CT, CAPTURES>(
-                         a, lean, ww_mode, with_tave, block_x, s)
+                         a, lean, ww_mode, with_tave, rows, s)
                    : dispatch<true, FUSE_W, false, OVERLAP, CT, CAPTURES>(
-                         a, lean, ww_mode, with_tave, block_x, s);
+                         a, lean, ww_mode, with_tave, rows, s);
 }
 
 // What one source file instantiates: every mode of one (OVERLAP, CT).
 template <bool OVERLAP, typename CT, bool CAPTURES>
 cudaError_t dispatch_group(const Args& a, int fuse_uv, int lean, int ww_mode,
-                           int with_tave, int fuse_w, int block_x,
+                           int with_tave, int fuse_w, int rows,
                            cudaStream_t s) {
   return fuse_w ? dispatch_uv<true, OVERLAP, CT, CAPTURES>(
-                      a, fuse_uv, lean, ww_mode, with_tave, block_x, s)
+                      a, fuse_uv, lean, ww_mode, with_tave, rows, s)
                 : dispatch_uv<false, OVERLAP, CT, CAPTURES>(
-                      a, fuse_uv, lean, ww_mode, with_tave, block_x, s);
+                      a, fuse_uv, lean, ww_mode, with_tave, rows, s);
 }
 
 // The four groups, one per source file (see the file comment).  The bf16
 // groups build no capture instance: the wrapper widens a capture call's
 // constant streams to float before the launch, which is exact.
 cudaError_t launch_f32(const Args& a, int fuse_uv, int lean, int ww_mode,
-                       int with_tave, int fuse_w, int block_x, cudaStream_t s);
+                       int with_tave, int fuse_w, int rows, cudaStream_t s);
 cudaError_t launch_f32_overlap(const Args& a, int fuse_uv, int lean,
                                int ww_mode, int with_tave, int fuse_w,
-                               int block_x, cudaStream_t s);
+                               int rows, cudaStream_t s);
 cudaError_t launch_bf16(const Args& a, int fuse_uv, int lean, int ww_mode,
-                        int with_tave, int fuse_w, int block_x,
+                        int with_tave, int fuse_w, int rows,
                         cudaStream_t s);
 cudaError_t launch_bf16_overlap(const Args& a, int fuse_uv, int lean,
                                 int ww_mode, int with_tave, int fuse_w,
-                                int block_x, cudaStream_t s);
+                                int rows, cudaStream_t s);
 
 }  // namespace k1

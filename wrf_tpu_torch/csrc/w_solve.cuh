@@ -15,8 +15,9 @@
 //
 // One thread owns the column.  The solve reads only its own column of w, pp
 // and the new t, so w and pp are updated in place:
-//   * w_forward_level rides the caller's ascending k loop (the theta pass),
-//     one call per level k0..k1 right after t(k) is final.  It forms
+//   * w_forward_level (w_forward_step on values the caller loaded) rides
+//     the caller's ascending k loop (the theta pass), one call per level
+//     k0..k1 right after t(k) is final.  It forms
 //     dvz(k) = rdnw(k)*(w(k+1) - w(k)) with the rigid surface and lid,
 //     rhs(k), and the eliminated dpw(k) = (rhs(k) + aw(k)*dpw(k-1))/denv(k),
 //     and stores dpw(k) in the caller's K-long sweep buffer.  It reads w and
@@ -62,14 +63,14 @@ struct Fwd {
   float dpw_dn = 0.f;  // dpw(k-1); dpw(k0) = 0
 };
 
-// Level k of the forward sweep, k ascending from k0 to k1.  wcol and ppcol
-// point at level 0 of the thread's column; level k is at [k*I].
-__device__ __forceinline__ void w_forward_level(
-    const Coef& c, Fwd& s, const float* wcol, const float* ppcol, size_t I,
-    int k, int k0, int k1, float t_full, float* dpw, size_t stride) {
-  const float w_up = (k < k1) ? wcol[(size_t)(k + 1) * I] : 0.f;
+// Level k of the forward sweep, k ascending from k0 to k1, on the values
+// the caller loaded: w_up = w(k+1) (0 at k1) and pp_k = pp(k).  K1 loads
+// them levels ahead of its stores.
+__device__ __forceinline__ void w_forward_step(const Coef& c, Fwd& s, int k,
+                                               int k0, float t_full,
+                                               float w_up, float pp_k,
+                                               float* dpw, size_t stride) {
   const float dvz = c.rdnw[k] * (w_up - s.w_act);
-  const float pp_k = ppcol[(size_t)k * I];
   float d = 0.f;
   if (k > k0) {
     const float rhs = ((s.w_act - c.crdn[k] * (pp_k - s.pp_dn)) +
@@ -82,6 +83,16 @@ __device__ __forceinline__ void w_forward_level(
   s.pp_dn = pp_k;
   s.dvz_dn = dvz;
   s.dpw_dn = d;
+}
+
+// The same, loading w(k+1) and pp(k) itself.  wcol and ppcol point at level
+// 0 of the thread's column; level k is at [k*I].
+__device__ __forceinline__ void w_forward_level(
+    const Coef& c, Fwd& s, const float* wcol, const float* ppcol, size_t I,
+    int k, int k0, int k1, float t_full, float* dpw, size_t stride) {
+  const float w_up = (k < k1) ? wcol[(size_t)(k + 1) * I] : 0.f;
+  w_forward_step(c, s, k, k0, t_full, w_up, ppcol[(size_t)k * I], dpw,
+                 stride);
 }
 
 // Levels the descending loop loads ahead of its arithmetic.

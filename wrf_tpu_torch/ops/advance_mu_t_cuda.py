@@ -60,7 +60,9 @@ TPU kernel donates them the same way — on both devices.  ``mu``, ``u`` and
 ``v`` are read at neighbour cells while they are updated, so their results
 are fresh tensors; a loop passes them back as the next substep's inputs,
 and PyTorch's caching allocator hands the freed buffers out again, so
-nothing is copied.
+nothing is copied.  A buffer updated in place may not overlap one that is
+only read (:func:`check_no_alias` raises): the kernel loads levels ahead
+of its stores.
 """
 
 from __future__ import annotations
@@ -78,7 +80,10 @@ from .thomas import ThomasVectors, thomas_vectors
 LAUNCHES = 0
 
 _WW_MODES = {"full": 0, "lite": 1, "final": 2}
-_SMEM_LIMIT = 48 * 1024   # static per-block shared memory, no opt-in needed
+_SMEM_LIMIT = 48 * 1024   # dynamic shared memory a block takes without opt-in
+LANES = 32                # threads of a block along i (csrc: kLanes)
+#: rows of a block along j (csrc: at most kMaxRows = 4), measured (PERF.md)
+BLOCK_ROWS = 4
 _kernel_fn = None
 
 
@@ -117,23 +122,46 @@ CAPTURE_NAMES = ("muave_before_theta", "mu_before_theta",
                  "mudf_before_theta", "muts_before_theta", "ww_before_theta")
 
 
+def check_no_alias(written: dict, read: dict) -> None:
+    """No buffer a launch updates in place (``written``: name -> tensor or
+    None) overlaps one it only reads (``read``, likewise).  The kernel
+    loads a level's operands before it stores the levels below, and other
+    threads read the neighbour columns of the read-only fields, so an
+    overlap would change the result; raises ``ValueError`` naming both.
+    A tensor's bytes are taken as ``nbytes`` from its first element, its
+    span when it is contiguous (the kernel takes no other)."""
+    spans = [(x.data_ptr(), x.nbytes, name) for name, x in written.items()
+             if x is not None]
+    for rn, x in read.items():
+        if x is None:
+            continue
+        lo = x.data_ptr()
+        hi = lo + x.nbytes
+        for wlo, wbytes, wn in spans:
+            if lo < wlo + wbytes and wlo < hi:
+                raise ValueError(f"{rn} must not alias {wn}, which is "
+                                 f"updated in place")
+
+
 def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                  fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
-                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0):
+                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0, reads):
     """The TPU wrapper's argument checks (``tensors``: the 3-D operands by
-    name), and the port's own on the buffers a launch updates in place."""
+    name), and the port's own on the buffers a launch updates in place
+    (``reads``: the 2-D and vertical operands it only reads)."""
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
     if capture and (ww_mode != "full" or lean):
         raise ValueError("capture requires the plain full-ww path "
                          "(ww_mode='full', lean=False)")
-    if (mudf_in is not None and ww_row is not None
-            and mudf_in.untyped_storage().data_ptr()
-            == ww_row.untyped_storage().data_ptr()):
-        # mudf_in is read at neighbour columns and rows while ww_row is
-        # updated in place (the outputs are fresh buffers by construction)
-        raise ValueError("mudf_in must not alias ww_row, which is updated "
-                         "in place")
+    check_no_alias(
+        written=dict(t=tensors["t"], t_ave=t_ave if with_tave else None,
+                     ww=ww if ww_mode != "lite" else None,
+                     ww_row=ww_row if ww_mode != "full" else None,
+                     w=w if fuse_w else None, pp=pp if fuse_w else None),
+        read={**{n: x for n, x in tensors.items()
+                 if n not in ("t", "t_ave", "ww")},
+              **reads})
     if overlap is not None:
         if not fuse_uv:
             raise ValueError("overlap requires fuse_uv (the coupled "
@@ -261,7 +289,12 @@ def advance_mu_t_fused(
                  rdn=rdn, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
-                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
+                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0,
+                 reads=dict(mu=mu, mudf_in=mudf_in, mut=mut, muu=muu,
+                            muv=muv, mu_tend=mu_tend, msfuy=msfuy,
+                            msfvx_inv=msfvx_inv, msftx=msftx, msfty=msfty,
+                            ww1_k0=ww1_k0, dnw=dnw, fnm=fnm, fnp=fnp,
+                            rdnw=rdnw))
     kw = dict(ww=ww, ww_1=ww_1, u=u, u_1=u_1, v=v, v_1=v_1, mu=mu, mut=mut,
               muu=muu, muv=muv, t=t, t_1=t_1, ft=ft, mu_tend=mu_tend,
               rdx=rdx, rdy=rdy, dts=dts, epssm=epssm, dnw=dnw, fnm=fnm,
@@ -584,14 +617,21 @@ def _kernel():
     return _kernel_fn
 
 
-def block_width(K: int) -> int:
-    """Threads per block along i: the widest of 128/64/32 whose per-thread
-    K-long dvdxi slices fit the static shared-memory limit."""
-    for bx in (128, 64, 32):
-        if K * bx * 4 <= _SMEM_LIMIT:
-            return bx
-    raise ValueError(f"K={K} levels exceed the kernel's shared-memory "
-                     f"column buffer ({_SMEM_LIMIT // (32 * 4)} levels max)")
+def launch_shape(K: int, fuse_w: bool) -> tuple[int, int, int]:
+    """``(lanes, rows, shared-memory bytes)`` of one block: ``LANES`` columns
+    along i by ``BLOCK_ROWS`` rows along j, one thread per column.  Only
+    ``fuse_w`` keeps a K-long float slice per thread in dynamic shared
+    memory (the w/pp solve's sweep state); it takes fewer rows where K
+    levels of ``BLOCK_ROWS`` rows would pass the no-opt-in limit, and
+    raises past one row.  Without ``fuse_w`` no K is too deep."""
+    if not fuse_w:
+        return LANES, BLOCK_ROWS, 0
+    for rows in range(BLOCK_ROWS, 0, -1):
+        if K * LANES * rows * 4 <= _SMEM_LIMIT:
+            return LANES, rows, K * LANES * rows * 4
+    raise ValueError(f"K={K} levels exceed the w/pp solve's shared-memory "
+                     f"sweep buffer ({_SMEM_LIMIT // (LANES * 4)} levels "
+                     f"max)")
 
 
 def narrow_streams(fields: dict, names,
@@ -708,7 +748,8 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
                  _f32(wind_scale), *th_scalars, J, K, I, i0, i1, j0, j1,
                  j_off, i_off, int(k0), int(k1),
                  int(fuse_uv), int(lean), _WW_MODES[ww_mode], int(with_tave),
-                 int(fuse_w), int(const_bf16), block_width(K), stream)
+                 int(fuse_w), int(const_bf16), launch_shape(K, fuse_w)[1],
+                 stream)
     if err != 0:
         raise RuntimeError(f"advance_mu_t kernel launch failed: CUDA error "
                            f"{err}")

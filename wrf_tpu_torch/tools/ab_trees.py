@@ -1,0 +1,244 @@
+"""Time the same ``chip_smoke.py`` phases in several source trees, in turns.
+
+Two versions of a kernel are compared inside one run on one card: each
+tree (a checkout of the repository, e.g. the parent commit unpacked with
+``git archive`` beside the working tree) runs the phases in a process of
+its own, from its own directory, so each builds and loads its own kernels.
+The rounds follow ``--order`` (e.g. ``parent,change,change,parent``), so a
+drift of the card's clocks shows as a difference between a tree's two
+readings rather than between the trees.
+
+    python -m wrf_tpu_torch.tools.ab_trees --tree parent=_ab/parent \\
+        --tree change=. --order parent,change,change,parent \\
+        --phases k1,k6,slice --out results/ab
+
+The phases are those of the trees' ``chip_smoke.py`` (their signatures
+are the same in every tree compared):
+
+* ``k1``: K1 against its plain version and timed at 516x50x516 in every
+  mode of ``MODES`` and, with ``fuse_w``, of ``W_MODES``; at 259x50x259
+  (one 2x2 shard's block); with ``smdiv``, with ``capture``, with
+  ``overlap`` on the 2x2 shards at 512x512x50, and the bf16 forms;
+* ``k6``: ``phase_copy_ceiling``;
+* ``host``: the host's time per K1 launch (the fused scan substep at
+  259x50x259, 100 submissions without a synchronise, best of 5);
+* ``slice``: ``python -m wrf_tpu_torch.run_sim`` for 3 large steps at
+  512x512x50 through ``chip_smoke.run_sim_launches`` (the runner of
+  ``phase_slice``), by default, ``--inner-steps 2``, ``--mesh 2x2
+  --halo-backend rdma_overlap``, ``--namelist`` with ``smdiv`` 0.1 and
+  ``--precision bf16-const``.
+
+Every tree's kernels are timed by the same ``cuda_ms`` (the calls queued
+behind ~10 ms of spinning on the stream, so CUDA events read the card's
+time even where a launch costs the host as much as the card).  Each
+round's output goes to ``<out>_<tree>_<n>.txt`` and every reading to
+``<out>.json``; the summary printed at the end gives, per timing, each
+tree's mean and the ratio of each tree to the first.  It needs a CUDA card
+(the phases refuse to run without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+#: what a round runs in a tree's directory: argv[1] the phases, argv[2] the
+#: JSON file to write
+ROUND = r'''
+import json, sys, tempfile
+from pathlib import Path
+sys.path.insert(0, ".")
+import chip_smoke as c
+
+def keyed(x):
+    if isinstance(x, dict):
+        return {(" | ".join(map(str, k)) if isinstance(k, tuple) else str(k)):
+                keyed(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [keyed(v) for v in x]
+    return x
+
+def primed_cuda_ms(fn, reps):
+    # every tree's kernels timed the same way: the launches queue behind
+    # ~10 ms of spinning, so the events read the card's time, not the host's
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+c.cuda_ms = primed_cuda_ms
+phases = sys.argv[1].split(",")
+name, smi = c.phase_env()
+c.phase_build()
+res = {"card": smi}
+big = ((c.BIG_GRID, "specified"),)
+if "k1" in phases:
+    res["k1"] = keyed(c.phase_kernel_vs_plain(
+        cases=big, time_grids=(c.BIG_GRID,), card=smi)[1])
+    res["k1+w"] = keyed(c.phase_kernel_vs_plain(
+        cases=big, time_grids=(c.BIG_GRID,), card=smi, with_w=True)[1])
+    res["k1 shard"] = keyed(c.phase_kernel_vs_plain(
+        cases=((c.SHARD_GRID, "specified"),), time_grids=(c.SHARD_GRID,),
+        card=smi)[1])
+    res["k1 smdiv"] = keyed(c.phase_k1_damping(cases=big, card=smi))
+    res["k1 capture"] = keyed(c.phase_k1_capture(cases=big, card=smi))
+    res["k1 overlap"] = keyed(c.phase_k1_overlap(cases=big, card=smi))
+    res["bf16"] = keyed(c.phase_bf16(cases=big, card=smi))
+if "k6" in phases:
+    res["k6"] = keyed(c.phase_copy_ceiling(card=smi)[0])
+if "host" in phases:
+    # what one K1 launch costs the host: the fused scan substep at one 2x2
+    # shard's block, 100 submissions without a synchronise, best of 5
+    import time, torch
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
+    arr, static = c.padded_inputs(c.case_at(c.SHARD_GRID), "cuda")
+    a, m = c.fresh(arr, c.mode_kwargs("scan", arr, static))
+    best = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            advance_mu_t_fused(**a, **static, **m)
+        best.append((time.perf_counter() - t0) * 10.0)
+    torch.cuda.synchronize()
+    res["host"] = {"k1 submit ms": min(best[1:])}
+    print(f"[host] K1 scan substep at 259x50x259: {min(best[1:]):.4f} ms of "
+          f"host time per launch ({smi})")
+if "slice" in phases:
+    from wrf_tpu_torch.io import fixtures
+    with tempfile.TemporaryDirectory(prefix="ab_slice_") as tmp:
+        tmp = Path(tmp)
+        case = c.case_at(c.BIG_GRID, balanced=True)
+        fx = fixtures.write_case(case, tmp / "big", steps=1)
+        nml = {"dx": round(1.0 / case.rdx, 3), "dy": round(1.0 / case.rdy, 3),
+               "time_step": round(case.dts * 4), "time_step_sound": 4,
+               "epssm": case.epssm, "smdiv": c.SMDIV, "specified": True}
+        (tmp / "smdiv.json").write_text(json.dumps(nml))
+        runs = {"S=1": (), "S=2": ("--inner-steps", "2"),
+                "2x2 overlap": ("--mesh", "2x2", "--halo-backend",
+                                "rdma_overlap"),
+                "smdiv": ("--namelist", str(tmp / "smdiv.json")),
+                "bf16": ("--precision", "bf16-const")}
+        res["slice"] = {}
+        for run, flags in runs.items():
+            launches, step_ms, _ = c.run_sim_launches(
+                tmp, fx, run.replace(" ", "_").replace("=", ""), *flags)
+            res["slice"][run] = {"launches": launches, "step_ms": step_ms,
+                                 "step3_ms": step_ms[2]}
+            print(f"[slice] run_sim {run}: step 3 alone {step_ms[2]:.3f} ms "
+                  f"({smi})")
+Path(sys.argv[2]).write_text(json.dumps(res))
+'''
+
+
+def leaves(x, path=()):
+    """``(path, value)`` for every number in a nested dict / list."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from leaves(v, path + (k,))
+    elif isinstance(x, list):
+        if x and all(isinstance(v, (int, float)) for v in x):
+            yield path, sum(x) / len(x)
+        else:
+            for n, v in enumerate(x):
+                yield from leaves(v, path + (str(n),))
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield path, float(x)
+
+
+def summary(rounds: list, names: list) -> list[str]:
+    """One line per timing: each tree's mean over its rounds, and its ratio
+    to the first tree's."""
+    per = {}
+    for tree, res in rounds:
+        for path, v in leaves({k: v for k, v in res.items() if k != "card"}):
+            per.setdefault(path, {}).setdefault(tree, []).append(v)
+    lines = []
+    for path, by_tree in per.items():
+        if any(p in ("launches", "step_ms") for p in path):
+            continue
+        means = {t: sum(v) / len(v) for t, v in by_tree.items()}
+        base = means.get(names[0])
+        cells = []
+        for t in names:
+            if t not in means:
+                continue
+            ratio = (f" ({means[t] / base:.3f}x)" if base and t != names[0]
+                     else "")
+            cells.append(f"{t} {means[t]:.4f}{ratio}")
+        lines.append(" / ".join(path) + ": " + ", ".join(cells))
+    return lines
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="NAME=DIR, a checkout holding chip_smoke.py")
+    ap.add_argument("--order", required=True,
+                    help="comma-separated tree names, one round each")
+    ap.add_argument("--phases", default="k1,k6,slice")
+    ap.add_argument("--out", required=True,
+                    help="path prefix of the logs and results (its "
+                         "directory is made)")
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds a round may take")
+    args = ap.parse_args(argv)
+    trees = dict(t.split("=", 1) for t in args.tree)
+    order = args.order.split(",")
+    unknown = sorted(set(order) - set(trees))
+    if unknown:
+        ap.error(f"--order names unknown trees {unknown}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # build every tree's kernels at once, before the first round
+    builds = {name: subprocess.Popen(
+        [sys.executable, "-c",
+         "from wrf_tpu_torch import _build; _build.build()"],
+        cwd=trees[name]) for name in dict.fromkeys(order)}
+    for name, proc in builds.items():
+        if proc.wait() != 0:
+            print(f"[ab] build in {name} failed (rc {proc.returncode})")
+    rounds, failed = [], []
+    for n, name in enumerate(order):
+        res_file = out.with_name(f"{out.name}_{name}_{n}.json")
+        log = out.with_name(f"{out.name}_{name}_{n}.txt")
+        t0 = time.perf_counter()
+        with open(log, "w") as fh:
+            try:
+                rc = subprocess.run(
+                    [sys.executable, "-c", ROUND, args.phases,
+                     str(res_file.resolve())],
+                    cwd=trees[name], stdout=fh, stderr=subprocess.STDOUT,
+                    timeout=args.timeout).returncode
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+        print(f"[ab] round {n}: {name}, rc {rc}, "
+              f"{time.perf_counter() - t0:.1f} s, log {log}", flush=True)
+        if rc != 0:
+            failed.append((n, name))
+            print(log.read_text()[-3000:])
+            continue
+        rounds.append((name, json.loads(res_file.read_text())))
+    out.with_suffix(".json").write_text(json.dumps(
+        [{"tree": t, **r} for t, r in rounds]))
+    cards = sorted({r["card"] for _, r in rounds})
+    print(f"[ab] card(s): {cards}; order {order}")
+    for line in summary(rounds, list(dict.fromkeys(order))):
+        print(f"[ab] {line}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

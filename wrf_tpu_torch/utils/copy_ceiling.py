@@ -15,9 +15,11 @@ of the JAX probe family —
 * ``aliased``: ``x += 1`` in place (``out is x``), the access pattern of
   the kernels that update their state in place.
 
-CUDA tensors launch the kernel and count one in :data:`LAUNCHES`; CPU
-tensors run the plain versions (``out.copy_(x)``, ``x + 1``).  There is
-no fallback from one to the other.
+:func:`launch_plan` sizes the kernel's grid: one contiguous chunk of
+``WORDS * THREADS`` 16-byte words per block.  CUDA tensors launch the
+kernel and count one in :data:`LAUNCHES`; CPU tensors run the plain
+versions (``out.copy_(x)``, ``x + 1``).  There is no fallback from one to
+the other.
 
 :func:`measure_copy_gbps` times a chain of such copies with CUDA events by
 the marginal two-count method (the time of ``n2`` launches minus the time
@@ -55,7 +57,8 @@ PROBES = {"ab": (False, False), "ab_plus1": (True, False),
 #: the JAX package's two bench shapes and the port's padded 512x512x50 block
 SHAPES = ((512, 50, 514), (1024, 50, 1502), (516, 50, 516))
 
-_BLOCKS_PER_SM = 8
+THREADS = 256   # threads per block (csrc: kThreads)
+WORDS = 4       # 16-byte words a thread loads before it stores (kWords)
 _kernel_fn = None
 
 
@@ -65,10 +68,24 @@ def _kernel():
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_copy_probe
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
+
+
+def launch_plan(n: int, aligned: bool) -> tuple[int, int, int]:
+    """The grid of one launch over ``n`` floats: ``(n4, vec_blocks,
+    blocks)``.  With both pointers 16-byte ``aligned`` the first ``n4 = n //
+    4`` words go as float4 words, the rest (at most 3 floats) as floats;
+    otherwise all ``n`` as floats.  A block copies one chunk of ``WORDS *
+    THREADS`` words (floats past the words): ``vec_blocks`` blocks of
+    words, then enough blocks for the floats."""
+    n4 = n // 4 if aligned else 0
+    chunk = WORDS * THREADS
+    vec_blocks = -(-n4 // chunk)
+    return n4, vec_blocks, vec_blocks + -(-(n - 4 * n4) // chunk)
 
 
 def copy_probe(x: torch.Tensor, out: torch.Tensor,
@@ -93,13 +110,13 @@ def copy_probe(x: torch.Tensor, out: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"copy_probe: unsupported device {x.device}")
     dev = x.device
-    blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
-              * _BLOCKS_PER_SM)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    n4, vec_blocks, blocks = launch_plan(x.numel(), aligned)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), int(plus1), blocks,
-                 stream)
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), n4, vec_blocks,
+                 blocks, int(plus1), stream)
     if err != 0:
         raise RuntimeError(f"copy_probe kernel launch failed: CUDA error "
                            f"{err}")
