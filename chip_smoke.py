@@ -10,7 +10,7 @@ not 0 and no result line is printed):
 
 1. environment: the card's name and power limit; a GPU is required;
 2. build: the port's CUDA kernels from ``wrf_tpu_torch/csrc`` (nvcc)
-   (and every K1 and K6 instance's registers, spills and static shared
+   (and every K1, K3 and K6 instance's registers, spills and static shared
    memory from ptxas: a spill fails the run);
 3. K1 kernel vs its plain PyTorch version on the card, in the three modes
    of the run_sim path (reference call, scan substep, final substep) and
@@ -35,20 +35,25 @@ not 0 and no result line is printed):
    the ramp's wind scales (bit-equality on t, mu and ww_row);
 5. K3, the coupled trapezoid, vs its plain version on the ring-S inputs
    the blocked ``SmallStepLoop`` builds, at the same grids and BCs: exact
-   S=2, 4 and 8 (bit-equality) and fast S=4 (rtol 2e-5, atol_scale 1e-6),
+   S=2 to 8 (bit-equality) and fast S=4 (rtol 2e-5, atol_scale 1e-6),
    and K4 (``coupled_two_step``, K3's S=2 instance) bit-equal to its plain
-   version; every mode timed at 512x512x50 (ms per substep); the same
-   with ``fuse_w``; then K3 S=4 against 4 K1 fused-scan launches at
-   512x512x50, without and with ``fuse_w`` (the ``different=`` counts,
-   counted on the card; a nonzero count is held to rtol 2e-5, atol_scale
-   1e-6);
+   version; S=2, 4, 8 and fast S=4 timed at 512x512x50 (ms per
+   substep); the same with ``fuse_w``; every launch prints the plan it
+   took (the staged form, whose tile's 3-D operands sit in shared memory
+   for all S substeps, at S=2-5 on both grids, S=6 and 7 at 74x61x32 and
+   S=8 there with bf16 streams; the streaming form at S=6-8 otherwise and
+   for every ``fuse_w`` launch); then K3 S=4 against 4
+   K1 fused-scan launches at 512x512x50, without and with ``fuse_w`` (the
+   ``different=`` counts, counted on the card; a nonzero count is held to
+   rtol 2e-5, atol_scale 1e-6), the K3 launch timed beside the four K1
+   launches on the same queued timer;
 5b. K1's and K3's ``overlap`` (the j exchange inside the kernel) on the
    shards' blocks a mesh loop builds, the halo rows (ring rows) of mu, v,
    mudf_in (mu, u, v) in memory POISONED with 1e30: against the plain
    version and against the same kernel on rows that the ``rdma`` (width-S
    ``ppermute``) refresh restored, bit for bit: K1's scan and final
-   substep with and without ``fuse_w`` and ``smdiv``, K3 exact S=2, 4, 8
-   (fast S=4 against its plain version at rtol 2e-5, atol_scale 1e-6) with
+   substep with and without ``fuse_w`` and ``smdiv``, K3 exact S=2, 3, 4,
+   8 (fast S=4 against its plain version at rtol 2e-5, atol_scale 1e-6) with
    and without ``fuse_w``, on rings of 1, 2 and 4 and on the (2,2) mesh at
    74x61x32 under the three BCs and on (2,2) at 512x512x50, where one
    shard's launch is timed with and without;
@@ -165,7 +170,8 @@ The last three lines of standard output are the card's name and power
 limit (again), the kernel table ``{"kernels": [...]}`` (eight kernels,
 each with its launches on the main paths, its time, its plain version's
 time, its bound from the compulsory bytes at the data-sheet rate and, for
-K6 and K5, the library call's time) and ``{"ok": true, "device": {...}}``.  The
+K6 and K5, the library call's time; K3 also its plan and staged bytes per
+depth) and ``{"ok": true, "device": {...}}``.  The
 script uses torch and the port alone, and checks at the end that neither
 jax nor any module of the JAX package was imported.
 """
@@ -232,6 +238,10 @@ K3_MODES = {
     "exact S=8": (8, False),
     "fast S=4": (4, True),
 }
+#: the other depths the loops accept, held to the plain version bit for bit
+#: and timed nowhere: at 74x61x32 (K=32) the plan stages each of them, at
+#: 512x512x50 (K=50) it stages S=3 and 5 and streams S=6 and 7
+K3_CHECKED = {f"exact S={S}": (S, False) for S in (3, 5, 6, 7)}
 
 
 def phase_env():
@@ -282,8 +292,9 @@ def ptxas_instances(log):
 
 
 def instance_name(entry):
-    """A readable name for a K1 or K6 entry (None for other kernels):
-    K1's set template flags and stream type, K6's probe arm."""
+    """A readable name for a K1, K3 or K6 entry (None for other kernels):
+    K1's set template flags and stream type, K3's depth, form, flags and
+    stream type, K6's probe arm."""
     if "advance_mu_t_kernel" in entry:
         args = re.findall(r"L([bi])(\d+)E", entry)
         flags = [f"{p}={v}" if p == "ww" else p
@@ -293,6 +304,17 @@ def instance_name(entry):
         flags = [ww.get(f, f) for f in flags]
         ct = "bf16" if "bfloat16" in entry else "f32"
         return "k1 " + " ".join(flags + [ct])
+    if "staged_kernel" in entry or "coupled_kernel" in entry:
+        # staged_kernel<S, OVERLAP, CT>, coupled_kernel<S, FUSE_W, OVERLAP,
+        # CT>
+        args = [v for _, v in re.findall(r"L([bi])(\d+)E", entry)]
+        form = "staged" if "staged_kernel" in entry else "streaming"
+        S, ov = args[0], args[-1]
+        w = args[1] if form == "streaming" else "0"
+        flags = [f"S={S}", form] + (["w"] if w == "1" else []) + (
+            ["overlap"] if ov == "1" else [])
+        ct = "bf16" if "bfloat16" in entry else "f32"
+        return "k3 " + " ".join(flags + [ct])
     if "copy_kernel" in entry:
         plus1 = re.findall(r"L([bi])(\d+)E", entry)[0][1] == "1"
         return f"k6 copy{' plus1' if plus1 else ''}"
@@ -309,8 +331,8 @@ def phase_build():
     for line in log.splitlines():
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"[build]   {line.strip()}")
-    # K1 and K6 must not spill (ptxas's view; dynamic shared memory is the
-    # launch's: K1 takes it under fuse_w only)
+    # K1, K3 and K6 must not spill (ptxas's view; dynamic shared memory is
+    # the launch's: K1 takes it under fuse_w only, K3 always)
     spilled = []
     for entry, (regs, spill, smem) in sorted(ptxas_instances(log).items()):
         name = instance_name(entry)
@@ -321,7 +343,7 @@ def phase_build():
         if spill:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1/K6 instances spill: {spilled}")
+        raise AssertionError(f"K1/K3/K6 instances spill: {spilled}")
     return secs
 
 
@@ -867,6 +889,17 @@ def k3_inputs(arr, static, S):
     return ins, dict(static, cs2=DEFAULT_CS2)
 
 
+def k3_form(ins, S, with_w=False, bf16=False):
+    """The launch plan K3 takes for these inputs (``bf16``: with the
+    constant streams narrowed), as a phrase: its form, tile and dynamic
+    shared memory."""
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import plan
+
+    J2, K, I = ins["t"].shape
+    p = plan(S, K, with_w, 2 if bf16 else 4, False, J2, I)
+    return f"form={p.form} tile={p.tile[0]}x{p.tile[1]} smem={p.smem}"
+
+
 def fresh_k3(ins):
     """A copy of K3's inputs with its own t and ww_row, and w and pp where
     present (updated in place)."""
@@ -890,7 +923,7 @@ def phase_k3_vs_plain(
     )
 
     runs = {m: (coupled_multistep, S, dict(n_inner=S, fast=fast))
-            for m, (S, fast) in K3_MODES.items()}
+            for m, (S, fast) in {**K3_MODES, **K3_CHECKED}.items()}
     runs["k4 pair"] = (coupled_two_step, 2, {})
     max_abs = {"k3": 0.0, "k4": 0.0}
     timings = {}
@@ -905,17 +938,18 @@ def phase_k3_vs_plain(
             want = coupled_multistep_plain(**fresh_k3(ins), **st, **pkw)
             torch.cuda.synchronize()
             tag = f"{name} {grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
+            print(f"[{tag}] {k3_form(ins, S, with_w)}")
             max_abs[kern] = max(max_abs[kern], check_fields(
                 tag, got, want, bit_exact=not mkw.get("fast")))
-            if grid == BIG_GRID:
+            if grid == BIG_GRID and mode not in K3_CHECKED:
                 a_k, a_p = fresh_k3(ins), fresh_k3(ins)
                 out = {"cuda": [], "plain": []}
-                for name, f, kw, reps in (
+                for who, f, kw, reps in (
                         ("plain", coupled_multistep_plain, pkw, 2),
                         ("cuda", fn, mkw, 20), ("cuda", fn, mkw, 20),
                         ("plain", coupled_multistep_plain, pkw, 2)):
-                    a = a_k if name == "cuda" else a_p
-                    out[name].append(cuda_ms(
+                    a = a_k if who == "cuda" else a_p
+                    out[who].append(cuda_ms(
                         lambda: f(**a, **st, **kw), reps) / S)
                 timings[mode] = out
                 J, K, I = ins["t"].shape
@@ -929,12 +963,15 @@ def phase_k3_vs_plain(
     return max_abs, timings
 
 
-def phase_k3_vs_k1(grid=BIG_GRID, S=4, with_w=False):
+def phase_k3_vs_k1(grid=BIG_GRID, S=4, with_w=False, card=""):
     """K3 exact against S K1 fused-scan launches (fuse_uv, lean, lite) on
     the ring-1 layout: the blocked loop against the loop it replaces;
     ``with_w``: both with ``fuse_w``, w and pp compared too.  Bit-equality
     is the goal: the ``different=`` counts (counted on the card) are
-    printed and returned, and a nonzero count is held to KERNEL_TOL."""
+    printed, and a nonzero count is held to KERNEL_TOL.  Then one K3
+    launch and the S K1 launches are timed on the same queued timer, in the
+    order K1, K3, K3, K1.  Returns ``{"different": counts, "k3_ms": [...],
+    "k1_ms": [...]}`` (ms per launch of K3, per S launches of K1)."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import coupled_multistep
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
@@ -964,7 +1001,28 @@ def phase_k3_vs_k1(grid=BIG_GRID, S=4, with_w=False):
         print(f"[{tag}] {k:7s} different={n}")
     if any(diffs.values()):
         check_fields(tag, got, state)
-    return diffs
+    a3 = fresh_k3(ins)
+    s1 = {k: strip_ring(ins[k], 0, S).clone() for k in carry}
+
+    def k1_chain():
+        for _ in range(S):
+            advance_mu_t_fused(**const, **s1, **lean, **st, fuse_uv=True,
+                               with_tave=False, ww_mode="lite", lean=True)
+
+    def k3_launch():
+        coupled_multistep(**a3, **st, n_inner=S)
+
+    times = {"k1_ms": [], "k3_ms": []}
+    for who in ("k1_ms", "k3_ms", "k3_ms", "k1_ms"):
+        times[who].append(cuda_ms(k1_chain if who == "k1_ms" else k3_launch,
+                                  10))
+    print(f"[{tag} time] ms per launch of K3 {times['k3_ms'][0]:.4f} / "
+          f"{times['k3_ms'][1]:.4f}, per {S} K1 fused-scan launches "
+          f"{times['k1_ms'][0]:.4f} / {times['k1_ms'][1]:.4f} (per substep "
+          f"{sum(times['k3_ms']) / 2 / S:.4f} against "
+          f"{sum(times['k1_ms']) / 2 / S:.4f}; order K1, K3, K3, K1; "
+          f"{card})")
+    return {"different": diffs, **times}
 
 
 def chain_marginal_ms(step, n1=20, n2=100, repeats=12):
@@ -1207,8 +1265,9 @@ def phase_k3_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
     kernel) on the ring-S blocks the blocked mesh loop builds, the ring rows
     of mu, u and v POISONED: against its plain version (exact bit for bit,
     fast at KERNEL_TOL) and against K3 on ring rows that the width-S
-    ``ppermute`` refresh restored (bit for bit), at S=2, 4 and 8, with and
-    without ``fuse_w``; meshes and grids as :func:`phase_k1_overlap`.  At
+    ``ppermute`` refresh restored (bit for bit), at S=2, 3, 4 and 8 (S=3:
+    odd, so the staged boxes are widened to 16 bytes), with and without
+    ``fuse_w``; meshes and grids as :func:`phase_k1_overlap`.  At
     512x512x50 the S=2 launch is timed with and without, beside the plain
     version.  Returns the timings (ms per substep)."""
     import torch
@@ -1222,7 +1281,8 @@ def phase_k3_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
         case = case_at(grid, bc, balanced=grid == BIG_GRID)
         for shape in (OVERLAP_MESHES if grid == REF_GRID else ((2, 2),)):
             for with_w in (False, True):
-                for S, fast in ((2, False), (4, False), (8, False), (4, True)):
+                for S, fast in ((2, False), (3, False), (4, False),
+                                (8, False), (4, True)):
                     if (case.bounds.jde + 2) // shape[0] < S:
                         continue   # fewer rows per shard than the ring
                     loop, local, common, state, n_loc = loop_shards(
@@ -1272,6 +1332,8 @@ def phase_k3_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                             f"mesh {shape[0]}x{shape[1]} "
                             f"{'fast' if fast else 'exact'} S={S}"
                             f"{' +w' if with_w else ''}")
+                    print(f"[{tag0}] "
+                          f"{k3_form(next(iter(st0.values())), S, with_w)}")
                     ref = launch(coupled_multistep,
                                  refresh(poisoned(), True), none)
                     st = refresh(poisoned(), False)
@@ -1366,7 +1428,7 @@ def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
     the rounded inputs, bit for bit (widening is exact); a mixed set (the
     wrapper widens the minority) likewise; a bf16 state operand raises.
     K1 in the five modes of MODES (the fused ones also with ``fuse_w``), K2
-    exact S=8 and fast S=8, K3 exact S=2, 4, 8 (also with ``fuse_w``) and
+    exact S=8 and fast S=8, K3 exact S=2 to 8 (also with ``fuse_w``) and
     K4.  At 512x512x50 every form the loops run is timed beside its float32
     form (CUDA events, order float32, bf16, bf16, float32).  Returns the
     timings."""
@@ -1478,11 +1540,13 @@ def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                 del ins
             names = ("t_1", "tconst", "dvdxi_const")
             runs = {f"exact S={S}": (coupled_multistep, S, dict(n_inner=S))
-                    for S in (2, 4, 8)}
+                    for S in range(2, 9)}
             runs["k4 pair"] = (coupled_two_step, 2, {})
             for mode, (fn, S, mkw) in runs.items():
                 ins, st = k3_inputs(arr, static, S)
                 tag = f"k3{'+w' if with_w else ''} bf16 {gtag} {mode}"
+                print(f"[{tag}] {k3_form(ins, S, with_w, bf16=True)}; "
+                      f"float32 {k3_form(ins, S, with_w)}")
                 got = fn(**fresh_k3(narrowed(ins, names)), **st, **mkw)
                 want = coupled_multistep_plain(
                     **fresh_k3(narrowed(ins, names)), **st, n_inner=S)
@@ -1499,7 +1563,7 @@ def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                     expect_bf16_state_refused(tag, fn,
                                               {**fresh_k3(ins), **st, **mkw},
                                               "u")
-                if big and not with_w:
+                if big and not with_w and S in (2, 4, 8):
                     a_f = fresh_k3(ins)
                     a_b = fresh_k3(narrowed(ins, names))
                     pair_ms(f"k3 {mode}",
@@ -2456,7 +2520,8 @@ def slice_damped(tmp: Path, fx: Path, case, damped, states):
 
 def run_driver(tag, *argv, device="cuda"):
     """``python -m wrf_tpu_torch.driver`` in this process, its report
-    condensed to one line; raises unless it returns 0."""
+    condensed to one line; raises unless it returns 0.  Returns its ms per
+    step (the host clock around its timed loop call)."""
     from wrf_tpu_torch import driver
 
     buf = io.StringIO()
@@ -2469,6 +2534,7 @@ def run_driver(tag, *argv, device="cuda"):
     print(f"[driver {tag}] rc={rc} worst scaled_err={worst:.3f}: {timing}")
     if rc != 0:
         raise AssertionError(f"driver {tag} returned {rc}:\n{text}")
+    return float(re.search(r"\(([0-9.]+) ms/step", timing).group(1))
 
 
 DRIVER_TIERS = {
@@ -2942,6 +3008,31 @@ def kernel_bounds():
     return out
 
 
+def k3_staged_bytes():
+    """Prints K3's launch plan at the big grid's ring-S blocks, per depth,
+    with and without fuse_w and bf16 constant streams, and the bytes the
+    staged form reads into shared memory per launch (0 for the streaming
+    form, which stages no 3-D operand), beside the byte bounds of
+    kernel_bounds.  These are the plan's arithmetic, not measurements, so
+    they stay off the ``kernels`` line."""
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import (
+        plan, staged_bytes,
+    )
+
+    nx, ny, K = BIG_GRID
+    nbytes, forms = {}, {}
+    for S in (2, 4, 8):
+        J2, I = ny + 4 + 2 * (S - 1), nx + 4
+        for w in (False, True):
+            for cb in (4, 2):
+                row = f"S={S}{'+w' if w else ''}{' bf16' if cb == 2 else ''}"
+                p = plan(S, K, w, cb, False, J2, I)
+                nbytes[row] = staged_bytes(p, S, J2, K, I, cb)
+                forms[row] = f"{p.form} {p.tile[0]}x{p.tile[1]}"
+    print("[bounds] k3 staged bytes per launch (form, tile): " + ", ".join(
+        f"{r} {n / 1e6:.1f} MB ({forms[r]})" for r, n in nbytes.items()))
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, printing its wall time (host clock) as
     ``[time] name: N s``: where the script's run time goes."""
@@ -2970,10 +3061,11 @@ def main() -> int:
     k3_abs, k3_times = timed("k3 vs plain", phase_k3_vs_plain, card=smi)
     k3w_abs, k3w_times = timed("k3+w vs plain", phase_k3_vs_plain, card=smi,
                                with_w=True)
-    k3_vs_k1 = timed("k3 vs k1", phase_k3_vs_k1)
-    print(f"[k3 vs k1] different= counts: {k3_vs_k1}")
-    k3w_vs_k1w = timed("k3+w vs k1+w", phase_k3_vs_k1, with_w=True)
-    print(f"[k3+w vs k1+w] different= counts: {k3w_vs_k1w}")
+    k3_vs_k1 = timed("k3 vs k1", phase_k3_vs_k1, card=smi)
+    print(f"[k3 vs k1] different= counts: {k3_vs_k1['different']}")
+    k3w_vs_k1w = timed("k3+w vs k1+w", phase_k3_vs_k1, with_w=True,
+                       card=smi)
+    print(f"[k3+w vs k1+w] different= counts: {k3w_vs_k1w['different']}")
     k1o_times = timed("k1 overlap", phase_k1_overlap, card=smi)
     k3o_times = timed("k3 overlap", phase_k3_overlap, card=smi)
     bf16_times = timed("bf16 constant streams", phase_bf16, card=smi)
@@ -3021,6 +3113,7 @@ def main() -> int:
                 "plain_ms": ms_of(times, mode)["plain"]}
 
     bounds = kernel_bounds()
+    k3_staged_bytes()
     port_shape = (BIG_GRID[1] + 4, BIG_GRID[2], BIG_GRID[0] + 4)
     ceil = k6[port_shape]
     k6_ms = ceil["nbytes"] / (ceil["rates"]["ab"] * 1e9) * 1e3
@@ -3190,12 +3283,18 @@ def main() -> int:
         "ms_by_mode": {m: ms_of(k3_times, m) for m in K3_MODES},
         "bound_ms_by_depth": {f"S={S}": bounds[f"k3 S={S}"][0]
                               for S in (2, 4, 8)},
+        # exact S=4: one launch against four K1 fused-scan launches
+        "different_vs_k1": k3_vs_k1["different"],
+        "s4_launch_ms": mean(k3_vs_k1["k3_ms"]),
+        "four_k1_launches_ms": mean(k3_vs_k1["k1_ms"]),
         "fuse_w": {**pair(k3w_times, "exact S=2"),
                    "max_abs_err": k3w_abs["k3"],
                    "bound_ms": bounds["k3 S=2+w"][0],
                    "bound_by": bounds["k3 S=2+w"][1],
                    "ms_by_mode": {m: ms_of(k3w_times, m) for m in K3_MODES},
-                   "different_vs_k1": k3w_vs_k1w},
+                   "different_vs_k1": k3w_vs_k1w["different"],
+                   "s4_launch_ms": mean(k3w_vs_k1w["k3_ms"]),
+                   "four_k1_launches_ms": mean(k3w_vs_k1w["k1_ms"])},
         # the j leg of the width-S exchange inside the kernel: S=2 on one
         # (2,2) shard's ring-2 block, ms per substep
         "overlap": {"launches": sim["S=2 2x2 overlap"][0]["k3"],

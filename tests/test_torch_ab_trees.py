@@ -36,3 +36,20 @@ def test_order_must_name_known_trees(capsys):
         ab_trees.main(["--tree", "parent=.", "--order", "parent,change",
                        "--out", "unused/ab"])
     assert "unknown trees ['change']" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("text,want", [
+    ("k3", ["k3"]),
+    ("k3,slice", ["k3", "slice"]),
+    ("k1,k6,slice", ["k1", "k6", "slice"]),
+    ("trace", ["trace"]),
+])
+def test_phase_list_accepts_the_known_phases(text, want):
+    assert ab_trees.phase_list(text) == want
+
+
+def test_unknown_phase_is_refused(capsys):
+    with pytest.raises(SystemExit):
+        ab_trees.main(["--tree", "parent=.", "--order", "parent",
+                       "--phases", "k3,k9", "--out", "unused/ab"])
+    assert "unknown phases ['k9']" in capsys.readouterr().err

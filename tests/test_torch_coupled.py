@@ -217,7 +217,8 @@ def test_wrapper_contract():
         k3.coupled_multistep(**tarr, **static, n_inner=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         k3.coupled_multistep(**tarr, **static, n_inner=S, ti=128)
-    with pytest.raises(NotImplementedError, match="own \\(j, i\\) tiles"):
+    with pytest.raises(NotImplementedError,
+                       match="own \\(j, i\\) tiles, which plan\\(\\) picks"):
         k3.coupled_multistep(**tarr, **static, n_inner=S, ti=128)
     # overlap and bf16 constant streams were refused until they were
     # ported; now they run.  On a ring of one the neighbours' slabs are the
@@ -336,3 +337,136 @@ def test_loop_argument_checks(bad, err):
     with pytest.raises(err):
         SmallStepLoop(*_dims(), _case().flags, n_steps=5, device="cpu",
                       **bad)
+
+
+# --------------------------------------------------------------------------
+# The launch plan (which form of the CUDA kernel, on which tile): plain
+# Python, so the CPU holds it to the kernel's shared-memory budget and its
+# geometry.
+# --------------------------------------------------------------------------
+PLAN_DEPTHS = range(2, k3.MAX_INNER + 1)
+PLAN_K = (32, 50, 100)
+PLAN_CONST_BYTES = (4, 2)   # float32 and bf16 constant streams
+
+
+def _plans(S, K, cb, fw=False):
+    """The plan at one shape and ``fuse_w``, whatever ``overlap`` and the
+    block's size: all the same."""
+    got = {k3.plan(S, K, fw, cb, ov, J2, I) for ov in (False, True)
+           for J2, I in ((516, 516), (68, 78), (261, 261))}
+    assert len(got) == 1
+    return got.pop()
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("cb", PLAN_CONST_BYTES)
+@pytest.mark.parametrize("K", PLAN_K)
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+def test_plan_fits_shared_memory(S, K, cb, fw):
+    p = _plans(S, K, cb, fw)
+    assert p.form in k3.FORMS
+    assert 0 < p.smem <= k3.SMEM_LIMIT == 232448
+    if p.form == "staged":
+        assert not fw   # the w solve streams
+        assert p.smem == k3.staged_layout(S, K, *p.tile, cb)[1]
+        assert p.tile[0] * p.tile[1] >= k3.MIN_OWN
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("cb", PLAN_CONST_BYTES)
+@pytest.mark.parametrize("K", PLAN_K)
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+def test_plan_streams_exactly_where_nothing_staged_fits(S, K, cb, fw):
+    fits = [(tj, ti) for ti in k3.STAGED_TI for tj in k3.STAGED_TJ
+            if tj * ti >= k3.MIN_OWN and not fw
+            and k3.staged_layout(S, K, tj, ti, cb)[1] <= k3.SMEM_LIMIT]
+    p = _plans(S, K, cb, fw)
+    assert (p.form == "streaming") == (not fits)
+    if not fits:
+        assert p.tile == k3.STREAMING_TILE
+
+
+#: the plan's tiles at K=50 (512x512x50), as PERF.md states them: float32
+#: and bf16 constant streams, S=2..5 staged, S=6..8 streamed
+K50_TILES = {
+    4: {2: (6, 16), 3: (9, 8), 4: (7, 8), 5: (5, 8)},
+    2: {2: (5, 24), 3: (5, 16), 4: (8, 8), 5: (6, 8)},
+}
+
+
+@pytest.mark.parametrize("cb", PLAN_CONST_BYTES)
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+def test_plan_tiles_at_k50(S, cb):
+    p = _plans(S, 50, cb)
+    if S in K50_TILES[cb]:
+        assert (p.form, p.tile) == ("staged", K50_TILES[cb][S])
+    else:
+        assert (p.form, p.tile) == ("streaming", k3.STREAMING_TILE)
+
+
+def test_plan_at_the_main_paths_depths():
+    """At K=50 (512x512x50) the S=2 and S=4 launches of run_sim and the
+    driver stage their operands, float32 or bf16; S=8 streams, and so does
+    every launch with the w solve."""
+    for cb in PLAN_CONST_BYTES:
+        for S in (2, 4):
+            assert k3.plan(S, 50, False, cb, False, 516, 516).form == "staged"
+            assert k3.plan(S, 50, True, cb, False, 516, 516).form == \
+                "streaming"
+    assert k3.plan(8, 50, False, 4, False, 516, 516).form == "streaming"
+
+
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+@pytest.mark.parametrize("J2,I", [(516, 516), (68, 78), (53, 37), (20, 9)])
+def test_tiles_cover_own_columns_once(S, J2, I):
+    for cb in PLAN_CONST_BYTES:
+        p = _plans(S, 50, cb)
+        seen = np.zeros((J2, I), np.int32)
+        for rows, cols in k3.tiles(S, J2, I, p.tile):
+            assert 0 < len(rows) <= p.tile[0] and 0 < len(cols) <= p.tile[1]
+            seen[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert (seen[S:J2 - S] == 1).all()
+        assert (seen[:S] == 0).all() and (seen[J2 - S:] == 0).all()
+
+
+@pytest.mark.parametrize("cb", PLAN_CONST_BYTES)
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+def test_staged_boxes_aligned_to_16_bytes(S, cb):
+    for K in PLAN_K:
+        for ti in k3.STAGED_TI:
+            assert ti % 8 == 0   # a tile's first column: 16 bytes of bf16
+            boxes, _ = k3.staged_layout(S, K, 3, ti, cb)
+            for name, b in boxes.items():
+                assert b.off % 16 == 0, name
+                assert (b.width * b.esize) % 16 == 0, name
+                assert (b.lo * b.esize) % 16 == 0, name
+                assert b.esize == (cb if name in k3.CONST_STREAMS else 4)
+
+
+@pytest.mark.parametrize("S", PLAN_DEPTHS)
+def test_staged_boxes_hold_every_cell_the_substeps_read(S):
+    """Pass 1 at substep s runs on the tile's columns and S-1-s cells
+    around them, reading u one column east and v one row north; pass 2
+    reads t_1 one cell around the own columns, tconst and t on them."""
+    tj, ti = 5, 16
+    boxes, _ = k3.staged_layout(S, 50, tj, ti, 4)
+    reads = {"u": (S - 1, S - 1, S - 1, S), "v": (S - 1, S, S - 1, S - 1),
+             "dvdxi_const": (S - 1,) * 4, "t_1": (1, 1, 1, 1),
+             "tconst": (0, 0, 0, 0), "t": (0, 0, 0, 0)}
+    assert sorted(boxes) == sorted(reads)
+    for name, (up, down, west, east) in reads.items():
+        b = boxes[name]
+        assert b.top >= up and b.rows - tj - b.top >= down, name
+        assert b.lo >= west and b.width - ti - b.lo >= east, name
+
+
+def test_staged_bytes_of_a_launch():
+    S, J2, K, I = 2, 516, 50, 516
+    p = k3.plan(S, K, False, 4, False, J2, I)
+    n = k3.staged_bytes(p, S, J2, K, I, 4)
+    n_tiles = len(list(k3.tiles(S, J2, I, p.tile)))
+    # at least every operand once (u, v, dvdxi_const, t_1, tconst, t and
+    # mu on the own columns), at most the full boxes of every tile
+    assert 6 * (J2 - 2 * S) * K * I * 4 < n <= n_tiles * p.smem
+    stream = k3.plan(8, K, False, 4, False, J2, I)
+    assert k3.staged_bytes(stream, 8, J2, K, I, 4) == 0

@@ -32,9 +32,10 @@ instead.  The TPU wrapper's ``overlap`` names a mesh axis; here one process
 holds every shard, so it names the rows: a dict of contiguous row-slab
 views ``{"mu_lo", "u_lo", "v_lo"}`` (the previous shard's last S interior
 rows) and ``{"mu_hi", "u_hi", "v_hi"}`` (the next shard's first S).  The
-kernel loads them through their device pointers: nothing is copied, staged
-or waited for, and the result equals the one on refreshed ring rows bit for
-bit.  The ring rows of the outputs pass the stale memory rows through.
+kernel loads them through their device pointers (the staged form once,
+while staging): nothing is copied or waited for, and the result equals the
+one on refreshed ring rows bit for bit.  The ring rows of the outputs pass
+the stale memory rows through.
 
 bf16 constant streams: ``t_1``, ``tconst`` and ``dvdxi_const`` may arrive
 as ``torch.bfloat16`` and are widened to float32 on load; a bf16 ``u``,
@@ -48,7 +49,8 @@ sequentially in both, so its fast mode is its exact mode; its plain
 version keeps the cumsums.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the
-hand-written kernel (``csrc/advance_mu_t_coupled_kernel.cuh``) and count
+hand-written kernel (``csrc/advance_mu_t_coupled_kernel.cuh``), in the
+form and on the tile :func:`plan` picks, and count
 one in :data:`LAUNCHES` (:data:`PAIR_LAUNCHES` for
 :func:`coupled_two_step`); CPU tensors run
 :func:`coupled_multistep_plain`.  There is no fallback from one to the
@@ -58,6 +60,8 @@ other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -76,9 +80,21 @@ PAIR_LAUNCHES = 0
 #: depths the CUDA kernel is instantiated for
 MAX_INNER = 8
 
-#: (rows, columns) of a thread block's own tile; the block also computes
-#: the trapezoid's S-1 extra cells on every side
-TILE = (16, 32)
+#: the most dynamic shared memory one block may take on an H100
+SMEM_LIMIT = 232448
+#: (rows, columns) of a block's own tile in the streaming form; the block
+#: also computes the trapezoid's S-1 extra cells on every side
+STREAMING_TILE = (16, 32)
+#: the staged form's candidate tiles: widths that are multiples of 8 (so
+#: that every box of bf16 streams starts on 16 bytes) and heights 1-32
+STAGED_TI = (8, 16, 24, 32)
+STAGED_TJ = tuple(range(1, 33))
+#: the fewest own columns a staged tile may have: the k-ordered sums run one
+#: thread per column, so a smaller tile leaves the block idle there and
+#: stages more halo per column (S=5's 5x8 tile ties the streaming form)
+MIN_OWN = 32
+#: the forms' codes in the C entry
+FORMS = {"streaming": 0, "staged": 1}
 
 #: the 3-D operands that may arrive as bf16
 CONST_STREAMS = ("t_1", "tconst", "dvdxi_const")
@@ -100,8 +116,8 @@ def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
     if ti is not None:
         raise NotImplementedError(
             "coupled_multistep: ti (the TPU's 128-lane tiled layout) is met "
-            f"by the kernel's own (j, i) tiles of {TILE}; pass no ti "
-            "(ROADMAP.md, §2, closed)")
+            "by the kernel's own (j, i) tiles, which plan() picks per "
+            "launch; pass no ti (ROADMAP.md, §2, closed)")
     check_const_streams(tensors, CONST_STREAMS)
     if J2 - 2 * n_inner < 1:
         raise ValueError(f"J2={J2}: no row inside the ring-{n_inner} rows")
@@ -383,6 +399,127 @@ def coupled_multistep_plain(
 
 
 # --------------------------------------------------------------------------
+# The launch plan: which form of the kernel, on which tile
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """One staged 3-D box (``csrc/advance_mu_t_coupled_kernel.cuh``,
+    ``Box``): ``rows`` rows from ``top`` rows above the tile's first own
+    row, ``width`` columns from ``lo`` before its first own column, every
+    level, elements of ``esize`` bytes, at byte ``off`` of shared memory."""
+    top: int
+    rows: int
+    lo: int
+    width: int
+    off: int
+    esize: int
+
+
+def _align_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def staged_layout(S: int, K: int, tj: int, ti: int,
+                  const_bytes: int) -> tuple[dict, int]:
+    """The staged form's shared memory for a tj x ti tile at depth S, as the
+    kernel's ``staged_layout`` lays it out: ``({name: Box}, bytes)``.  u, v
+    and dvdxi_const cover pass 1's extent at the first substep (u one
+    column east more, v one row north more), t_1 the own columns and one
+    cell around them, tconst and t the own columns; then a float per level
+    of pass 1's extent (dvdxi, then the ww scan), the four K-vectors and
+    six 2-D planes (mu, du and dv of two substeps, msft2)."""
+    boxes, off = {}, 0
+    for name, top, rows, lo, hi, esize in (
+            ("u", S - 1, tj + 2 * S - 2, S - 1, S, 4),
+            ("v", S - 1, tj + 2 * S - 1, S - 1, S - 1, 4),
+            ("dvdxi_const", S - 1, tj + 2 * S - 2, S - 1, S - 1, const_bytes),
+            ("t_1", 1, tj + 2, 1, 1, const_bytes),
+            ("tconst", 0, tj, 0, 0, const_bytes),
+            ("t", 0, tj, 0, 0, 4)):
+        m = 16 // esize
+        lo_a = _align_up(lo, m)
+        box = Box(top, rows, lo_a, lo_a + _align_up(ti + hi, m), off, esize)
+        boxes[name] = box
+        off += K * rows * box.width * esize
+    off += _align_up(K * (tj + 2 * S - 2) * (ti + 2 * S - 2), 4) * 4
+    off += _align_up(4 * K, 4) * 4
+    return boxes, off + 6 * (tj + 2 * S) * (ti + 2 * S) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one launch runs: ``form`` "staged" (the tile's 3-D operands in
+    shared memory for all S substeps) or "streaming" (each substep reads
+    them from device memory), the block's own ``tile`` (rows, columns) and
+    its dynamic shared memory in bytes."""
+    form: str
+    tile: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(S: int, K: int, fuse_w: bool, const_bytes: int, overlap: bool,
+         J2: int, I: int) -> Plan:
+    """The form and tile of a launch: a pure function of its shape and
+    flags.  Without ``fuse_w``, the staged form on the candidate tile
+    (STAGED_TJ x STAGED_TI, at least MIN_OWN own columns, within
+    SMEM_LIMIT) that stages the fewest bytes per own column (the largest
+    such tile on a tie); the streaming form on STREAMING_TILE where no
+    candidate fits, and for every ``fuse_w`` launch (a staged form with w
+    and pp in shared memory lost to it at S=2, 4 and 5 on an H100, PERF.md
+    §6).  ``overlap``'s slabs and the block's size (J2, I) do not
+    change what fits: the slabs are read while staging, and a tile may be
+    larger than the block.  Cached: the search costs the host about a
+    millisecond, as long as a launch."""
+    del overlap, J2, I   # the same plan for every one of them
+    best = None
+    for ti in STAGED_TI:
+        for tj in STAGED_TJ:
+            if tj * ti < MIN_OWN:
+                continue
+            smem = staged_layout(S, K, tj, ti, const_bytes)[1]
+            if smem > SMEM_LIMIT:
+                continue
+            key = (smem / (tj * ti), -tj * ti)
+            if best is None or key < best[0]:
+                best = (key, Plan("staged", (tj, ti), smem))
+    if best is not None and not fuse_w:
+        return best[1]
+    tj, ti = STREAMING_TILE
+    return Plan("streaming", STREAMING_TILE,
+                (2 * S + 1) * (tj + 2 * S) * (ti + 2 * S) * 4)
+
+
+def tiles(S: int, J2: int, I: int, tile):
+    """The own columns of every block of a launch, as the kernel cuts
+    them: ``(rows, columns)`` ranges, the ragged edge clipped."""
+    tj, ti = tile
+    for cj0 in range(S, J2 - S, tj):
+        for ci0 in range(0, I, ti):
+            yield (range(cj0, min(cj0 + tj, J2 - S)),
+                   range(ci0, min(ci0 + ti, I)))
+
+
+def staged_bytes(p: Plan, S: int, J2: int, K: int, I: int,
+                 const_bytes: int) -> int:
+    """Bytes the launch reads from device memory into shared memory: every
+    block's boxes (the rows its tile needs, the boxes' full widths) and its
+    mu plane; 0 for the streaming form, which stages no 3-D operand."""
+    if p.form != "staged":
+        return 0
+    boxes, _ = staged_layout(S, K, *p.tile, const_bytes)
+    extra = {"u": 2 * S - 2, "v": 2 * S - 1, "dvdxi_const": 2 * S - 2,
+             "t_1": 2, "tconst": 0, "t": 0}
+    total = 0
+    for rows, cols in tiles(S, J2, I, p.tile):
+        nj, ni = len(rows), len(cols)
+        total += sum(K * (nj + extra[n]) * b.width * b.esize
+                     for n, b in boxes.items())
+        total += (nj + 2 * S) * (ni + 2 * S) * 4
+    return total
+
+
+# --------------------------------------------------------------------------
 # The CUDA launch
 # --------------------------------------------------------------------------
 def _kernel():
@@ -392,7 +529,7 @@ def _kernel():
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_coupled_multistep
         fn.argtypes = ([ctypes.c_void_p] * 35 + [ctypes.c_float] * 8
-                       + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 18 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -435,7 +572,9 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
            "mu": torch.empty_like(mu)}
     i0, i1, j0, j1 = (int(x) for x in window)
     j_off, i_off = (int(x) for x in offsets)
-    tj, ti = TILE
+    p = plan(S, K, fuse_w, 2 if const_bf16 else 4, overlap is not None,
+             J2, I)
+    tj, ti = p.tile
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -443,7 +582,7 @@ def _launch(*, u, v, t, t_1, tconst, dvdxi_const, ww1_k0, ww_row, mu,
                  res["mu"].data_ptr(), *rows, _f32(rdx), _f32(rdy),
                  _f32(dts), _f32(cs2), *th_scalars, J2, K, I, i0, i1, j0, j1,
                  j_off, i_off, int(k0), int(k1), S, int(fuse_w),
-                 int(const_bf16), tj, ti, stream)
+                 int(const_bf16), tj, ti, FORMS[p.form], p.smem, stream)
     if err != 0:
         raise RuntimeError(f"coupled_multistep kernel launch failed: CUDA "
                            f"error {err}")

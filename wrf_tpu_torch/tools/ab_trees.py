@@ -19,7 +19,18 @@ are the same in every tree compared):
   mode of ``MODES`` and, with ``fuse_w``, of ``W_MODES``; at 259x50x259
   (one 2x2 shard's block); with ``smdiv``, with ``capture``, with
   ``overlap`` on the 2x2 shards at 512x512x50, and the bf16 forms;
+* ``k3``: K3 (and the K4 pair) against its plain version and timed at
+  512x512x50 in every mode of ``K3_MODES``, also with ``fuse_w``; exact
+  S=2, 4, 8 with bf16 constant streams; four K1 fused-scan launches on the
+  same timer; ``phase_k3_overlap`` at 512x512x50 (one 2x2 shard's block,
+  261x50x261, S=2 timed); ``python -m wrf_tpu_torch.driver --tier coupled
+  --inner-steps 4`` for 17 steps at 512x512x50, twice (ms per step);
 * ``k6``: ``phase_copy_ceiling``;
+* ``trace``: the driver's ``--tier coupled --inner-steps 4`` loop (17
+  steps at 512x512x50, built as the driver builds it): the host span of
+  two warm runs, then one run under ``torch.profiler``: the device's busy
+  time, K3's and K1's launches and device time, the ten kernels and the
+  ten host operations that take the most;
 * ``host``: the host's time per K1 launch (the fused scan substep at
   259x50x259, 100 submissions without a synchronise, best of 5);
 * ``slice``: ``python -m wrf_tpu_torch.run_sim`` for 3 large steps at
@@ -116,6 +127,123 @@ if "host" in phases:
     res["host"] = {"k1 submit ms": min(best[1:])}
     print(f"[host] K1 scan substep at 259x50x259: {min(best[1:]):.4f} ms of "
           f"host time per launch ({smi})")
+if "k3" in phases:
+    # K3 exact at S=2, 4, 8 (and fast S=4, the K4 pair) against its plain
+    # version and timed, float32 and with fuse_w; the bf16 streams; four K1
+    # fused scans on the same timer; the in-kernel exchange on one 2x2
+    # shard's block (261x50x261, S=2); the driver's coupled S=4 main path
+    import contextlib, io, re
+    from wrf_tpu_torch import driver
+    from wrf_tpu_torch.io import fixtures
+    from wrf_tpu_torch.ops.advance_mu_t_coupled_cuda import coupled_multistep
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
+    res["k3"] = keyed(c.phase_k3_vs_plain(cases=big, card=smi)[1])
+    res["k3+w"] = keyed(c.phase_k3_vs_plain(cases=big, card=smi,
+                                            with_w=True)[1])
+    arr, static = c.padded_inputs(c.case_at(c.BIG_GRID), "cuda")
+    res["k3 bf16"] = {}
+    for S in (2, 4, 8):
+        ins, st = c.k3_inputs(arr, static, S)
+        a = c.fresh_k3(c.narrowed(ins, ("t_1", "tconst", "dvdxi_const")))
+        res["k3 bf16"][f"exact S={S}"] = [c.cuda_ms(
+            lambda: coupled_multistep(**a, **st, n_inner=S), 10) / S
+            for _ in range(2)]
+        print(f"[k3 bf16 time exact S={S}] ms per substep: "
+              f"{res['k3 bf16'][f'exact S={S}']} ({smi})")
+        del ins, a
+    a1, m1 = c.fresh(arr, c.mode_kwargs("scan", arr, static))
+
+    def four_k1():
+        for _ in range(4):
+            advance_mu_t_fused(**a1, **static, **m1)
+
+    res["k1 x4"] = [c.cuda_ms(four_k1, 10) for _ in range(2)]
+    print(f"[k1 x4 time] ms per 4 fused-scan launches: {res['k1 x4']} "
+          f"({smi})")
+    del arr, a1
+    res["k3 overlap"] = keyed(c.phase_k3_overlap(cases=big, card=smi))
+    with tempfile.TemporaryDirectory(prefix="ab_k3_") as tmp:
+        fx = fixtures.write_case(c.case_at(c.BIG_GRID, balanced=True),
+                                 Path(tmp) / "big", steps=17)
+        ms = []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = driver.main([str(fx), "--tier", "coupled",
+                                  "--inner-steps", "4", "--steps", "17",
+                                  "--device", "cuda"])
+            if rc != 0:
+                raise SystemExit(f"driver coupled S=4 returned {rc}")
+            ms.append(float(re.search(r"\(([0-9.]+) ms/step",
+                                      buf.getvalue()).group(1)))
+        res["driver coupled S=4"] = {"ms per step": ms}
+        print(f"[driver coupled S=4] ms per step: {ms} ({smi})")
+if "trace" in phases:
+    # the driver's coupled S=4 loop (--tier coupled --inner-steps 4, 17
+    # steps at 512x512x50) as the driver builds it: two host spans of a
+    # warm run, then one run under torch.profiler, read by kernel
+    import time, torch
+    from torch.profiler import ProfilerActivity, profile
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+    case = c.case_at(c.BIG_GRID, balanced=True)
+    b = case.bounds
+    loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=17,
+                         kernel="cuda", inner_steps=4, device="cuda")
+    prepared = loop.prepare(case_to_domain(case))
+
+    def run():
+        return arrays_to_numpy(loop(prepared, case.rdx, case.rdy, case.dts,
+                                    case.epssm))
+
+    run()
+    spans = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        spans.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        span = (time.perf_counter() - t0) * 1e3
+    kinds = {"k3": ("staged_kernel", "coupled_kernel"),
+             "k1": ("advance_mu_t_kernel",)}
+    row = {"span ms": spans, "profiled span ms": span, "busy ms": 0.0,
+           "k3 n": 0, "k3 ms": 0.0, "k1 n": 0, "k1 ms": 0.0, "other ms": 0.0}
+    device, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            row["busy ms"] += ms
+            kind = next((k for k, w in kinds.items()
+                         if any(x in e.key for x in w)), "other")
+            row[kind + " ms"] += ms
+            if kind != "other":
+                row[kind + " n"] += e.count
+            device[e.key[:70]] = {"n": e.count, "ms": ms}
+        else:
+            host[e.key[:70]] = {"n": e.count,
+                                "self ms": e.self_cpu_time_total / 1e3}
+    if not row["busy ms"] > 0:
+        raise SystemExit("torch.profiler traced no device time")
+    row["device"] = dict(sorted(device.items(),
+                                key=lambda kv: -kv[1]["ms"])[:10])
+    row["host"] = dict(sorted(host.items(),
+                              key=lambda kv: -kv[1]["self ms"])[:10])
+    res["trace"] = row
+    print(f"[trace driver coupled S=4] span {spans} ms unprofiled, {span:.3f}"
+          f" ms profiled; device busy {row['busy ms']:.3f} ms: K3 "
+          f"{row['k3 n']} launches {row['k3 ms']:.3f} ms, K1 {row['k1 n']} "
+          f"{row['k1 ms']:.3f} ms, other {row['other ms']:.3f} ms ({smi})")
+    for k, v in row["device"].items():
+        print(f"[trace device] {k}: {v}")
+    for k, v in row["host"].items():
+        print(f"[trace host] {k}: {v}")
 if "slice" in phases:
     from wrf_tpu_torch.io import fixtures
     with tempfile.TemporaryDirectory(prefix="ab_slice_") as tmp:
@@ -141,6 +269,20 @@ if "slice" in phases:
                   f"({smi})")
 Path(sys.argv[2]).write_text(json.dumps(res))
 '''
+
+
+#: the phases a round can run (see the module docstring)
+PHASES = ("k1", "k3", "k6", "host", "trace", "slice")
+
+
+def phase_list(text: str) -> list[str]:
+    """The comma-separated ``--phases`` value as a list; a ValueError
+    names any phase the rounds do not know."""
+    phases = [p for p in text.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or not phases:
+        raise ValueError(f"unknown phases {unknown}; known: {list(PHASES)}")
+    return phases
 
 
 def leaves(x, path=()):
@@ -195,6 +337,10 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a round may take")
     args = ap.parse_args(argv)
+    try:
+        phase_list(args.phases)
+    except ValueError as e:
+        ap.error(str(e))
     trees = dict(t.split("=", 1) for t in args.tree)
     order = args.order.split(",")
     unknown = sorted(set(order) - set(trees))
