@@ -10,8 +10,8 @@ not 0 and no result line is printed):
 
 1. environment: the card's name and power limit; a GPU is required;
 2. build: the port's CUDA kernels from ``wrf_tpu_torch/csrc`` (nvcc)
-   (and every K1, K3 and K6 instance's registers, spills and static shared
-   memory from ptxas: a spill fails the run);
+   (and every K1, K2, K3 and K6 instance's registers, spills and static
+   shared memory from ptxas: a spill fails the run);
 3. K1 kernel vs its plain PyTorch version on the card, in the three modes
    of the run_sim path (reference call, scan substep, final substep) and
    the two of the mu/t loop (lean lite substep and final substep, winds
@@ -85,9 +85,11 @@ not 0 and no result line is printed):
    ``remote_refresh_axis`` and ``remote_refresh_multi`` against their plain
    versions and against the ``ppermute`` refresh on rings of 1, 2, 4 and 8
    blocks and on a 2x2 mesh, all on the one card, at the 512x512x50 loop's
-   row sizes (bit-equality); K5 per launch timed beside its plain version
-   and the ``ppermute`` refresh (``Tensor.copy_``), marginal ms between
-   two chain lengths on CUDA events with the host clock's reading beside;
+   row sizes (bit-equality), one launch per exchange on the one card; K5
+   per 2x2 exchange (one launch) timed beside its plain version, the
+   ``ppermute`` refresh (``Tensor.copy_``) and the bare launch from a
+   prebuilt plan, marginal ms between two chain lengths on CUDA events
+   with the host clock's reading beside;
 7b. the loops on a mesh at 512x512x50 (four shards on the one card): the
    coupled loop on (2,2) and (4,1) under ``ppermute`` and ``rdma``
    (bit-equal to each other; against the 1x1 loop at rtol 5e-5, atol_scale
@@ -111,12 +113,13 @@ not 0 and no result line is printed):
    (and ``--fast``) K3 3 times and K1 15 times, the same counts with
    ``--with-w`` and ``--with-w --inner-steps 2`` (whose checkpoints must
    carry finite w and pp), and stay finite; with ``--mesh 2x2
-   --halo-backend rdma`` K1 84 times and K5 84 times (4 shards x 7
-   substeps x 3 steps) and with ``--mesh 2x2`` alone K1 84 times, the
+   --halo-backend rdma`` K1 84 times (4 shards x 7 substeps x 3 steps)
+   and K5 21 times (one launch per device per substep: the four shards
+   share the one card) and with ``--mesh 2x2`` alone K1 84 times, the
    final states equal to each other bit for bit and to the 1x1 run's at
    rtol 5e-5, atol_scale 2e-6; with ``--namelist`` (a JSON record that
    sets ``smdiv`` 0.1) K1 21 times, and with ``--mesh 2x2 --halo-backend
-   rdma`` too K1 84 and K5 84 times, the mesh run equal to the 1x1 run bit
+   rdma`` too K1 84 and K5 21 times, the mesh run equal to the 1x1 run bit
    for bit and the 1x1 run's first large step within the driver's gate
    (rtol 1e-4, atol_scale 1e-5) of the oracle's damped RK3 step; with
    ``--mesh 2x2 --halo-backend rdma_overlap`` K1 84 times and K5 never
@@ -292,9 +295,9 @@ def ptxas_instances(log):
 
 
 def instance_name(entry):
-    """A readable name for a K1, K3 or K6 entry (None for other kernels):
-    K1's set template flags and stream type, K3's depth, form, flags and
-    stream type, K6's probe arm."""
+    """A readable name for a K1, K2, K3 or K6 entry (None for other
+    kernels): K1's set template flags and stream type, K2's mode and stream
+    type, K3's depth, form, flags and stream type, K6's probe arm."""
     if "advance_mu_t_kernel" in entry:
         args = re.findall(r"L([bi])(\d+)E", entry)
         flags = [f"{p}={v}" if p == "ww" else p
@@ -304,6 +307,10 @@ def instance_name(entry):
         flags = [ww.get(f, f) for f in flags]
         ct = "bf16" if "bfloat16" in entry else "f32"
         return "k1 " + " ".join(flags + [ct])
+    if "msteps_exact" in entry or "msteps_fast" in entry:
+        mode = "exact" if "msteps_exact" in entry else "fast"
+        bf16 = "bfloat16" in entry or "bf16" in entry
+        return f"k2 {mode} {'bf16' if bf16 else 'f32'}"
     if "staged_kernel" in entry or "coupled_kernel" in entry:
         # staged_kernel<S, OVERLAP, CT>, coupled_kernel<S, FUSE_W, OVERLAP,
         # CT>
@@ -331,8 +338,8 @@ def phase_build():
     for line in log.splitlines():
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"[build]   {line.strip()}")
-    # K1, K3 and K6 must not spill (ptxas's view; dynamic shared memory is
-    # the launch's: K1 takes it under fuse_w only, K3 always)
+    # K1, K2, K3 and K6 must not spill (ptxas's view; dynamic shared memory
+    # is the launch's: K1 takes it under fuse_w only, K3 always)
     spilled = []
     for entry, (regs, spill, smem) in sorted(ptxas_instances(log).items()):
         name = instance_name(entry)
@@ -343,7 +350,7 @@ def phase_build():
         if spill:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1/K3/K6 instances spill: {spilled}")
+        raise AssertionError(f"K1/K2/K3/K6 instances spill: {spilled}")
     return secs
 
 
@@ -1926,14 +1933,16 @@ def phase_k5_vs_plain(card=""):
     ``recv_only="hi"``) on rings of 1, 2, 4 and 8 blocks on the one card at
     the 512x512x50 loop's row sizes on an (m, 1) mesh, and on the 2x2 mesh
     (two rings of two; rows of 259 floats, which start unaligned and take
-    the scalar path); every comparison bit for bit.  Then the times at the
-    2x2 row size: K5 per launch (one shard's mu and v rows of a substep),
-    its plain version, and the ``ppermute`` refresh of the same fields
-    (``Tensor.copy_``, the library yardstick): marginal ms between chains
-    of 50 and 250 calls on CUDA events, the host clock's reading of the
-    same chains beside it, in the order plain, kernel, kernel, plain.
-    Returns the events' readings, the host clock's and the bytes per
-    shard."""
+    the scalar path); every comparison bit for bit, and every exchange one
+    launch (the blocks share the one card).  Then the times at the 2x2 row
+    size, per exchange (the loop's substep: every shard's mu rows both
+    ways and v row up, one launch): K5 through its wrapper, its plain
+    version, the ``ppermute`` refresh of the same fields (``Tensor.copy_``,
+    the library yardstick) and the bare launch from a prebuilt plan:
+    marginal ms between chains of 50 and 250 calls on CUDA events, the
+    host clock's reading of the same chains beside it, in the order plain,
+    library, kernel, bare, bare, kernel, library, plain.  Returns the
+    events' readings, the host clock's and the bytes an exchange moves."""
     import torch
     from wrf_tpu_torch.ops import halo_rdma_cuda as k5
     from wrf_tpu_torch.parallel import halo
@@ -1943,16 +1952,26 @@ def phase_k5_vs_plain(card=""):
     meshes = [((m, 1), make_mesh(["cuda:0"] * m, (m, 1)))
               for m in (1, 2, 4, 8)]
     meshes.append(((2, 2), make_mesh(["cuda:0"] * 4, (2, 2))))
+    def one_launch(tag, fn, *args, **kw):
+        before = k5.LAUNCHES
+        out = fn(*args, **kw)
+        if k5.LAUNCHES - before != 1:
+            raise AssertionError(f"{tag}: {k5.LAUNCHES - before} K5 "
+                                 f"launches for one exchange on one card")
+        return out
+
     for (nj, ni), mesh in meshes:
         njl, nil = -(-(ny + 2) // nj), -(-(nx + 2) // ni)
         J, I = njl + 2, nil + 2
         tag = f"k5 ring {nj}x{ni} {J}x{K}x{I}"
         rows = ring_blocks(mesh, (2, K * I + I), 1)
-        blocks_different(f"{tag} rdma_rows", k5.rdma_rows(rows, "j", mesh),
+        blocks_different(f"{tag} rdma_rows",
+                         one_launch(tag, k5.rdma_rows, rows, "j", mesh),
                          k5.rdma_rows_plain(rows, "j", mesh))
         a3, b2, c3 = (ring_blocks(mesh, sh, seed) for seed, sh in
                       ((2, (J, K, I)), (3, (J, I)), (4, (J, K, I))))
-        got = k5.remote_refresh_axis(clone_blocks(a3), "j", mesh, njl)
+        got = one_launch(tag, k5.remote_refresh_axis, clone_blocks(a3), "j",
+                         mesh, njl)
         blocks_different(f"{tag} refresh_axis vs plain", got,
                          k5.remote_refresh_axis_plain(clone_blocks(a3), "j",
                                                       mesh, njl))
@@ -1960,9 +1979,9 @@ def phase_k5_vs_plain(card=""):
                          halo.refresh_axis(clone_blocks(a3), 0, "j", mesh,
                                            njl))
         ro = ("", "", "hi")
-        got = k5.remote_refresh_multi(
-            [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
-            recv_only=ro)
+        got = one_launch(tag, k5.remote_refresh_multi,
+                         [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh,
+                         njl, recv_only=ro)
         want = k5.remote_refresh_multi_plain(
             [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
             recv_only=ro)
@@ -1980,7 +1999,6 @@ def phase_k5_vs_plain(card=""):
     njl, nil = (ny + 2) // nj, (nx + 2) // ni
     mu = ring_blocks(mesh, (njl + 2, nil + 2), 5)
     v = ring_blocks(mesh, (njl + 2, K, nil + 2), 6)
-    n_shards = nj * ni
 
     def kern():
         k5.remote_refresh_multi([mu, v], "j", mesh, njl, recv_only=("", "hi"))
@@ -1993,23 +2011,20 @@ def phase_k5_vs_plain(card=""):
         halo.refresh_axis(mu, 0, "j", mesh, njl)
         halo.refresh_axis(v, 0, "j", mesh, njl)
 
-    # the same launches without the wrapper's per-call work (its checks and
-    # the pointer arrays it builds): what the kernel and its launch cost
-    c0 = (0, 0)
-    up, down = (mesh.neighbour(c0, "j", s) for s in (1, -1))
-    plan = k5.plan_put([(mu[c0], njl, mu[up], 0),
-                        (mu[c0], 1, mu[down], njl + 1),
-                        (v[c0], 1, v[down], njl + 1)])
+    # the same launch without the wrapper's per-call work (its checks, the
+    # address reads and the plan lookup): one plan holding every shard's
+    # segments, what the wrapper launches
+    segs = []
+    for c in mesh.coords():
+        up, down = (mesh.neighbour(c, "j", s) for s in (1, -1))
+        segs += [(mu[c], njl, mu[up], 0), (mu[c], 1, mu[down], njl + 1),
+                 (v[c], 1, v[down], njl + 1)]
+    plan = k5.plan_put(segs)
 
     def bare():
-        for _ in range(n_shards):
-            k5.put(plan)
+        k5.put(plan)
 
-    before = k5.LAUNCHES
-    kern()
-    if k5.LAUNCHES - before != n_shards:
-        raise AssertionError(f"k5: {k5.LAUNCHES - before} launches for "
-                             f"{n_shards} shards")
+    one_launch("k5 2x2 exchange", kern)
     # two-count marginals (50 and 250 calls, best of 5), each chain on both
     # clocks: the wrapper's rows are bound by what the host submits
     out = {"cuda": [], "plain": [], "library": [], "bare": []}
@@ -2018,20 +2033,20 @@ def phase_k5_vs_plain(card=""):
                      ("bare", bare), ("bare", bare),
                      ("cuda", kern), ("library", library), ("plain", plain)):
         ev, hc = chain_marginal_ms(lambda i: fn(), n1=50, n2=250, repeats=5)
-        out[name].append(ev / n_shards)
-        host[name].append(hc / n_shards)
-    row_bytes = 4 * ((nil + 2) * 2 + K * (nil + 2))   # mu x2, v x1
+        out[name].append(ev)
+        host[name].append(hc)
+    nbytes = 4 * sum(n for _, _, n in k5.addresses(segs))
     names = {"cuda": "kernel", "plain": "plain", "library": "ppermute "
              "refresh (Tensor.copy_)", "bare": "kernel launched from a "
              "prebuilt plan"}
-    print(f"[k5 time 2x2, rows of {nil + 2} (mu both ways, v up: "
-          f"{row_bytes} bytes per shard)] marginal ms per shard, CUDA events "
-          f"(host clock): " + ", ".join(
+    print(f"[k5 time 2x2, rows of {nil + 2} (4 shards' mu both ways and v "
+          f"up, {len(segs)} segments: {nbytes} bytes)] marginal ms per "
+          f"exchange, CUDA events (host clock): " + ", ".join(
               f"{names[k]} {out[k][0]:.5f} / {out[k][1]:.5f} "
               f"({host[k][0]:.5f} / {host[k][1]:.5f})" for k in names)
           + f" (order plain, library, kernel, prebuilt, prebuilt, kernel, "
           f"library, plain; {card})")
-    return out, host, row_bytes
+    return out, host, nbytes
 
 
 def phase_mesh_loops():
@@ -2132,7 +2147,7 @@ def phase_mesh_loops():
         perm_d = run(SmallStepLoop, shape, smdiv=SMDIV)
         k5.LAUNCHES = 0
         rdma_d = run(SmallStepLoop, shape, smdiv=SMDIV, halo_backend="rdma")
-        if k5.LAUNCHES != shape[0] * shape[1] * n:
+        if k5.LAUNCHES != n:   # one per device per substep
             raise AssertionError(f"mesh {shape} smdiv rdma loop: "
                                  f"{k5.LAUNCHES} K5 launches for {n} substeps")
         check_state(f"mesh {shape} smdiv rdma vs ppermute", rdma_d, perm_d,
@@ -2146,7 +2161,7 @@ def phase_mesh_loops():
         perm = run(SmallStepLoop, shape)
         k5.LAUNCHES = 0
         rdma = run(SmallStepLoop, shape, halo_backend="rdma")
-        if k5.LAUNCHES != shape[0] * shape[1] * n:
+        if k5.LAUNCHES != n:   # one per device per substep
             raise AssertionError(f"mesh {shape} rdma loop: {k5.LAUNCHES} K5 "
                                  f"launches for {n} substeps")
         if shape == (2, 2):
@@ -2379,9 +2394,9 @@ def phase_slice(tmp: Path, fx: Path):
                        {"k1": 15, "k3": 3, "k4": 0}),
             # the mesh path: four shards on the one card, each launching
             # K1 per substep (7 substeps x 3 steps), and under rdma K5 once
-            # per shard per substep
+            # per device per substep
             "2x2 rdma": (("--mesh", "2x2", "--halo-backend", "rdma"),
-                         {"k1": 84, "k3": 0, "k4": 0, "k5": 84}),
+                         {"k1": 84, "k3": 0, "k4": 0, "k5": 21}),
             "2x2 ppermute": (("--mesh", "2x2"),
                              {"k1": 84, "k3": 0, "k4": 0}),
             # the j exchange inside the kernels: the same K1 launches and
@@ -2414,7 +2429,7 @@ def phase_slice(tmp: Path, fx: Path):
                      {"k1": 21, "k3": 0, "k4": 0})
     runs["smdiv 2x2 rdma"] = (
         damped + ("--mesh", "2x2", "--halo-backend", "rdma"),
-        {"k1": 84, "k3": 0, "k4": 0, "k5": 84})
+        {"k1": 84, "k3": 0, "k4": 0, "k5": 21})
     runs["smdiv 2x2 overlap"] = (
         damped + ("--mesh", "2x2", "--halo-backend", "rdma_overlap"),
         {"k1": 84, "k3": 0, "k4": 0, "k5": 0})
@@ -2921,8 +2936,10 @@ FP32_OPS_PER_S = 67e12
 #: float32 operations per cell (one level of one column) and substep,
 #: counted from the kernels' arithmetic: K1's fused scan substep (wind
 #: rebuild, dvdxi, dmdt, ww scan, theta), K2's lean substep (winds scaled,
-#: no wind update), and what the w/pp solve adds (rhs, two sweeps, pp)
-OPS_PER_CELL = {"k1": 46, "k2": 42, "w": 25}
+#: no wind update), and what the w/pp solve adds (rhs, two sweeps, pp);
+#: K2's fast form per cell and LAUNCH, whatever S (its two passes: the
+#: column sums, the cumsums, the G terms and the summed update)
+OPS_PER_CELL = {"k1": 46, "k2": 42, "w": 25, "k2 fast": 67}
 
 
 def field_bytes(shape, n3, n2, n1):
@@ -2978,6 +2995,9 @@ def kernel_bounds():
                 nb, ops * ring[0] * ring[1] * ring[2])
     out["k2 S=8"] = bound_ms(field_bytes(blk, 7, 8, 4) / 8,
                              OPS_PER_CELL["k2"] * cells)
+    # the fast form at S=32: the same passes per launch, 1/32 per substep
+    out["k2 fast S=32"] = bound_ms(field_bytes(blk, 7, 8, 4) / 32,
+                                   OPS_PER_CELL["k2 fast"] * cells / 32)
     # the mu/t loop's lean lite substep: reads u, v, t, t_1, tconst,
     # dvdxi_const and writes t (7 passes), 10 2-D fields in and 5 out
     out["k1 lite_ws"] = bound_ms(field_bytes(blk, 7, 15, 4),
@@ -3257,6 +3277,10 @@ def main() -> int:
         "bf16": {**ms_of(bf16_times, "k2 exact S=8"), "max_abs_err": 0.0,
                  "bound_ms": bounds["k2 S=8 bf16"][0],
                  "bound_by": bounds["k2 S=8 bf16"][1]},
+        # the closed form at S=32, ms per substep
+        "fast": {**pair(k2_times, "fast S=32"),
+                 "bound_ms": bounds["k2 fast S=32"][0],
+                 "bound_by": bounds["k2 fast S=32"][1]},
     }, {
         "name": "coupled_multistep",
         "route": "cuda",
@@ -3341,7 +3365,7 @@ def main() -> int:
         "route": "cuda",
         "source": "wrf_tpu_torch/csrc/halo_rdma.cu",
         "replaces": "wrf_tpu/parallel/halo.py:156",
-        # one launch per shard per substep on the 2x2 mesh
+        # one launch per device per substep on the 2x2 mesh
         "launches": sim["2x2 rdma"][0]["k5"],
         "launches_by_path": {
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k5"],
@@ -3354,10 +3378,11 @@ def main() -> int:
             "SmallStepLoop 2x2 rdma_overlap, 5 substeps":
                 ov_launches[(2, 2), "S=1"]["k5"]},
         "max_abs_err": 0.0,
-        # marginal ms per launch (one shard's mu rows both ways and v row
-        # up, at the 2x2 mesh's row size) between two chains of launches
-        # through the wrapper, on CUDA events (host_ms: the host clock's
-        # reading of the same chains): bound by the launch, not the bytes
+        # marginal ms per launch, one 2x2 exchange (every shard's mu rows
+        # both ways and v row up, at the 2x2 mesh's row size), between two
+        # chains of exchanges through the wrapper, on CUDA events (host_ms:
+        # the host clock's reading of the same chains): bound by the
+        # launch and the host's work to submit it, not the bytes
         "ms": mean(k5_times["cuda"]),
         "host_ms": {k: mean(v) for k, v in k5_host.items()},
         # its device time per launch in the damped (2,2) loop's profile

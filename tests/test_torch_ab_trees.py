@@ -43,6 +43,9 @@ def test_order_must_name_known_trees(capsys):
     ("k3,slice", ["k3", "slice"]),
     ("k1,k6,slice", ["k1", "k6", "slice"]),
     ("trace", ["trace"]),
+    ("k2", ["k2"]),
+    ("k5", ["k5"]),
+    ("k2,k5", ["k2", "k5"]),
 ])
 def test_phase_list_accepts_the_known_phases(text, want):
     assert ab_trees.phase_list(text) == want

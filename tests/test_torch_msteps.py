@@ -153,6 +153,42 @@ def test_wrapper_contract(k2_inputs):
         k2.advance_mu_t_multistep(**tarr, **static, n_inner=2)
 
 
+K2_READ = ("u", "v", "t_1", "tconst", "dvdxi_const", "ww1_k0", "mu_tend",
+           "msftx", "msfty", "dnw", "fnm", "fnp", "rdnw")
+
+
+@pytest.mark.parametrize("read", K2_READ)
+@pytest.mark.parametrize("written", ["t", "mu", "ww_row"])
+def test_in_place_operand_must_not_alias_a_read_one(k2_inputs, written,
+                                                    read):
+    """K2 loads a level's operands before it stores t at the levels below
+    (and other threads read the neighbour columns of the read-only
+    fields), so t, mu and ww_row may not overlap any operand the launch
+    only reads: the wrapper raises, on either device, before any launch."""
+    arr, static, _ = k2_inputs
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    w, r = tarr[written], tarr[read]
+    if r.numel() <= w.numel():   # the read operand inside the written one
+        tarr[read] = w.view(-1)[:r.numel()].view(r.shape)
+    else:                        # the written operand inside the read one
+        tarr[written] = r.view(-1)[:w.numel()].view(w.shape)
+    with pytest.raises(ValueError,
+                       match=f"{read} must not alias {written}"):
+        k2.advance_mu_t_multistep(**tarr, **static, n_inner=2)
+    assert k2.LAUNCHES == 0
+
+
+def test_views_of_one_storage_that_do_not_overlap_are_accepted(k2_inputs):
+    arr, static, _ = k2_inputs
+    tarr = {k: torch.tensor(v) for k, v in arr.items()}
+    want = k2.advance_mu_t_multistep(
+        **{k: v.clone() for k, v in tarr.items()}, **static, n_inner=2)
+    big = torch.stack([tarr["t"], tarr["t_1"]])
+    got = k2.advance_mu_t_multistep(**dict(tarr, t=big[0], t_1=big[1]),
+                                    **static, n_inner=2)
+    assert all(torch.equal(got[n], want[n]) for n in want)
+
+
 def _dims(case):
     return case.bounds.ide, case.bounds.jde, case.bounds.kdim
 

@@ -6,13 +6,14 @@
 // sends its last interior rows to the NEXT shard's low halo and its first
 // interior rows to the PREVIOUS shard's high halo.  On the TPU that is a
 // pair of remote DMAs of a staged, lane-padded 2-slot buffer under a
-// barrier semaphore; here it is one launch per sending shard, on the
-// sender's device and stream, that moves a short list of contiguous row
-// segments straight from the sender's block into the neighbours' blocks
-// through plain device pointers (peer pointers when the neighbour sits on
-// another card): gather, put and scatter in one pass, no staging buffer,
-// no padding.  The plain PyTorch version is indexing and Tensor.copy_
-// between the blocks (wrf_tpu_torch/ops/halo_rdma_cuda.py).
+// barrier semaphore; here it is one launch per device and exchange, on
+// that device's stream, that moves a table of contiguous row segments (every
+// sender of every ring whose rows lie on the device) straight from the
+// senders' blocks into the neighbours' blocks through plain device pointers
+// (peer pointers when the neighbour sits on another card): gather, put and
+// scatter in one pass, no staging buffer, no padding.  Four shards on one
+// card exchange with one launch.  The plain PyTorch version is indexing and
+// Tensor.copy_ between the blocks (wrf_tpu_torch/ops/halo_rdma_cuda.py).
 //
 // Geometry: blockIdx.y picks the segment, blockIdx.x strides over it; 16-byte
 // loads and stores (float4) over a segment whose two pointers are 16-byte
@@ -22,13 +23,15 @@
 // Ordering is the caller's: launches on one stream are ordered by the
 // stream, so every put of a substep is enqueued before any kernel that
 // reads the halo rows; between devices the wrapper orders the streams with
-// events.  A sender never writes a cell that any sender reads (sources are
-// owned rows, destinations halo rows), so the puts of one exchange may run
-// in any order.
+// events.  A segment never writes a cell that any segment reads (sources
+// are owned rows, destinations halo rows), so the segments of one exchange
+// may run in any order.
 //
-// Bound: a segment is a few rows (about 100 KB per direction at 512x512x50
-// on a 4x1 mesh), tens of nanoseconds at the memory rate, so the launch
-// itself is what it costs.  Times on the card are in PERF.md.
+// Bound: a segment is one row (about 100 KB at 512x512x50 on a 4x1 mesh),
+// an exchange a few hundred KB, tens of nanoseconds at the memory rate, so
+// the launch is what it costs, and the host's work to submit it: the wrapper
+// launches from a plan cached by its pointers.  Times on the card are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -37,7 +40,7 @@
 
 namespace {
 
-constexpr int kMaxSegs = 16;
+constexpr int kMaxSegs = 64;  // 1.5 KB of by-value parameters
 
 struct Seg {
   const float* src;

@@ -20,7 +20,7 @@ the carried state, zero on the first substep, is refreshed wherever mu is
 and feeds the wind update's pressure as ``mudf_in``.
 ``halo_backend="ppermute"`` copies the rows between the blocks
 (``parallel/halo.py``); ``"rdma"`` moves every j-halo row of a substep
-with one launch per shard of the hand-written exchange kernel (K5,
+with one launch per device of the hand-written exchange kernel (K5,
 ``ops/halo_rdma_cuda.py``), i halos staying on the ppermute form;
 ``"rdma_overlap"`` puts the j exchange inside the substep kernel: only the
 i halos of mu (and mudf) are refreshed, and every shard's K1 launch reads
@@ -163,7 +163,7 @@ class SmallStepLoop:
     * "ppermute" (copies between the blocks; default);
     * "rdma" — the hand-written ring exchange along the j mesh axis as its
       own kernel BEFORE the substep kernel (exchange-then-compute), one
-      launch per shard per substep; i-axis refreshes stay on ppermute.
+      launch per device per substep; i-axis refreshes stay on ppermute.
       The blocked (``inner_steps``) path has no width-S exchange kernel:
       it runs on ppermute or not at all;
     * "rdma_overlap" — the j exchange fused INTO the substep kernel (K1's
@@ -305,7 +305,7 @@ class SmallStepLoop:
         """j-axis halo refresh of several fields' blocks on the selected
         backend (axis 0 for both 2-D and 3-D blocks)."""
         if self.halo_backend == "rdma":
-            # ONE launch per shard for every j halo of the substep
+            # ONE launch per device for every j halo of the substep
             self._rdma(fields, "j", self.mesh, nj_loc, recv_only=recv_only)
         else:
             for blocks in fields:

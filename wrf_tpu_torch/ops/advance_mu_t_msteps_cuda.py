@@ -26,7 +26,10 @@ them narrow; a mixed set is widened before the launch (exact).
 
 Buffers: ``t``, ``mu`` and ``ww_row`` are read only at their own column,
 so both versions update them IN PLACE and return them (the TPU kernel
-aliases the same three).
+aliases the same three).  None of the three may overlap an operand the
+launch only reads (the wrapper raises, on either device, before any
+launch): the kernel loads a level's operands before it stores t at the
+levels below, and reads the neighbour columns of the read-only fields.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ import torch
 
 from .. import _build
 from .advance_mu_t_cuda import (
-    _f32, check_const_streams, checked_pointers, narrow_streams, widen,
+    _f32, check_const_streams, check_no_alias, checked_pointers,
+    narrow_streams, widen,
 )
 
 #: CUDA kernel launches since import (one per launch, and only there)
@@ -46,6 +50,9 @@ LAUNCHES = 0
 
 #: the 3-D operands that may arrive as bf16
 CONST_STREAMS = ("u", "v", "t_1", "tconst", "dvdxi_const")
+
+#: the operands a launch updates in place; it only reads the others
+WRITTEN = ("t", "mu", "ww_row")
 
 _kernel_fn = None
 
@@ -95,6 +102,9 @@ def advance_mu_t_multistep(
               fnm=fnm, fnp=fnp, rdnw=rdnw, window=window, offsets=offsets,
               k0=k0, k1=k1, n_inner=n_inner, wind_step0=wind_step0,
               wind_scale_step=wind_scale_step, fast=fast)
+    check_no_alias(written={n: kw[n] for n in WRITTEN},
+                   read={n: x for n, x in kw.items()
+                         if isinstance(x, torch.Tensor) and n not in WRITTEN})
     if t.device.type == "cpu":
         return advance_mu_t_multistep_plain(**kw)
     if t.device.type == "cuda":

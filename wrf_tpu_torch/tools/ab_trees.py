@@ -25,6 +25,23 @@ are the same in every tree compared):
   same timer; ``phase_k3_overlap`` at 512x512x50 (one 2x2 shard's block,
   261x50x261, S=2 timed); ``python -m wrf_tpu_torch.driver --tier coupled
   --inner-steps 4`` for 17 steps at 512x512x50, twice (ms per step);
+* ``k2``: K2 against its plain version and timed at 512x512x50
+  (``phase_k2_vs_plain``: exact S=2, S=8, fast S=8, S=32; exact S=8 and
+  fast S=32 timed), exact S=8 with bf16 constant streams timed, K2 exact
+  S=8 against 8 K1 launches (``phase_k2_vs_k1``), and the driver's
+  ``--tier sharded-cuda --inner-steps 8`` loop (17 steps at 512x512x50,
+  built as the driver builds it) under ``torch.profiler`` for the
+  driver's two calls (warm-up and timed): K2's and K1's launches and
+  device time, the device's busy time, the ten kernels and host
+  operations that take the most;
+* ``k5``: ``phase_k5_vs_plain`` (its checks, launch counts and printed
+  times), then one 2x2 exchange at the 512x512x50 loop's row size (every
+  shard's mu rows both ways and v row up, as a substep of the mesh loop)
+  timed the same way in every tree, per exchange: through the wrapper, its
+  plain version, the ``ppermute`` refresh and the bare launch of one plan
+  of all twelve segments (marginal ms between chains of 50 and 250, CUDA
+  events and the host clock), and ``run_sim --mesh 2x2 --halo-backend
+  rdma`` for 3 large steps through ``chip_smoke.run_sim_launches``;
 * ``k6``: ``phase_copy_ceiling``;
 * ``trace``: the driver's ``--tier coupled --inner-steps 4`` loop (17
   steps at 512x512x50, built as the driver builds it): the host span of
@@ -89,6 +106,48 @@ def primed_cuda_ms(fn, reps):
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
+def profile_run(run, kinds):
+    # one torch.profiler trace of run(): the host span, the device's busy
+    # time, each kind's launches and device time, the ten kernels and host
+    # operations that take the most
+    import time, torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        span = (time.perf_counter() - t0) * 1e3
+    row = {"profiled span ms": span, "busy ms": 0.0, "other ms": 0.0,
+           **{f"{k} {x}": 0 for k in kinds for x in ("n", "ms")}}
+    device, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            row["busy ms"] += ms
+            kind = next((k for k, w in kinds.items()
+                         if any(x in e.key for x in w)), "other")
+            row[kind + " ms"] += ms
+            if kind != "other":
+                row[kind + " n"] += e.count
+            device[e.key[:70]] = {"n": e.count, "ms": ms}
+        else:
+            host[e.key[:70]] = {"n": e.count,
+                                "self ms": e.self_cpu_time_total / 1e3}
+    if not row["busy ms"] > 0:
+        raise SystemExit("torch.profiler traced no device time")
+    row["device"] = dict(sorted(device.items(),
+                                key=lambda kv: -kv[1]["ms"])[:10])
+    row["host"] = dict(sorted(host.items(),
+                              key=lambda kv: -kv[1]["self ms"])[:10])
+    for k, v in row["device"].items():
+        print(f"[trace device] {k}: {v}")
+    for k, v in row["host"].items():
+        print(f"[trace host] {k}: {v}")
+    return row
+
 c.cuda_ms = primed_cuda_ms
 phases = sys.argv[1].split(",")
 name, smi = c.phase_env()
@@ -107,6 +166,105 @@ if "k1" in phases:
     res["k1 capture"] = keyed(c.phase_k1_capture(cases=big, card=smi))
     res["k1 overlap"] = keyed(c.phase_k1_overlap(cases=big, card=smi))
     res["bf16"] = keyed(c.phase_bf16(cases=big, card=smi))
+if "k2" in phases:
+    import torch
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.ops.advance_mu_t_msteps_cuda import (
+        advance_mu_t_multistep)
+    from wrf_tpu_torch.parallel.sharded import (
+        ShardedAdvanceMuT, case_to_domain)
+    res["k2"] = keyed(c.phase_k2_vs_plain(cases=big, card=smi)[1])
+    c.phase_k2_vs_k1()
+    arr, static = c.padded_inputs(c.case_at(c.BIG_GRID), "cuda")
+    a = c.fresh_state(c.narrowed(c.k2_inputs(arr, static),
+                                 ("u", "v", "t_1", "tconst", "dvdxi_const")))
+    mkw = dict(c.K2_MODES["exact S=8"], wind_scale_step=c.DW)
+    res["k2 bf16"] = {"exact S=8": [c.cuda_ms(
+        lambda: advance_mu_t_multistep(**a, **static, **mkw), 20) / 8
+        for _ in range(2)]}
+    print(f"[k2 bf16 time exact S=8] ms per substep: "
+          f"{res['k2 bf16']['exact S=8']} ({smi})")
+    del arr, a
+    torch.cuda.empty_cache()
+    # the driver's sharded-cuda S=8 loop as the driver builds it: its two
+    # calls (warm-up, then the timed one with its readback) under the
+    # profiler, after one unprofiled call
+    case = c.case_at(c.BIG_GRID, balanced=True)
+    b = case.bounds
+    loop = ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags, n_steps=17,
+                             kernel="cuda", inner_steps=8, device="cuda")
+    prepared = loop.prepare(case_to_domain(case))
+
+    def call():
+        return loop(prepared, case.rdx, case.rdy, case.dts, case.epssm)
+
+    def driver_calls():
+        call()
+        torch.cuda.synchronize()
+        arrays_to_numpy(call())
+
+    driver_calls()
+    row = profile_run(driver_calls, {
+        "k2": ("msteps_exact", "msteps_fast"),
+        "k1": ("advance_mu_t_kernel",)})
+    res["trace k2"] = row
+    print(f"[trace driver sharded-cuda S=8] two calls, {row['profiled span ms']:.3f}"
+          f" ms profiled; device busy {row['busy ms']:.3f} ms: K2 "
+          f"{row['k2 n']} launches {row['k2 ms']:.4f} ms, K1 {row['k1 n']} "
+          f"{row['k1 ms']:.4f} ms, other {row['other ms']:.3f} ms ({smi})")
+if "k5" in phases:
+    import torch
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.io import fixtures
+    from wrf_tpu_torch.parallel import halo
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    c.phase_k5_vs_plain(card=smi)
+    nx, ny, K = c.BIG_GRID
+    mesh = make_mesh(["cuda:0"] * 4, (2, 2))
+    njl, nil = (ny + 2) // 2, (nx + 2) // 2
+    mu = c.ring_blocks(mesh, (njl + 2, nil + 2), 5)
+    v = c.ring_blocks(mesh, (njl + 2, K, nil + 2), 6)
+    segs = []
+    for co in mesh.coords():
+        up, down = (mesh.neighbour(co, "j", s) for s in (1, -1))
+        segs += [(mu[co], njl, mu[up], 0), (mu[co], 1, mu[down], njl + 1),
+                 (v[co], 1, v[down], njl + 1)]
+    plan = k5.plan_put(segs)   # 12 segments: one launch in every tree
+    fns = {
+        "kernel": lambda: k5.remote_refresh_multi(
+            [mu, v], "j", mesh, njl, recv_only=("", "hi")),
+        "plain": lambda: k5.remote_refresh_multi_plain(
+            [mu, v], "j", mesh, njl, recv_only=("", "hi")),
+        "library": lambda: (halo.refresh_axis(mu, 0, "j", mesh, njl),
+                            halo.refresh_axis(v, 0, "j", mesh, njl)),
+        "bare": lambda: k5.put(plan)}
+    n0 = k5.LAUNCHES
+    fns["kernel"]()
+    row = {"launches per exchange": k5.LAUNCHES - n0,
+           "events ms": {k: [] for k in fns},
+           "host ms": {k: [] for k in fns}}
+    for name in ("plain", "library", "kernel", "bare", "bare", "kernel",
+                 "library", "plain"):
+        ev, hc = c.chain_marginal_ms(lambda i: fns[name](), n1=50, n2=250,
+                                     repeats=5)
+        row["events ms"][name].append(ev)
+        row["host ms"][name].append(hc)
+    res["k5 exchange 2x2"] = row
+    print(f"[k5 exchange 2x2] {row['launches per exchange']} launch(es) per "
+          f"exchange; marginal ms per exchange, events / host clock: "
+          + ", ".join(f"{k} {sum(row['events ms'][k]) / 2:.5f} / "
+                      f"{sum(row['host ms'][k]) / 2:.5f}" for k in fns)
+          + f" ({smi})")
+    with tempfile.TemporaryDirectory(prefix="ab_k5_") as tmp:
+        tmp = Path(tmp)
+        fx = fixtures.write_case(c.case_at(c.BIG_GRID, balanced=True),
+                                 tmp / "big", steps=1)
+        launches, step_ms, _ = c.run_sim_launches(
+            tmp, fx, "2x2_rdma", "--mesh", "2x2", "--halo-backend", "rdma")
+        res["slice 2x2 rdma"] = {"launches": launches, "step_ms": step_ms,
+                                 "step3_ms": step_ms[2]}
+        print(f"[slice] run_sim 2x2 rdma: launches {launches}, step 3 alone "
+              f"{step_ms[2]:.3f} ms ({smi})")
 if "k6" in phases:
     res["k6"] = keyed(c.phase_copy_ceiling(card=smi)[0])
 if "host" in phases:
@@ -183,7 +341,6 @@ if "trace" in phases:
     # steps at 512x512x50) as the driver builds it: two host spans of a
     # warm run, then one run under torch.profiler, read by kernel
     import time, torch
-    from torch.profiler import ProfilerActivity, profile
     from wrf_tpu_torch.convert import arrays_to_numpy
     from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.parallel.sharded import case_to_domain
@@ -204,46 +361,15 @@ if "trace" in phases:
         t0 = time.perf_counter()
         run()
         spans.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        span = (time.perf_counter() - t0) * 1e3
-    kinds = {"k3": ("staged_kernel", "coupled_kernel"),
-             "k1": ("advance_mu_t_kernel",)}
-    row = {"span ms": spans, "profiled span ms": span, "busy ms": 0.0,
-           "k3 n": 0, "k3 ms": 0.0, "k1 n": 0, "k1 ms": 0.0, "other ms": 0.0}
-    device, host = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-            row["busy ms"] += ms
-            kind = next((k for k, w in kinds.items()
-                         if any(x in e.key for x in w)), "other")
-            row[kind + " ms"] += ms
-            if kind != "other":
-                row[kind + " n"] += e.count
-            device[e.key[:70]] = {"n": e.count, "ms": ms}
-        else:
-            host[e.key[:70]] = {"n": e.count,
-                                "self ms": e.self_cpu_time_total / 1e3}
-    if not row["busy ms"] > 0:
-        raise SystemExit("torch.profiler traced no device time")
-    row["device"] = dict(sorted(device.items(),
-                                key=lambda kv: -kv[1]["ms"])[:10])
-    row["host"] = dict(sorted(host.items(),
-                              key=lambda kv: -kv[1]["self ms"])[:10])
+    row = profile_run(run, {"k3": ("staged_kernel", "coupled_kernel"),
+                            "k1": ("advance_mu_t_kernel",)})
+    row["span ms"] = spans
     res["trace"] = row
-    print(f"[trace driver coupled S=4] span {spans} ms unprofiled, {span:.3f}"
-          f" ms profiled; device busy {row['busy ms']:.3f} ms: K3 "
-          f"{row['k3 n']} launches {row['k3 ms']:.3f} ms, K1 {row['k1 n']} "
-          f"{row['k1 ms']:.3f} ms, other {row['other ms']:.3f} ms ({smi})")
-    for k, v in row["device"].items():
-        print(f"[trace device] {k}: {v}")
-    for k, v in row["host"].items():
-        print(f"[trace host] {k}: {v}")
+    print(f"[trace driver coupled S=4] span {spans} ms unprofiled, "
+          f"{row['profiled span ms']:.3f} ms profiled; device busy "
+          f"{row['busy ms']:.3f} ms: K3 {row['k3 n']} launches "
+          f"{row['k3 ms']:.3f} ms, K1 {row['k1 n']} {row['k1 ms']:.3f} ms, "
+          f"other {row['other ms']:.3f} ms ({smi})")
 if "slice" in phases:
     from wrf_tpu_torch.io import fixtures
     with tempfile.TemporaryDirectory(prefix="ab_slice_") as tmp:
@@ -272,7 +398,7 @@ Path(sys.argv[2]).write_text(json.dumps(res))
 
 
 #: the phases a round can run (see the module docstring)
-PHASES = ("k1", "k3", "k6", "host", "trace", "slice")
+PHASES = ("k1", "k2", "k3", "k5", "k6", "host", "trace", "slice")
 
 
 def phase_list(text: str) -> list[str]:
