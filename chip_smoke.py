@@ -10,8 +10,10 @@ not 0 and no result line is printed):
 
 1. environment: the card's name and power limit; a GPU is required;
 2. build: the port's CUDA kernels from ``wrf_tpu_torch/csrc`` (nvcc)
-   (and every K1, K2, K3 and K6 instance's registers, spills and static
-   shared memory from ptxas: a spill fails the run);
+   (and every K1, K2, K3, K6, K7 and K8 instance's registers, spills and
+   static shared memory from ptxas: a spill fails the run; for K7 and K8,
+   from ``cuobjdump -sass``, the global loads placed before the first
+   float add);
 3. K1 kernel vs its plain PyTorch version on the card, in the three modes
    of the run_sim path (reference call, scan substep, final substep) and
    the two of the mu/t loop (lean lite substep and final substep, winds
@@ -69,15 +71,20 @@ not 0 and no result line is printed):
    yardstick;
 6b. K7, the tiling probe: ``run_1d`` and ``run_2d`` equal to their plain
    versions bit for bit over the whole array (NaN outside the written
-   region) at 10x8x512, 130x50x1664 (the JAX defaults, ti 512) and
-   516x50x516 (halo 2), and to each other on the lanes both wrote; the
-   entry point ``python -m wrf_tpu_torch.tools.probe_2d --time`` at the
-   JAX defaults and at 516x50x516; both forms timed at 130x50x1664 and
-   516x50x516 for tj 2, 4 and ti 64, 128 (``utils.timing.per_step_time``
-   on the host clock and CUDA events on the same chains);
+   region) at 130x50x1664 (the JAX defaults, ti 512), 516x50x516 (halo 2)
+   and small shapes that run every instance (K 8, 16, 50 and run-time
+   depths 33 and 7; both staging paths; one and two slabs in flight), and
+   to each other on the lanes both wrote; the entry point ``python -m
+   wrf_tpu_torch.tools.probe_2d --time`` at the JAX defaults and at
+   516x50x516 (every 2-D launch there on the bulk path); both forms timed
+   at 130x50x1664 and 516x50x516 for tj 2, 4 and ti 64, 128, 256
+   (``utils.timing.per_step_time`` on the host clock and CUDA events on
+   the same chains);
 6c. K8, the feature ladder: each of the nine rungs equal to its plain
-   version bit for bit at 26x16x512 and 258x50x1280 (rung e's second
-   output and rung i's aliased operand too; h == j, d == a on d's region);
+   version bit for bit at 26x16x512, 258x50x1280 and three small shapes
+   (run-time depths 7 and 33, where rung j must refuse; two row slots; ti
+   100) (rung e's second output and rung i's aliased operand too; h == j,
+   d == a on d's region);
    the entry point ``python -m wrf_tpu_torch.tools.probe_2d_bisect
    <rung>`` for every rung (and rung d with ``--time``); every rung timed
    at 258x50x1280 beside its plain version;
@@ -295,9 +302,10 @@ def ptxas_instances(log):
 
 
 def instance_name(entry):
-    """A readable name for a K1, K2, K3 or K6 entry (None for other
-    kernels): K1's set template flags and stream type, K2's mode and stream
-    type, K3's depth, form, flags and stream type, K6's probe arm."""
+    """A readable name for a K1, K2, K3, K6, K7 or K8 entry (None for
+    other kernels): K1's set template flags and stream type, K2's mode and
+    stream type, K3's depth, form, flags and stream type, K6's probe arm,
+    K7's form, depth and lanes a thread, K8's rung and depth."""
     if "advance_mu_t_kernel" in entry:
         args = re.findall(r"L([bi])(\d+)E", entry)
         flags = [f"{p}={v}" if p == "ww" else p
@@ -325,7 +333,42 @@ def instance_name(entry):
     if "copy_kernel" in entry:
         plus1 = re.findall(r"L([bi])(\d+)E", entry)[0][1] == "1"
         return f"k6 copy{' plus1' if plus1 else ''}"
+    args = [int(v) for _, v in re.findall(r"L([bi])(\d+)E", entry)]
+    if "probe_1d_regs" in entry:     # probe_1d_regs<KT, V>
+        return f"k7 1d K={args[0]} lanes={args[1]}"
+    if "probe_1d_smem" in entry:
+        return "k7 1d K=run-time"
+    if "probe_2d_staged" in entry:   # probe_2d_staged<KT>
+        return f"k7 2d K={args[0] or 'run-time'}"
+    if "rung_a_kernel" in entry or "rung_b_kernel" in entry:
+        return f"k8 rung {entry[entry.index('rung_') + 5]}"
+    if "rung_tile_kernel" in entry:  # rung_tile_kernel<R, KT>
+        return f"k8 rung {chr(args[0])}" + (f" K={args[1]}" if args[1]
+                                             else "")
     return None
+
+
+def loads_ahead(sass):
+    """``{entry: (LDGs before its first FADD, LDGs)}`` for every function
+    in ``cuobjdump -sass`` output: how many of a kernel's global loads the
+    compiler placed ahead of the first use of any."""
+    out, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = [0, 0, False]
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if entry is None or m is None:
+            continue
+        rec = out[entry]
+        if re.search(r"\bFADD\b", m.group(1)):
+            rec[2] = True
+        if re.search(r"\bLDG\b", m.group(1)):
+            rec[1] += 1
+            rec[0] += not rec[2]
+    return {k: (v[0], v[1]) for k, v in out.items()}
 
 
 def phase_build():
@@ -338,8 +381,9 @@ def phase_build():
     for line in log.splitlines():
         if re.search(r"registers|spill|Compiling entry", line):
             print(f"[build]   {line.strip()}")
-    # K1, K2, K3 and K6 must not spill (ptxas's view; dynamic shared memory
-    # is the launch's: K1 takes it under fuse_w only, K3 always)
+    # K1, K2, K3, K6, K7 and K8 must not spill (ptxas's view; dynamic
+    # shared memory is the launch's: K1 takes it under fuse_w only, K3
+    # always, K7's 2-D form and run-time-K 1-D form, K8's rungs h and j)
     spilled = []
     for entry, (regs, spill, smem) in sorted(ptxas_instances(log).items()):
         name = instance_name(entry)
@@ -350,7 +394,20 @@ def phase_build():
         if spill:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1/K2/K3/K6 instances spill: {spilled}")
+        raise AssertionError(f"K1-K3/K6-K8 instances spill: {spilled}")
+    # the probes' loads ahead, read from the SASS (informational)
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        print(f"[sass] no {cuobjdump}: loads ahead not counted")
+        return secs
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    for entry, (ahead, total) in sorted(loads_ahead(sass).items()):
+        name = instance_name(entry)
+        if name and name.startswith(("k7", "k8")):
+            print(f"[sass] {name}: {ahead} of its {total} LDGs come before "
+                  "its first FADD")
     return secs
 
 
@@ -1670,16 +1727,29 @@ def probe_main(module, tag, argv):
     return buf.getvalue()
 
 
-#: K7's checked shapes (shape, tj, ti, halo): a small one, the JAX probe's
-#: defaults (ti 512 covers 1024 of the 1408 interior lanes), and the port's
-#: padded 512x512x50 block with a 2-lane halo
-K7_CHECKS = (((10, 8, 512), 4, 128, 128), ((130, 50, 1664), 4, 512, 128),
-             ((516, 50, 516), 2, 128, 2))
-#: K7's timed shapes (shape, halo); tj in (2, 4), ti in (64, 128) divide
-#: both interiors (1408 and 512 lanes)
+#: K7's checked shapes (shape, tj, ti, halo): the JAX probe's defaults (ti
+#: 512 covers 1024 of the 1408 interior lanes), the port's padded
+#: 512x512x50 block with a 2-lane halo, and small ones that between them
+#: run every instance (K 8, 16, 50 and two run-time depths, 33 and 7), the
+#: K = 8 1-D instance with its four lanes a thread (a partial last warp)
+#: and with one (a pitch four lanes do not divide), each 2-D instance on
+#: both staging paths (bulk where I*4 is a multiple of 16, cp.async
+#: elsewhere), and one and two slabs in flight
+K7_CHECKS = (((10, 8, 520), 4, 128, 128), ((10, 8, 514), 4, 128, 128),
+             ((10, 16, 516), 4, 128, 128), ((10, 16, 515), 3, 100, 2),
+             ((130, 50, 1664), 4, 512, 128), ((516, 50, 516), 2, 128, 2),
+             ((6, 50, 1281), 2, 1024, 128), ((6, 50, 1280), 2, 1024, 128),
+             ((12, 33, 515), 3, 100, 2), ((9, 7, 264), 2, 64, 4))
+#: K7's timed shapes (shape, halo); tj in (2, 4), ti in (64, 128, 256)
+#: (256 divides 512 of the 1408 interior lanes: its bound is its own)
 K7_TIMED = (((130, 50, 1664), 128), ((516, 50, 516), 2))
-#: K8's shapes: the JAX probe's defaults and a 256x1024-interior block
-K8_CHECKS = ((26, 16, 512), (258, 50, 1280))
+#: K8's checked shapes (shape, tj, ti): the JAX probe's defaults, a
+#: 256x1024-interior block, and run-time depths only the run-time k loops
+#: take (rung j refuses them), one with a tile of two row slots (a thread
+#: takes two rows) and one with ti not a multiple of a warp
+K8_CHECKS = (((26, 16, 512), 4, 128), ((258, 50, 1280), 4, 128),
+             ((10, 7, 512), 4, 128), ((14, 16, 768), 4, 256),
+             ((11, 33, 556), 3, 100))
 K8_TIMED = (258, 50, 1280)
 
 
@@ -1708,17 +1778,23 @@ def phase_k7(card=""):
     lanes both wrote; then the probe's entry point, ``python -m
     wrf_tpu_torch.tools.probe_2d --time``, at the JAX defaults and at the
     port's padded block, with every launch count set to 0 just before;
-    then both forms timed at K7_TIMED for tj 2, 4 and ti 64, 128 (the 1-D
-    form does not depend on ti), marginal ms per call on the host clock
+    then both forms timed at K7_TIMED for tj 2, 4 and ti 64, 128, 256 (the
+    1-D form does not depend on ti), marginal ms per call on the host clock
     (``utils.timing.per_step_time``) and CUDA events around the same
     ping-pong chains, beside the plain versions at tj 4 (2 at the padded
     block), ti 128.  Returns the results and the entry point's launches."""
     import torch
     from wrf_tpu_torch.tools import probe_2d as k7
 
+    ran = set()
     for shape, tj, ti, halo in K7_CHECKS:
         x = probe_input(shape, 7)
         tag = "x".join(map(str, shape)) + f" tj {tj} ti {ti} halo {halo}"
+        plans = {"1d": k7.plan_1d(shape, tj),
+                 "2d": k7.plan_2d(shape, tj, ti, halo)}
+        ran |= {("1d", plans["1d"]["kt"], plans["1d"]["vec"]),
+                ("2d", plans["2d"]["kt"], plans["2d"]["path"]),
+                ("2d stages", plans["2d"]["stages"])}
         outs = {}
         for form, fn, plain, args in (
                 ("1d", k7.run_1d, k7.run_1d_plain, (tj,)),
@@ -1731,7 +1807,8 @@ def phase_k7(card=""):
             nan_out = int(torch.isnan(got).sum()) == (
                 got.numel() - got[region].numel())
             print(f"[k7 {tag} {form}] different={n} (whole array, NaN "
-                  f"outside the region: {nan_out}; region finite: {finite})")
+                  f"outside the region: {nan_out}; region finite: {finite}; "
+                  f"plan {plans[form]})")
             if n or not (finite and nan_out):
                 raise AssertionError(f"k7 {tag} {form}: {n} elements differ "
                                      f"from the plain version")
@@ -1744,13 +1821,27 @@ def phase_k7(card=""):
             raise AssertionError(f"k7 {tag}: the forms differ in {n}")
         del x, outs
     torch.cuda.empty_cache()
+    built = ({("1d", kt, v) for kt in (0, *k7.UNROLLED_K)
+              for v in {1, k7.LANES_1D.get(kt, 1)}}
+             | {("2d", kt, p) for kt in (0, *k7.UNROLLED_K)
+                for p in k7.STAGING} | {("2d stages", 1), ("2d stages", 2)})
+    print(f"[k7 instances] held to bits: {len(built & ran)} of {len(built)}"
+          f"; not run: {sorted(built - ran, key=str) or 'none'}")
+    if built - ran:
+        raise AssertionError(f"k7: instances not checked: {built - ran}")
 
-    for form in k7.LAUNCHES:
-        k7.LAUNCHES[form] = 0
+    for counts in (k7.LAUNCHES, k7.STAGING):
+        for key in counts:
+            counts[key] = 0
     probe_main(k7, "k7 main", ["--time"])
     probe_main(k7, "k7 main", ["--shape", "516", "50", "516", "--halo", "2",
                                "--tj", "2", "--ti", "128", "--time"])
     launches = dict(k7.LAUNCHES)
+    print(f"[k7 main] launches {launches}; the 2-D form's slabs by path "
+          f"{dict(k7.STAGING)}")
+    if k7.STAGING["bulk"] != launches["2d"]:
+        raise AssertionError("k7 main: a 2-D launch at a 16-byte pitch did "
+                             f"not take the bulk path: {dict(k7.STAGING)}")
 
     out = {}
     for shape, halo in K7_TIMED:
@@ -1760,7 +1851,7 @@ def phase_k7(card=""):
         jax_bytes = 2 * J * K * I * 4
         tj_plain = 2 if halo == 2 else 4
         for tj in (2, 4):
-            for ti in (None, 64, 128):
+            for ti in (None, 64, 128, 256):
                 def step(s, d, tj=tj, ti=ti, plain=False):
                     if ti is None:
                         fn = k7.run_1d_plain if plain else k7.run_1d
@@ -1799,7 +1890,8 @@ def phase_k7(card=""):
 def phase_k8(card=""):
     """K8, the feature ladder: every rung against its plain version bit for
     bit over the whole array (NaN outside its region included) at
-    K8_CHECKS (tj 4, ti 128), rung e's second output (kernel vs plain, and
+    K8_CHECKS (rung j only at its unrolled depths, and refused at the
+    others), rung e's second output (kernel vs plain, and
     2*x on its region), rung i's aliased operand (kernel vs plain, x + 1 on
     its region, x elsewhere, the caller's x unchanged), h == j and d == a on
     d's region; then each rung's entry point, ``python -m
@@ -1812,13 +1904,19 @@ def phase_k8(card=""):
     from wrf_tpu_torch.tools import probe_2d as k7
     from wrf_tpu_torch.tools import probe_2d_bisect as k8
 
-    tj, ti = 4, 128
-    for shape in K8_CHECKS:
+    for shape, tj, ti in K8_CHECKS:
         x = probe_input(shape, 9)
         x0 = x.clone()
-        tag = "x".join(map(str, shape))
+        tag = "x".join(map(str, shape)) + f" tj {tj} ti {ti}"
         got = {}
         for rung in k8.RUNGS:
+            if rung == "j" and shape[1] not in k8.UNROLLED_K:
+                try:
+                    k8.rung_j(x, tj, ti)
+                except ValueError as e:
+                    print(f"[k8 {tag} rung j] refused: {e}")
+                    continue
+                raise AssertionError(f"k8 {tag}: rung j ran at K={shape[1]}")
             ops_k, ops_p = k8.operands(rung, x), k8.operands(rung, x)
             got[rung] = k8.FUNCS[rung](x, tj, ti, **ops_k)
             want = k8.PLAIN[rung](x, tj, ti, **ops_p)
@@ -1831,7 +1929,8 @@ def phase_k8(card=""):
             finite = bool(torch.isfinite(got[rung][region]).all())
             second = {"e": ", out1 too", "i": ", t too"}.get(rung, "")
             print(f"[k8 {tag} rung {rung}] different={n} (whole array"
-                  f"{second}; region finite: {finite})")
+                  f"{second}; region finite: {finite}; plan "
+                  f"{k8.plan(rung, shape, tj, ti)})")
             if n or not finite:
                 raise AssertionError(f"k8 {tag} rung {rung}: {n} elements "
                                      "differ from the plain version")
@@ -1850,9 +1949,10 @@ def phase_k8(card=""):
                 raise AssertionError(f"k8 {tag} rung {rung}: its second "
                                      "output is wrong")
         region = k8.written_region("d", shape, tj, ti)
-        n_hj = bits_different(got["h"], got["j"])
+        n_hj = bits_different(got["h"], got["j"]) if "j" in got else 0
         n_da = bits_different(got["d"][region], got["a"][region])
-        print(f"[k8 {tag}] h vs j different={n_hj}; d vs a on d's region "
+        print(f"[k8 {tag}] h vs j different="
+              f"{n_hj if 'j' in got else '(no j)'}; d vs a on d's region "
               f"different={n_da}; rung e's 2*x and rung i's x + 1 on their "
               "regions, x unchanged: ok")
         if n_hj or n_da:
@@ -1871,6 +1971,7 @@ def phase_k8(card=""):
     out = {}
     x = probe_input(K8_TIMED, 10)
     tag = "x".join(map(str, K8_TIMED))
+    tj, ti = 4, 128
     for rung in k8.RUNGS:
         ops = k8.operands(rung, x)
         fn, plain = k8.FUNCS[rung], k8.PLAIN[rung]

@@ -46,6 +46,9 @@ def test_order_must_name_known_trees(capsys):
     ("k2", ["k2"]),
     ("k5", ["k5"]),
     ("k2,k5", ["k2", "k5"]),
+    ("k7", ["k7"]),
+    ("k8", ["k8"]),
+    ("k7,k8", ["k7", "k8"]),
 ])
 def test_phase_list_accepts_the_known_phases(text, want):
     assert ab_trees.phase_list(text) == want
@@ -56,3 +59,17 @@ def test_unknown_phase_is_refused(capsys):
         ab_trees.main(["--tree", "parent=.", "--order", "parent",
                        "--phases", "k3,k9", "--out", "unused/ab"])
     assert "unknown phases ['k9']" in capsys.readouterr().err
+
+
+def test_round_lines_give_each_k7_form_and_k8_rung_its_ms():
+    res = {"card": "H100",
+           "k7": {"130x50x1664 | 4 | 1d": {"ms": 0.05, "host_ms": 0.06,
+                                           "bound_by": "bytes"},
+                  "130x50x1664 | 4 | 2d ti 128": {"ms": 0.04}},
+           "k8": {"d": {"ms": 0.06, "plain_ms": 0.43}},
+           "k1": {"scan": {"cuda": [0.31]}}}
+    assert ab_trees.round_lines(res) == [
+        "k7 / 130x50x1664 | 4 | 1d: 0.0500 ms",
+        "k7 / 130x50x1664 | 4 | 2d ti 128: 0.0400 ms",
+        "k8 / d: 0.0600 ms"]
+    assert ab_trees.round_lines({"card": "H100", "k1": {}}) == []

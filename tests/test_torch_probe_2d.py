@@ -23,9 +23,11 @@ jax_k7 = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(jax_k7)
 
 #: (shape, tj, ti): the last does not divide its 384-lane interior, and
-#: 11x7x640 has K not a power of two and J-2 not a multiple of tj
+#: 11x7x640 has K not a power of two and J-2 not a multiple of tj; K 8,
+#: 16, 50 are the register instances' depths, 7 and 33 run-time ones
 CASES = [((10, 8, 512), 4, 128), ((14, 50, 768), 4, 256),
-         ((11, 7, 640), 3, 128), ((10, 8, 640), 4, 256)]
+         ((11, 7, 640), 3, 128), ((10, 8, 640), 4, 256),
+         ((9, 33, 320), 2, 64), ((8, 16, 515), 3, 100)]
 
 
 def _x(shape, seed=0):
@@ -164,3 +166,94 @@ def test_cli_at_the_jax_defaults_covers_what_it_wrote(capsys):
     out = capsys.readouterr().out
     assert "2-D form covers 1024 of 1408 interior lanes" in out
     assert "2-D vs 1-D bit-equal (interior lanes): True" in out
+
+
+@pytest.mark.parametrize("K,kt", [(50, 50), (16, 16), (8, 8), (7, 0),
+                                  (33, 0), (1, 0), (64, 0)])
+def test_instance_by_depth(K, kt):
+    assert k7.instance(K) == kt
+
+
+@pytest.mark.parametrize("shape,tj,aligned,want", [
+    # the register instances take LANES_1D lanes a thread where I allows
+    ((130, 50, 1664), 4, True, dict(kt=50, vec=1, grid=(13, 128), smem=0)),
+    ((516, 50, 516), 2, True, dict(kt=50, vec=1, grid=(5, 514), smem=0)),
+    ((10, 16, 516), 4, True, dict(kt=16, vec=1, grid=(5, 8), smem=0)),
+    ((10, 8, 520), 4, True, dict(kt=8, vec=4, grid=(2, 8), smem=0)),
+    # a pitch (or pointers) not aligned for them: one lane a thread
+    ((10, 16, 515), 3, True, dict(kt=16, vec=1, grid=(5, 6), smem=0)),
+    ((10, 8, 514), 4, True, dict(kt=8, vec=1, grid=(5, 8), smem=0)),
+    ((10, 8, 520), 4, False, dict(kt=8, vec=1, grid=(5, 8), smem=0)),
+    # a run-time depth: the column in shared memory, K x 128 floats
+    ((12, 33, 515), 3, True, dict(kt=0, vec=1, grid=(5, 9),
+                                  smem=4 * 33 * 128)),
+    ((9, 7, 264), 2, True, dict(kt=0, vec=1, grid=(3, 6), smem=4 * 7 * 128)),
+])
+def test_plan_1d(shape, tj, aligned, want):
+    assert k7.plan_1d(shape, tj, aligned) == dict(want, threads=128)
+
+
+@pytest.mark.parametrize("shape,tj,ti,halo,aligned,want", [
+    # 16-byte pitch: bulk copies; two slabs of (ti + 8) & ~3 floats a line
+    ((130, 50, 1664), 4, 128, 128, True, dict(
+        kt=50, path="bulk", threads=128, stages=2, width=136,
+        grid=(11, 32), smem=16 + 4 * 2 * 50 * 136)),
+    ((516, 50, 516), 2, 128, 2, True, dict(
+        kt=50, path="bulk", threads=128, stages=2, width=136,
+        grid=(4, 257), smem=16 + 4 * 2 * 50 * 136)),
+    ((130, 50, 1664), 4, 512, 128, True, dict(
+        kt=50, path="bulk", threads=256, stages=2, width=520,
+        grid=(2, 32), smem=16 + 4 * 2 * 50 * 520)),
+    # x not 16-byte aligned, or a pitch that is not: 4-byte cp.async
+    ((516, 50, 516), 2, 128, 2, False, dict(
+        kt=50, path="cp.async", threads=128, stages=2, width=136,
+        grid=(4, 257), smem=16 + 4 * 2 * 50 * 136)),
+    ((10, 16, 515), 3, 100, 2, True, dict(
+        kt=16, path="cp.async", threads=128, stages=2, width=108,
+        grid=(5, 2), smem=16 + 4 * 2 * 16 * 108)),
+    # two slabs do not fit: one in flight
+    ((6, 50, 1280), 2, 1024, 128, True, dict(
+        kt=50, path="bulk", threads=256, stages=1, width=1032,
+        grid=(1, 2), smem=16 + 4 * 50 * 1032)),
+    # a run-time depth adds a K x threads scratch column per thread
+    ((12, 33, 515), 3, 100, 2, True, dict(
+        kt=0, path="cp.async", threads=128, stages=2, width=108,
+        grid=(5, 3), smem=16 + 4 * (2 * 33 * 108 + 33 * 128))),
+    ((9, 7, 264), 2, 64, 4, True, dict(
+        kt=0, path="bulk", threads=64, stages=2, width=72, grid=(4, 3),
+        smem=16 + 4 * (2 * 7 * 72 + 7 * 64))),
+])
+def test_plan_2d(shape, tj, ti, halo, aligned, want):
+    got = k7.plan_2d(shape, tj, ti, halo, aligned)
+    assert got == want
+    assert got["smem"] <= k7.MAX_SMEM
+    # a line holds the tile, a lane each side and up to 3 lanes of
+    # alignment, on 16-byte boundaries
+    assert got["width"] % 4 == 0 and got["width"] >= ti + 5
+
+
+def test_plan_2d_refuses_a_slab_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        k7.plan_2d((6, 50, 2560), 2, 2048, 128)
+
+
+def test_chip_smoke_counts_the_loads_before_the_first_add():
+    """``chip_smoke.loads_ahead`` reads ``cuobjdump -sass`` output: the
+    LDGs (not LDGSTS) before each function's first FADD, and in all."""
+    import chip_smoke
+
+    sass = """
+        Function : _Z7kernel1PKfPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/               @P0 LDG.E R5, desc[UR4][R2.64+0x4] ;
+        /*0030*/                   LDGSTS [R7], [R2.64] ;
+        /*0040*/                   FADD R6, R4, R5 ;
+        /*0050*/                   LDG.E R8, desc[UR4][R2.64+0x8] ;
+        /*0060*/                   FADD.FTZ R6, R6, R8 ;
+        Function : _Z7kernel2PKfPf
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   STG.E desc[UR4][R2.64], R4 ;
+    """
+    assert chip_smoke.loads_ahead(sass) == {"_Z7kernel1PKfPf": (2, 3),
+                                            "_Z7kernel2PKfPf": (1, 1)}

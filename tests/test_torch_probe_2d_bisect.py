@@ -28,8 +28,10 @@ _spec = importlib.util.spec_from_file_location(
 jax_k8 = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(jax_k8)
 
-#: (shape, tj, ti)
-CASES = [((10, 8, 512), 4, 128), ((14, 16, 768), 4, 256)]
+#: (shape, tj, ti); K = 7 is a depth only the run-time k loops take on
+#: the card (rung j's plain version runs at any K)
+CASES = [((10, 8, 512), 4, 128), ((14, 16, 768), 4, 256),
+         ((9, 7, 556), 3, 100)]
 
 
 @pytest.fixture
@@ -181,3 +183,44 @@ def test_cli_time_and_missing_gpu(capsys):
         pytest.skip("a GPU is present: the no-GPU path cannot be shown")
     with pytest.raises(SystemExit, match="is_available"):
         k8.main(["d"])
+
+
+@pytest.mark.parametrize("rung,K,kt", [
+    ("j", 16, 16), ("j", 50, 50), ("h", 50, 0), ("a", 16, 0), ("d", 7, 0)])
+def test_instance_by_depth(rung, K, kt):
+    assert k8.instance(rung, K) == kt
+
+
+@pytest.mark.parametrize("K", [7, 33, 8])
+def test_rung_j_has_no_instance_at_other_depths(K):
+    with pytest.raises(ValueError, match="K in"):
+        k8.instance("j", K)
+
+
+@pytest.mark.parametrize("rung,shape,tj,ti,want", [
+    ("a", (258, 50, 1280), 4, 128, dict(threads=(256, 1), grid=(1280,),
+                                        smem=0)),
+    ("b", (258, 50, 1280), 4, 128, dict(threads=(1024, 1), grid=(64,),
+                                        smem=0)),
+    # a tile's tj rows side by side: (ti, tj) threads
+    ("d", (258, 50, 1280), 4, 128, dict(threads=(128, 4), grid=(64, 8),
+                                        smem=0)),
+    ("h", (258, 50, 1280), 4, 128, dict(threads=(128, 4), grid=(64, 8),
+                                        smem=4 * 50 * 4 * 128)),
+    ("j", (26, 16, 512), 4, 128, dict(threads=(128, 4), grid=(6, 2),
+                                      smem=4 * 16 * 4 * 128)),
+    # 512 threads at most: two row slots, a thread takes two rows
+    ("e", (14, 16, 768), 4, 256, dict(threads=(256, 2), grid=(3, 2),
+                                      smem=0)),
+    ("j", (14, 16, 768), 4, 256, dict(threads=(256, 2), grid=(3, 2),
+                                      smem=4 * 16 * 2 * 256)),
+    # ti rounded up to a warp
+    ("i", (9, 7, 556), 3, 100, dict(threads=(128, 3), grid=(2, 3), smem=0)),
+    ("c", (6, 8, 1280), 2, 1024, dict(threads=(512, 1), grid=(2, 1),
+                                      smem=0)),
+])
+def test_plan(rung, shape, tj, ti, want):
+    got = k8.plan(rung, shape, tj, ti)
+    assert got == dict(want, kt=k8.instance(rung, shape[1]))
+    tx, ty = got["threads"]
+    assert tx * ty <= 1024 and ty <= tj

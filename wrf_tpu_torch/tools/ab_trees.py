@@ -48,6 +48,12 @@ are the same in every tree compared):
   two warm runs, then one run under ``torch.profiler``: the device's busy
   time, K3's and K1's launches and device time, the ten kernels and the
   ten host operations that take the most;
+* ``k7``: ``phase_k7`` (both forms against their plain versions, the
+  entry point, then each form timed at ``K7_TIMED`` for tj 2, 4 and ti
+  64, 128, marginal two-count on ``probe_2d.chain_ms``);
+* ``k8``: ``phase_k8`` (every rung against its plain version, the entry
+  points, then every rung timed at ``K8_TIMED``, tj 4, ti 128, on the same
+  timer);
 * ``host``: the host's time per K1 launch (the fused scan substep at
   259x50x259, 100 submissions without a synchronise, best of 5);
 * ``slice``: ``python -m wrf_tpu_torch.run_sim`` for 3 large steps at
@@ -58,11 +64,13 @@ are the same in every tree compared):
 
 Every tree's kernels are timed by the same ``cuda_ms`` (the calls queued
 behind ~10 ms of spinning on the stream, so CUDA events read the card's
-time even where a launch costs the host as much as the card).  Each
-round's output goes to ``<out>_<tree>_<n>.txt`` and every reading to
-``<out>.json``; the summary printed at the end gives, per timing, each
-tree's mean and the ratio of each tree to the first.  It needs a CUDA card
-(the phases refuse to run without one).
+time even where a launch costs the host as much as the card); K7 and K8
+keep their phases' own timer.  Each round's output goes to
+``<out>_<tree>_<n>.txt`` and every reading to ``<out>.json``; after each
+round of ``k7`` or ``k8`` one ``[ab] round`` line per form or rung gives its
+ms, and the summary printed at the end gives, per timing, each tree's
+mean and the ratio of each tree to the first.  It needs a CUDA card (the
+phases refuse to run without one).
 """
 
 from __future__ import annotations
@@ -267,6 +275,10 @@ if "k5" in phases:
               f"{step_ms[2]:.3f} ms ({smi})")
 if "k6" in phases:
     res["k6"] = keyed(c.phase_copy_ceiling(card=smi)[0])
+if "k7" in phases:
+    res["k7"] = keyed(c.phase_k7(card=smi)[0])
+if "k8" in phases:
+    res["k8"] = keyed(c.phase_k8(card=smi)[0])
 if "host" in phases:
     # what one K1 launch costs the host: the fused scan substep at one 2x2
     # shard's block, 100 submissions without a synchronise, best of 5
@@ -398,7 +410,8 @@ Path(sys.argv[2]).write_text(json.dumps(res))
 
 
 #: the phases a round can run (see the module docstring)
-PHASES = ("k1", "k2", "k3", "k5", "k6", "host", "trace", "slice")
+PHASES = ("k1", "k2", "k3", "k5", "k6", "k7", "k8", "host", "trace",
+          "slice")
 
 
 def phase_list(text: str) -> list[str]:
@@ -424,6 +437,13 @@ def leaves(x, path=()):
                 yield from leaves(v, path + (str(n),))
     elif isinstance(x, (int, float)) and not isinstance(x, bool):
         yield path, float(x)
+
+
+def round_lines(res: dict) -> list[str]:
+    """One line per K7 form and K8 rung of a round's results: its ms."""
+    return [" / ".join(path[:-1]) + f": {v:.4f} ms"
+            for key in ("k7", "k8") if key in res
+            for path, v in leaves({key: res[key]}) if path[-1] == "ms"]
 
 
 def summary(rounds: list, names: list) -> list[str]:
@@ -503,6 +523,8 @@ def main(argv=None) -> int:
             print(log.read_text()[-3000:])
             continue
         rounds.append((name, json.loads(res_file.read_text())))
+        for line in round_lines(rounds[-1][1]):
+            print(f"[ab] round {n} {name} {line}", flush=True)
     out.with_suffix(".json").write_text(json.dumps(
         [{"tree": t, **r} for t, r in rounds]))
     cards = sorted({r["card"] for _, r in rounds})

@@ -27,9 +27,17 @@ tj*((J-2)//tj).
 Nothing outside the written region is touched: an output the wrapper
 allocates is NaN there, as the JAX probe's interpret mode leaves it.  CUDA
 tensors launch the hand-written kernel (``csrc/probe_2d.cu``) and count one
-in :data:`LAUNCHES`; CPU tensors run the plain versions
-(:func:`run_1d_plain`, :func:`run_2d_plain`).  There is no fallback from
-one to the other.
+in :data:`LAUNCHES` (the 2-D form also in :data:`STAGING`, by the path its
+slabs took); CPU tensors run the plain versions (:func:`run_1d_plain`,
+:func:`run_2d_plain`).  There is no fallback from one to the other.
+
+The kernel instance and launch geometry are pure functions of the shape
+(:func:`plan_1d`, :func:`plan_2d`): at K in :data:`UNROLLED_K` the column
+lives in registers (the 1-D form takes :data:`LANES_1D` lanes a thread,
+one where the pitch or the pointers are not aligned for them), at any
+other K in shared memory; the 2-D form stages its slabs by bulk copies
+where x and the pitch I*4 are 16-byte aligned, by 4-byte ``cp.async``
+elsewhere.
 
 Run on the card:  python -m wrf_tpu_torch.tools.probe_2d [--time]
 Run on the CPU:   python -m wrf_tpu_torch.tools.probe_2d --device cpu
@@ -54,6 +62,20 @@ HALO = 128
 #: CUDA kernel launches since import, per form (one per launch, and only
 #: there)
 LAUNCHES = {"1d": 0, "2d": 0}
+#: the 2-D form's launches by the path its slabs took into shared memory
+STAGING = {"bulk": 0, "cp.async": 0}
+
+#: the depths whose instances hold the column in registers (the probes' K);
+#: every other K takes the run-time-K instance (depth 0)
+UNROLLED_K = (50, 16, 8)
+#: lanes a thread of the 1-D form at each depth (csrc/probe_2d.cu builds
+#: each depth with 1 lane too, for pitches and pointers not aligned to more)
+LANES_1D = {50: 1, 16: 1, 8: 4}
+THREADS_1D = 128
+MAX_THREADS_2D = 256
+#: shared memory a block may take, and the 2-D form's two mbarriers
+MAX_SMEM = 232448
+BARRIER_BYTES = 16
 
 _kernels = None
 
@@ -80,6 +102,55 @@ def compulsory_bytes(shape, tj: int, ti: int | None = None,
     width = lanes.stop - lanes.start
     read = width if ti is None else (width + 2 if width else 0)
     return 4 * n_rows * shape[1] * (read + width)
+
+
+def instance(K: int) -> int:
+    """The compile-time depth of the instance that runs depth ``K`` (0:
+    the run-time-K instance)."""
+    return K if K in UNROLLED_K else 0
+
+
+def plan_1d(shape, tj: int, aligned: bool = True) -> dict:
+    """The 1-D form's launch at ``shape``: ``kt`` (the instance's depth),
+    ``vec`` (lanes a thread), ``threads``, ``grid`` (x, y) and ``smem``
+    (dynamic shared bytes).  ``aligned``: x's and out's addresses allow
+    loads of ``LANES_1D[kt]`` floats."""
+    J, K, I = shape
+    kt = instance(K)
+    vec = LANES_1D.get(kt, 1)
+    if I % vec or not aligned:
+        vec = 1
+    rows = tj * ((J - 2) // tj)
+    return {"kt": kt, "vec": vec, "threads": THREADS_1D,
+            "grid": (-(-I // (vec * THREADS_1D)), rows),
+            "smem": 0 if kt else 4 * K * THREADS_1D}
+
+
+def plan_2d(shape, tj: int, ti: int, halo: int = HALO,
+            aligned: bool = True) -> dict:
+    """The 2-D form's launch at ``shape``: ``kt``, ``path`` ("bulk" where
+    the pitch I*4 is a multiple of 16 and x is ``aligned`` to 16 bytes,
+    else "cp.async"), ``threads``, ``stages`` (row slabs in flight: two
+    where they fit), ``width`` (floats a slab line), ``grid`` (tiles,
+    bands) and ``smem``.  Raises ValueError when one slab does not fit."""
+    J, K, I = shape
+    kt = instance(K)
+    threads = min(-(-ti // 32) * 32, MAX_THREADS_2D)
+    width = (ti + 8) & ~3
+    scratch = 0 if kt else K * threads
+
+    def smem(stages):
+        return BARRIER_BYTES + 4 * (stages * K * width + scratch)
+
+    stages = 2 if smem(2) <= MAX_SMEM else 1
+    if smem(stages) > MAX_SMEM:
+        raise ValueError(f"run_2d: a (K={K}, ti={ti}) slab takes "
+                         f"{smem(1)} bytes of shared memory, more than a "
+                         f"block's {MAX_SMEM}")
+    return {"kt": kt, "path": "bulk" if I % 4 == 0 and aligned
+            else "cp.async", "threads": threads, "stages": stages,
+            "width": width, "grid": ((I - 2 * halo) // ti, (J - 2) // tj),
+            "smem": smem(stages)}
 
 
 def _body(x: torch.Tensor) -> torch.Tensor:
@@ -147,11 +218,11 @@ def _kernel(name):
     if _kernels is None:
         lib = _build.load()
         k1 = lib.wrf_tpu_torch_probe_2d_1d
-        k1.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        k1.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         k2 = lib.wrf_tpu_torch_probe_2d_2d
-        k2.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        k2.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         k1.restype = k2.restype = ctypes.c_int
         _kernels = {"1d": k1, "2d": k2}
     return _kernels[name]
@@ -170,6 +241,10 @@ def _launch(form, x, out, *ints):
     return out
 
 
+def _aligned(nbytes, *tensors):
+    return all(t.data_ptr() % nbytes == 0 for t in tensors)
+
+
 def run_1d(x: torch.Tensor, tj: int,
            out: torch.Tensor | None = None) -> torch.Tensor:
     """kernel_1d: every lane of rows 1 .. 1 + tj*((J-2)//tj), one thread
@@ -179,20 +254,28 @@ def run_1d(x: torch.Tensor, tj: int,
         return run_1d_plain(x, tj, out)
     if x.device.type != "cuda":
         raise ValueError(f"run_1d: unsupported device {x.device}")
-    return _launch("1d", x, out, tj)
+    vec = LANES_1D.get(instance(x.shape[1]), 1)
+    p = plan_1d(x.shape, tj, _aligned(4 * vec, x, out))
+    return _launch("1d", x, out, tj, p["kt"], p["vec"], p["threads"],
+                   p["smem"])
 
 
 def run_2d(x: torch.Tensor, tj: int, ti: int, halo: int = HALO,
            out: torch.Tensor | None = None) -> torch.Tensor:
     """kernel_2d: lanes [halo, halo + ti*((I-2*halo)//ti)) of the same
-    rows, one block per (tj, ti) tile staged in shared memory with a lane
-    of halo; returns ``out`` (a NaN-filled new tensor when None)."""
+    rows, one block per (tj, ti) tile, each row's slab (the tile and a lane
+    of halo) staged asynchronously in shared memory; returns ``out`` (a
+    NaN-filled new tensor when None)."""
     out = _check(x, out, tj, ti, halo)
     if x.device.type == "cpu":
         return run_2d_plain(x, tj, ti, halo, out)
     if x.device.type != "cuda":
         raise ValueError(f"run_2d: unsupported device {x.device}")
-    return _launch("2d", x, out, tj, ti, halo)
+    p = plan_2d(x.shape, tj, ti, halo, _aligned(16, x))
+    _launch("2d", x, out, tj, ti, halo, p["kt"], p["path"] == "bulk",
+            p["threads"], p["stages"], p["smem"])
+    STAGING[p["path"]] += 1
+    return out
 
 
 def chain_ms(step, make_bufs, n1: int = 50, n2: int = 250,

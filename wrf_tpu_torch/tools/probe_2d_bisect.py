@@ -29,6 +29,9 @@ outside a rung's region is touched: an output the wrapper allocates is NaN
 there, as the JAX probe's interpret mode leaves it.  CUDA tensors launch
 the kernel and count one in :data:`LAUNCHES`; CPU tensors run the plain
 versions (``rung_*_plain``).  There is no fallback from one to the other.
+The instance (:func:`instance`: only j unrolls its k loops, at K in
+:data:`UNROLLED_K`) and the launch geometry (:func:`plan`) are pure
+functions of the rung and the shape.
 
 Run on the card:  python -m wrf_tpu_torch.tools.probe_2d_bisect <rung>
 Run on the CPU:   python -m wrf_tpu_torch.tools.probe_2d_bisect d --device cpu
@@ -57,6 +60,10 @@ UNROLLED_K = (16, 50)
 #: there)
 LAUNCHES = dict.fromkeys(RUNGS, 0)
 
+THREADS_FLAT = 256       # rung a
+THREADS_BAND = 1024      # rung b
+MAX_THREADS_TILE = 512   # rungs c .. j
+
 _kernel_fn = None
 
 
@@ -71,6 +78,41 @@ def written_region(rung: str, shape, tj: int,
     if rung in "ab":
         return rows, slice(0, K), slice(0, I)
     return rows, slice(0, K), slice(RING, RING + ti * ((I - 2 * RING) // ti))
+
+
+def instance(rung: str, K: int) -> int:
+    """The compile-time depth of the kernel that runs rung ``rung`` at
+    depth ``K``: K for rung j (which runs only at :data:`UNROLLED_K`), 0
+    (a run-time k loop) for every other rung."""
+    if rung != "j":
+        return 0
+    if K not in UNROLLED_K:
+        raise ValueError(f"rung_j: the unrolled kernel is built for K in "
+                         f"{UNROLLED_K}, got K={K}")
+    return K
+
+
+def plan(rung: str, shape, tj: int, ti: int) -> dict:
+    """Rung ``rung``'s launch at ``shape``: ``kt`` (:func:`instance`),
+    ``threads`` (x, y), ``grid`` and ``smem`` (dynamic shared bytes).  a: a
+    flat grid of 256-thread blocks; b: one 1024-thread block per band;
+    c .. j: one block per (band, tile), ti lanes (rounded up to a warp, at
+    most 512) by as many of the tile's tj rows as fit in 512 threads; h and
+    j a K x rows x ti scratch."""
+    J, K, I = shape
+    bands = (J - 2) // tj
+    kt = instance(rung, K)
+    if rung == "a":
+        return {"kt": kt, "threads": (THREADS_FLAT, 1),
+                "grid": (-(-bands * tj * I // THREADS_FLAT),), "smem": 0}
+    if rung == "b":
+        return {"kt": kt, "threads": (THREADS_BAND, 1), "grid": (bands,),
+                "smem": 0}
+    tx = min(-(-ti // 32) * 32, MAX_THREADS_TILE)
+    ty = max(1, min(tj, MAX_THREADS_TILE // tx))
+    return {"kt": kt, "threads": (tx, ty),
+            "grid": (bands, (I - 2 * RING) // ti),
+            "smem": 4 * K * ty * ti if rung in "hj" else 0}
 
 
 def compulsory_bytes(rung: str, shape, tj: int, ti: int) -> int:
@@ -201,7 +243,7 @@ def _kernel():
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_probe_2d_bisect
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
@@ -216,9 +258,7 @@ def _run(rung, x, tj, ti, out, **given):
         raise ValueError(f"rung_{rung}: unsupported device {x.device}")
     out = _check(rung, x, tj, ti, out)
     ops = operands(rung, x, **given)
-    if rung == "j" and x.shape[1] not in UNROLLED_K:
-        raise ValueError(f"rung_j: the unrolled kernel is built for K in "
-                         f"{UNROLLED_K}, got K={x.shape[1]}")
+    p = plan(rung, x.shape, tj, ti)
     if rung == "e":
         ops["xc"] = x     # JAX passes x twice: the wide and the centre window
     ptr = {name: a.data_ptr() for name, a in ops.items()}.get
@@ -227,7 +267,8 @@ def _run(rung, x, tj, ti, out, **given):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(ord(rung), x.data_ptr(), out.data_ptr(), ptr("out1"),
                         ptr("s"), ptr("xc"), ptr("thin"), ptr("vec"),
-                        ptr("t"), *x.shape, tj, ti, stream)
+                        ptr("t"), *x.shape, tj, ti, *p["threads"],
+                        p["smem"], stream)
     if err != 0:
         raise RuntimeError(f"probe_2d_bisect rung {rung} kernel launch "
                            f"failed: CUDA error {err}")
