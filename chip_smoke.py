@@ -142,6 +142,20 @@ not 0 and no result line is printed):
    (acoustic_steps 4 and 8), with and without ``with_w`` (the oracle
    composition advance_uv -> advance_mu_t -> advance_w) and with
    ``smdiv=0.1``;
+8b. the long-horizon path through the same entry point, ``run_sim
+   --closure nudge`` on the balanced 512x512x50 fixture: 100 large steps
+   (K1 exactly 700 launches, the largest |total-dry-mass drift| below
+   2e-6, ms per large step), the same with ``--steps-per-sync 10``
+   (final state bit-equal, perturbation sums within rtol 1e-5, ms per
+   large step), one 10-step chunk under ``set_sync_debug_mode("error")``
+   at 1x1 S=1 (required) and at S=2, with ``--with-w`` and on 2x2 under
+   ``rdma`` and ``rdma_overlap`` (reported), 10 closed steps on 2x2 under
+   ``rdma_overlap`` (K1 280, K5 0) and ``rdma`` (K1 280, K5 70) bit-equal
+   to 1x1, 10 closed RK3 steps at 74x61x32 (acoustic_steps 6, smdiv 0.1)
+   against the oracle's closed run (rtol 2e-4, atol_scale 2e-5), and
+   ``--profile`` of 3 closed steps at S=1 and ``--inner-steps 2``: step
+   3's device busy share, K1's and K3's launches and device ms, the other
+   kernels by name;
 9. the verification driver through its entry point,
    ``wrf_tpu_torch.driver``: tiers cuda and sharded-cuda (S=1, S=8, S=8
    --fast) at 74x61x32 for 1 and 100 steps and coupled (S=1, 2, 4, 4
@@ -2396,11 +2410,13 @@ def rk3_golden_native(case, acoustic_steps: int, dt: float, snapshot: str,
     return out
 
 
-def run_sim_launches(tmp: Path, fx: Path, name: str, *flags, steps: int = 3):
+def run_sim_text(tmp: Path, fx: Path, name: str, *flags, steps: int = 3,
+                 echo: bool = True):
     """``python -m wrf_tpu_torch.run_sim`` for ``steps`` large steps in this
     process, with every launch count set to 0 just before; returns the K1,
-    K3, K4 and K5 launches, the ms of each large step and the final
-    checkpoint's state, after checking that it is finite."""
+    K3, K4 and K5 launches, what it printed and the final checkpoint's
+    state, after checking that it is finite.  ``flags`` may set
+    ``--checkpoint-every`` (default: ``steps``)."""
     import numpy as np
     from wrf_tpu_torch import run_sim
     from wrf_tpu_torch.io import checkpoint
@@ -2417,8 +2433,10 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags, steps: int = 3):
                            *flags])
     launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES,
                 "k4": k3.PAIR_LAUNCHES, "k5": k5.LAUNCHES}
-    for line in buf.getvalue().splitlines():
-        print(f"[run_sim {name}] {line}")
+    text = buf.getvalue()
+    if echo:
+        for line in text.splitlines():
+            print(f"[run_sim {name}] {line}")
     if rc != 0:
         raise AssertionError(f"run_sim {name} returned {rc}")
     state, step, _ = checkpoint.load_checkpoint(
@@ -2428,9 +2446,18 @@ def run_sim_launches(tmp: Path, fx: Path, name: str, *flags, steps: int = 3):
     if ("--with-w" in flags) != ({"w", "pp"} <= state.keys()):
         raise AssertionError(f"run_sim {name}: checkpoint fields "
                              f"{sorted(state)} do not match --with-w")
+    return launches, text, state
+
+
+def run_sim_launches(tmp: Path, fx: Path, name: str, *flags, steps: int = 3):
+    """:func:`run_sim_text`, with the ms of each large step in place of the
+    text."""
+    import numpy as np
+
+    launches, text, state = run_sim_text(tmp, fx, name, *flags, steps=steps)
     checksum = float(np.sum(state["t"], dtype=np.float64))
     step_ms = [float(m.group(1)) for m in
-               re.finditer(r"^step \d+: ([0-9.]+) ms", buf.getvalue(), re.M)]
+               re.finditer(r"^step \d+: ([0-9.]+) ms", text, re.M)]
     print(f"[slice] run_sim {name} {steps} large step(s) at {BIG_GRID}: "
           f"launches {launches}, checksum {checksum:.6e}, step ms {step_ms}")
     return launches, step_ms, state
@@ -2632,6 +2659,351 @@ def slice_damped(tmp: Path, fx: Path, case, damped, states):
         raise AssertionError(f"run_sim --kernel eager launched {launches}")
     check_state("run_sim smdiv --kernel eager vs cuda, 1 large step", eager,
                 first, tol=DRIVER_TOL)
+
+
+#: the closed loop against the oracle: 10 large steps at the reference
+#: grid (tests/test_closure.py's tolerance for that horizon)
+CLOSED_TOL = dict(rtol=2e-4, atol_scale=2e-5)
+#: the drift gate of 100 closed large steps (tests/test_closure.py)
+DRIFT_GATE = 2e-6
+
+
+def rk3_golden_native_run(case, n_large: int, acoustic_steps: int, dt: float,
+                          smdiv: float, tendency_fn, rayleigh_uv: float):
+    """``n_large`` closed RK3 large steps with the C++ oracle's substeps: the
+    structure of ``models/rk3.py::rk3_golden_run`` (tendencies once per
+    step from ``tendency_fn(fields)``, the base snapshot, the evolved state
+    folded back, the winds damped by ``1 - rayleigh_uv``) over
+    :func:`rk3_golden_native`.  Returns the last step's outputs."""
+    import numpy as np
+
+    fields = dict(case.fields)
+    out = None
+    for _ in range(n_large):
+        fields.update(tendency_fn(fields))
+        out = rk3_golden_native(dataclasses.replace(case, fields=fields),
+                                acoustic_steps, dt, "base", smdiv=smdiv)
+        for key, name in START_FIELDS.items():
+            fields[name] = out[key]
+        d = np.float32(1.0 - rayleigh_uv)
+        fields["grid_u_2"] = fields["grid_u_2"] * d
+        fields["grid_v_2"] = fields["grid_v_2"] * d
+    return out
+
+
+def closure_vs_oracle(n_large=10, acoustic_steps=6):
+    """(d): ``n_large`` closed large steps at the reference grid (balanced,
+    smdiv 0.1) through RK3Integrator + NudgingTendencies on the card,
+    against the oracle's closed run over the domain region (the memory
+    window's frame is fixture halo the port's state never carries)."""
+    import torch
+    from wrf_tpu_torch.compare import compare
+    from wrf_tpu_torch.convert import arrays_to_numpy
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.models.tendencies import (
+        NudgingTendencies, golden_nudging_fn,
+    )
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+
+    case = case_at(REF_GRID, balanced=True)
+    b = case.bounds
+    dt = case.dts * acoustic_steps
+    rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
+                        acoustic_steps=acoustic_steps, kernel="cuda",
+                        smdiv=SMDIV, snapshot="base", device="cuda")
+    arrays = rk3.prepare(case_to_domain(case))
+    fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
+    k1.LAUNCHES = 0
+    for _ in range(n_large):
+        out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
+                       tendency_fn=fn)
+        arrays = rk3.merge_evolved(arrays, out)
+        fn.damp_winds(arrays)
+    torch.cuda.synchronize()
+    n_sub = sum(n for _, n in rk3.stages)
+    if k1.LAUNCHES != n_large * n_sub:
+        raise AssertionError(f"closed loop at {REF_GRID} launched K1 "
+                             f"{k1.LAUNCHES} times, not {n_large * n_sub}")
+    got = arrays_to_numpy(out)
+    gold = rk3_golden_native_run(case, n_large, acoustic_steps, dt, SMDIV,
+                                 golden_nudging_fn(case, dt, 5.0), 0.1)
+    j0, j1 = b.mem(b.jds, "j"), b.mem(b.jde, "j")
+    i0, i1 = b.mem(b.ids, "i"), b.mem(b.ide, "i")
+    worst = 0.0
+    for name in ("ww", "mu", "t", "t_ave", "u", "v"):
+        g = gold[name]
+        want = (g[j0:j1 + 1, :, i0:i1 + 1] if g.ndim == 3
+                else g[j0:j1 + 1, i0:i1 + 1])
+        r = compare(got[name], want, name, **CLOSED_TOL)
+        print(f"[closure vs oracle, {n_large} closed steps at {REF_GRID}] {r}")
+        if not r.passed:
+            raise AssertionError(f"closed loop vs oracle: {r}")
+        worst = max(worst, r.max_scaled_err)
+    return worst
+
+
+def closure_sync(case, tag, required=False, mesh_shape=None, n=10, **kw):
+    """(b): one closed chunk of ``n`` large steps (``multi_step`` with the
+    readback left out) under ``torch.cuda.set_sync_debug_mode("error")``,
+    after a warm-up chunk of one step (the library's build, K3's plans and
+    the Thomas vectors happen there).  Returns None when no host
+    synchronisation happened between the chunk's first launch and its
+    readback, else the first line of the error; raises if ``required``."""
+    import numpy as np
+    import torch
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.models.tendencies import NudgingTendencies
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+
+    b = case.bounds
+    dt = case.dts * 4
+    mesh = (make_mesh(["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
+                      mesh_shape) if mesh_shape else None)
+    rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags, acoustic_steps=4,
+                        kernel="cuda", snapshot="base", device="cuda",
+                        mesh=mesh, **kw)
+    arrays = rk3.prepare(case_to_domain(case, with_w=kw.get("with_w", False)))
+    fn = NudgingTendencies(arrays, dt)
+    args = (case.rdx, case.rdy, dt, case.epssm)
+    arrays, _ = rk3.multi_step(arrays, 1, *args, tendency_fn=fn)
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k3.LAUNCHES = 0
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        arrays, diags = rk3.multi_step(arrays, n, *args, tendency_fn=fn,
+                                       readback=False)
+    except RuntimeError as e:
+        err = str(e).strip().splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES}
+    if err is None:
+        diags = diags.cpu().numpy()
+        if diags.shape != (n, 2) or not np.isfinite(diags).all():
+            raise AssertionError(f"closure sync {tag}: diagnostics {diags}")
+        print(f"[closure sync] {tag}: {n} closed large steps in one chunk, "
+              f"launches {launches}, no host synchronisation between the "
+              "first launch and the readback")
+    elif required:
+        raise AssertionError(f"closure sync {tag}: {err}")
+    else:
+        print(f"[closure sync] {tag}: a host synchronisation remains inside "
+              f"the chunk (ROADMAP M6): {err}")
+    return err
+
+
+def profile_step(trace_dir: Path, step: int = 3):
+    """Step ``step`` of a ``run_sim --profile`` trace: the host span of its
+    ``run_sim step N`` annotation, the device's busy time inside it (the
+    union of the kernels, copies and fills that start there), and each
+    kernel's count and device ms."""
+    files = sorted(Path(trace_dir).glob("trace_*.json"))
+    if not files:
+        raise AssertionError(f"run_sim --profile wrote no trace in {trace_dir}")
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == f"run_sim step {step}"]
+    if len(span) != 1:
+        raise AssertionError(f"{files[-1]}: {len(span)} spans of step {step}")
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    dev = sorted((e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and lo <= e["ts"] <= hi), key=lambda e: e["ts"])
+    if not dev:
+        raise AssertionError("torch.profiler traced no device time in "
+                             f"step {step}")
+    busy, end = 0.0, lo
+    kernels = {}
+    for e in dev:
+        a, z = max(e["ts"], end), e["ts"] + e["dur"]
+        busy += max(0.0, z - a)
+        end = max(end, z)
+        n, us = kernels.get(e["name"], (0, 0.0))
+        kernels[e["name"]] = (n + 1, us + e["dur"])
+    return {"span_ms": span[0]["dur"] / 1e3, "busy_ms": busy / 1e3,
+            "kernels": {k: (n, us / 1e3) for k, (n, us) in kernels.items()}}
+
+
+#: the profile's kernel families: K1, K3, and what else the step launches
+PROFILE_KINDS = {"K1": ("advance_mu_t_kernel",),
+                 "K3": ("coupled_kernel", "staged_kernel")}
+
+
+def profile_lines(tag, prof, card):
+    """Prints a step's profile: busy over span, K1's and K3's count and
+    device ms, the share that is neither, and the eight other kernels that
+    take most.  Returns the row PERF.md keeps."""
+    kinds = {k: [0, 0.0] for k in PROFILE_KINDS}
+    other = {}
+    for name, (n, ms) in prof["kernels"].items():
+        kind = next((k for k, words in PROFILE_KINDS.items()
+                     if any(w in name for w in words)), None)
+        if kind:
+            kinds[kind][0] += n
+            kinds[kind][1] += ms
+        else:
+            other[name] = (n, ms)
+    total = sum(ms for _, ms in prof["kernels"].values())
+    # the functor a plain PyTorch kernel was instantiated for names the op
+    short = {}
+    for name, (n, ms) in other.items():
+        key = re.sub(r"\bvoid |at::native::|\(anonymous namespace\)::|std::",
+                     "", name)[:110]
+        n0, ms0 = short.get(key, (0, 0.0))
+        short[key] = (n0 + n, ms0 + ms)
+    other = short
+    rest = total - sum(ms for _, ms in kinds.values())
+    print(f"[closure profile {tag}] step 3: host span {prof['span_ms']:.3f} "
+          f"ms, device busy {prof['busy_ms']:.3f} ms "
+          f"({100 * prof['busy_ms'] / prof['span_ms']:.1f} %); "
+          + "; ".join(f"{k} {n} launches {ms:.3f} ms"
+                      for k, (n, ms) in kinds.items())
+          + f"; not K1/K3 {rest:.3f} ms of {total:.3f} "
+          f"({100 * rest / total:.1f} %) ({card})")
+    top = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (n, ms) in top:
+        print(f"[closure profile {tag}]   {ms:.3f} ms, {n} x {name}")
+    return {"span_ms": prof["span_ms"], "busy_ms": prof["busy_ms"],
+            **{k: {"launches": n, "ms": ms} for k, (n, ms) in kinds.items()},
+            "other_ms": rest, "other_share": rest / total,
+            "top_other": {name: {"launches": n, "ms": ms}
+                          for name, (n, ms) in top}}
+
+
+def chunk_ms(text):
+    """``ms/large-step`` of every chunk a ``--steps-per-sync`` run printed."""
+    return [float(m.group(1)) for m in re.finditer(
+        r"^steps \d+-\d+: [0-9.]+ ms \(([0-9.]+) ms/large-step", text, re.M)]
+
+
+def mass_series(text):
+    """The (total dry mass, perturbation sum) of every step a
+    ``--diagnostics`` run printed, and its drifts."""
+    rows = re.findall(r"total dry mass ([-+0-9.e]+) \(drift ([-+0-9.e]+)\),"
+                      r" mass perturbation sum ([-+0-9.e]+)", text)
+    return ([(float(m), float(p)) for m, _, p in rows],
+            [float(d) for _, d, _ in rows])
+
+
+def phase_closure(tmp: Path, fx: Path, card=""):
+    """The long-horizon path at 512x512x50 (balanced fixture) through
+    ``run_sim --closure nudge``: (a) 100 closed large steps, K1 exactly 700
+    launches, the total-dry-mass drift below the gate; (b) the same with
+    ``--steps-per-sync 10``, its final state bit-equal to (a)'s, its
+    diagnostics within rtol 1e-5 of (a)'s, and a 10-step chunk at 1x1 S=1
+    free of host synchronisation (the mesh, ``--with-w`` and S=2 chunks
+    report theirs); (c) 10 closed steps on a 2x2 mesh under
+    ``rdma_overlap`` and ``rdma``, bit-equal to 1x1; (d) 10 closed steps
+    at the reference grid against the oracle's closed run; (e) a
+    ``--profile`` trace of 3 closed steps at S=1 and ``--inner-steps 2``,
+    step 3 broken down.  Returns the readings."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    nudge = ("--closure", "nudge")
+    res = {}
+    # (a) 100 closed large steps, host-stepped
+    launches, text, final = run_sim_text(tmp, fx, "closed", *nudge,
+                                         steps=100, echo=False)
+    step_ms = [float(m.group(1)) for m in
+               re.finditer(r"^step \d+: ([0-9.]+) ms", text, re.M)]
+    series, drift = mass_series(text)
+    if launches != {"k1": 700, "k3": 0, "k4": 0, "k5": 0}:
+        raise AssertionError(f"run_sim --closure nudge --steps 100 launched "
+                             f"{launches}, expected K1 700")
+    if len(step_ms) != 100 or len(drift) != 100:
+        raise AssertionError(f"run_sim closed: {len(step_ms)} step lines, "
+                             f"{len(drift)} mass lines of 100")
+    worst = max(abs(d) for d in drift)
+    res["launches"] = {"closed": launches}
+    res["drift"] = worst
+    res["host_ms"] = float(np.mean(step_ms[1:]))
+    print(f"[closure] run_sim --closure nudge --steps 100 at {BIG_GRID}: "
+          f"K1 {launches['k1']} launches, largest |total-dry-mass drift| "
+          f"{worst:.3e} (gate {DRIFT_GATE:g}; the JAX package's README "
+          f"records < 1e-6 on a TPU, a record, not this run), drift at step "
+          f"100 {drift[-1]:+.3e}, {res['host_ms']:.3f} ms per large step "
+          f"(mean of steps 2-100; steps 11-100 "
+          f"{np.mean(step_ms[10:]):.3f}) ({card})")
+    if not worst < DRIFT_GATE:
+        raise AssertionError(f"100 closed steps drifted {worst:.3e}")
+    # (b) the same run in chunks of 10 large steps
+    launches, text, chunked = run_sim_text(
+        tmp, fx, "closed_chunks", *nudge, "--steps-per-sync", "10",
+        steps=100, echo=False)
+    res["launches"]["chunks"] = launches
+    ms = chunk_ms(text)
+    series_b, _ = mass_series(text)
+    if launches["k1"] != 700 or len(ms) != 10 or len(series_b) != 100:
+        raise AssertionError(f"run_sim --steps-per-sync 10: launches "
+                             f"{launches}, {len(ms)} chunks, "
+                             f"{len(series_b)} mass lines")
+    check_state("run_sim --closure nudge --steps-per-sync 10 vs host "
+                "stepping, step 100", chunked, final, bit_exact=True)
+    # the diagnostics series: the per-step mass-perturbation sums (float32
+    # on the card in a chunk, float64 host-stepped).  The printed totals
+    # differ by construction, as in the JAX package's run_sim: sum(muts)
+    # host-stepped (muts is written in the compute window only), the ring
+    # interior's sum(mut) plus the perturbation sum in a chunk.
+    a, b_ = np.array(series), np.array(series_b)
+    rel = np.abs(b_[:, 1] - a[:, 1]) / np.abs(a[:, 1])
+    print(f"[closure] diagnostics series, chunked vs host-stepped: largest "
+          f"relative difference of the perturbation sums {rel.max():.3e} "
+          f"(float32 on the card against float64); the totals' "
+          f"definitions differ by {np.abs(b_[:, 0] - a[:, 0]).max():.6e}")
+    if not (rel < 1e-5).all():
+        raise AssertionError("chunked diagnostics differ from host stepping "
+                             "beyond rtol 1e-5")
+    res["chunk_ms"] = float(np.mean(ms[1:]))
+    print(f"[closure] --steps-per-sync 10: {res['chunk_ms']:.3f} ms per "
+          f"large step (mean of chunks 2-10) beside host stepping's "
+          f"{np.mean(step_ms[10:]):.3f} (steps 11-100) and "
+          f"{res['host_ms']:.3f} (steps 2-100) ({card})")
+    case = case_at(BIG_GRID, balanced=True)
+    res["sync"] = {"1x1 S=1": closure_sync(case, "1x1 S=1", required=True)}
+    for tag, kw in (("1x1 --with-w", dict(with_w=True)),
+                    ("1x1 --inner-steps 2", dict(inner_steps=2)),
+                    ("2x2 rdma", dict(mesh_shape=(2, 2),
+                                      halo_backend="rdma")),
+                    ("2x2 rdma_overlap", dict(mesh_shape=(2, 2),
+                                              halo_backend="rdma_overlap"))):
+        res["sync"][tag] = closure_sync(case, tag, **kw)
+    # (c) the mesh: four shards on the one card, 10 closed steps
+    launches, _, ref = run_sim_text(tmp, fx, "closed_10", *nudge, steps=10,
+                                    echo=False)
+    for backend, k5 in (("rdma_overlap", 0), ("rdma", 70)):
+        launches, _, got = run_sim_text(
+            tmp, fx, f"closed_2x2_{backend}", *nudge, "--mesh", "2x2",
+            "--halo-backend", backend, steps=10, echo=False)
+        if launches != {"k1": 280, "k3": 0, "k4": 0, "k5": k5}:
+            raise AssertionError(f"closed 2x2 {backend} launched {launches}")
+        res["launches"][f"2x2 {backend}"] = launches
+        check_state(f"run_sim --closure nudge --mesh 2x2 --halo-backend "
+                    f"{backend} vs 1x1, step 10", got, ref, bit_exact=True)
+    # (d) against the oracle
+    res["oracle_worst"] = closure_vs_oracle()
+    # (e) the profile M6(a) starts from
+    res["profile"] = {}
+    for tag, flags, expected in (
+            ("S=1", (), {"k1": 21, "k3": 0}),
+            ("S=2", ("--inner-steps", "2"), {"k1": 15, "k3": 3})):
+        trace_dir = tmp / f"profile_{tag.replace('=', '')}"
+        launches, _, _ = run_sim_text(tmp, fx, f"closed_profile_{tag}",
+                                      *nudge, *flags, "--profile",
+                                      str(trace_dir), steps=3, echo=False)
+        if {k: launches[k] for k in expected} != expected:
+            raise AssertionError(f"profiled run {tag} launched {launches}")
+        res["launches"][f"profile {tag}"] = launches
+        res["profile"][tag] = profile_lines(tag, profile_step(trace_dir),
+                                            card)
+    res["wall_s"] = time.perf_counter() - t_start
+    print(f"[closure] phase wall time {res['wall_s']:.1f} s")
+    return res
 
 
 def run_driver(tag, *argv, device="cuda"):
@@ -3211,6 +3583,7 @@ def main() -> int:
                        case_at(BIG_GRID, balanced=True), tmp / "big",
                        steps=big_steps)
         sim = timed("run_sim slice", phase_slice, tmp, fx_big)
+        closure = timed("closure", phase_closure, tmp, fx_big, card=smi)
         drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
         timed("driver --dump-intermediates and the native executable",
               phase_capture_driver, tmp)
@@ -3267,6 +3640,15 @@ def main() -> int:
           "(float32): " + ", ".join(
               f"{k} {v:.4f} ({loops[k.replace(' bf16', '')]:.4f})"
               for k, v in loops.items() if "bf16" in k) + f" ({smi})")
+    print(f"[closure] 100 closed large steps at {BIG_GRID}: drift "
+          f"{closure['drift']:.3e}; ms per large step host-stepped "
+          f"{closure['host_ms']:.3f}, device-resident (10 a chunk) "
+          f"{closure['chunk_ms']:.3f}; 10 closed steps vs the oracle at "
+          f"{REF_GRID}: worst scaled error {closure['oracle_worst']:.3f} of 1; "
+          f"host syncs left in a chunk: "
+          + ", ".join(f"{k} {'none' if v is None else 'yes'}"
+                      for k, v in closure["sync"].items()) + f" ({smi})")
+    print("[closure profile] " + json.dumps(closure["profile"]))
     for run in ("S=1", "2x2 ppermute", "2x2 rdma", "2x2 overlap", "S=2",
                 "S=2 2x2 overlap", "smdiv", "smdiv 2x2 rdma",
                 "smdiv 2x2 overlap", "bf16", "bf16 2x2 overlap"):
@@ -3298,6 +3680,12 @@ def main() -> int:
             "SmallStepLoop 2x2 rdma_overlap, 5 substeps":
                 ov_launches[(2, 2), "S=1"]["k1"],
             "run_sim --namelist (smdiv 0.1)": sim["smdiv"][0]["k1"],
+            "run_sim --closure nudge --steps 100":
+                closure["launches"]["closed"]["k1"],
+            "run_sim --closure nudge --steps 100 --steps-per-sync 10":
+                closure["launches"]["chunks"]["k1"],
+            "run_sim --closure nudge --mesh 2x2 --halo-backend rdma_overlap, "
+            "10 steps": closure["launches"]["2x2 rdma_overlap"]["k1"],
             "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
                 sim["smdiv 2x2 rdma"][0]["k1"],
             "driver sharded-cuda S=8": drv["mu/t"]["k1"],
@@ -3397,7 +3785,9 @@ def main() -> int:
             "SmallStepLoop 2x2 rdma_overlap S=2, 5 substeps":
                 ov_launches[(2, 2), "S=2"]["k3"],
             "driver coupled S=4": drv["coupled"]["k3"],
-            "driver coupled S=4 --with-w": drv["coupled +w"]["k3"]},
+            "driver coupled S=4 --with-w": drv["coupled +w"]["k3"],
+            "run_sim --closure nudge --inner-steps 2 --profile, 3 steps":
+                closure["launches"]["profile S=2"]["k3"]},
         "max_abs_err": k3_abs["k3"],
         # ms per substep (per launch / S) at 512x512x50, exact S=2 (the
         # run_sim path's depth); every mode in ms_by_mode
@@ -3472,6 +3862,8 @@ def main() -> int:
             "run_sim --mesh 2x2 --halo-backend rdma": sim["2x2 rdma"][0]["k5"],
             "run_sim --namelist (smdiv 0.1) --mesh 2x2 --halo-backend rdma":
                 sim["smdiv 2x2 rdma"][0]["k5"],
+            "run_sim --closure nudge --mesh 2x2 --halo-backend rdma, "
+            "10 steps": closure["launches"]["2x2 rdma"]["k5"],
             "SmallStepLoop 2x2 rdma, 5 substeps": k5_loop_launches,
             # under rdma_overlap the exchange is inside K1 and K3
             "run_sim --mesh 2x2 --halo-backend rdma_overlap":

@@ -1,6 +1,9 @@
 """The port's RK3 large step (1x1) against rk3_golden and the JAX
 RK3Integrator on a 1x1 mesh, and the port's run_sim against two JAX RK3
-steps.  Tolerance rtol 5e-5, atol_scale 2e-6 (tests/test_rk3.py's)."""
+steps and against JAX's run_sim with the nudging closure.  Tolerance rtol
+5e-5, atol_scale 2e-6 (tests/test_rk3.py's)."""
+
+import re
 
 import jax
 import numpy as np
@@ -145,10 +148,152 @@ def test_run_sim_resume_continues(tmp_path, small_case, capsys):
     ["--profile", "trace"],
     ["--closure", "nudge", "--tau-steps", "5.0", "--rayleigh-uv", "0.1"],
 ])
-def test_run_sim_rejects_unported_flags(tmp_path, flags):
-    """Checked before the fixture is read."""
-    with pytest.raises(SystemExit, match="not yet ported"):
-        run_sim.main([str(tmp_path / "fx"), "--device", "cpu", *flags])
+def test_run_sim_closure_flags_run(tmp_path, small_case, capsys, flags):
+    """The flag sets that stopped with "not yet ported" before the
+    long-horizon path was ported: each runs two large steps to a finite
+    checkpoint.  The closure changes the state; chunked stepping and the
+    profiler leave the closure-less run's bits as they were."""
+    fx = str(fixtures.write_case(small_case, tmp_path / "fx", steps=1))
+    flags = [str(tmp_path / f) if f == "trace" else f for f in flags]
+
+    def state(extra, ck):
+        assert run_sim.main([fx, "--device", "cpu", "--steps", "2",
+                             "--checkpoint-dir", str(tmp_path / ck),
+                             *extra]) == 0
+        return checkpoint.load_checkpoint(tmp_path / ck / "step_000002")[0]
+
+    got, want = state(flags, "ck"), state([], "ck0")
+    assert "not yet ported" not in capsys.readouterr().out
+    assert all(np.isfinite(got[n]).all() for n in STATE)
+    same = all(np.array_equal(got[n], want[n]) for n in STATE)
+    assert same == ("--closure" not in flags)
+    if "--profile" in flags:
+        assert list((tmp_path / "trace").glob("trace_*.json"))
+
+
+def _jax_run_sim(argv):
+    from wrf_tpu import run_sim as jax_run_sim
+
+    assert jax_run_sim.main([str(a) for a in argv]) == 0
+
+
+@pytest.fixture(scope="module")
+def balanced_fx(tmp_path_factory):
+    """The long-horizon fixture (balanced base winds, amplitude 1e-2)."""
+    case = fixtures.make_case(20, 18, 8, halo=2, seed=7, amplitude=1e-2,
+                              balanced=True)
+    return fixtures.write_case(case, tmp_path_factory.mktemp("bal") / "fx",
+                               steps=1)
+
+
+def test_run_sim_nudge_matches_jax(tmp_path, balanced_fx, capsys):
+    """4 closed large steps through the CLI on the CPU against JAX's
+    ``run_sim --closure nudge``: every checkpoint within the RK3 tolerance.
+    """
+    common = [balanced_fx, "--closure", "nudge", "--steps", "4"]
+    assert run_sim.main([*map(str, common), "--device", "cpu",
+                         "--checkpoint-dir", str(tmp_path / "port")]) == 0
+    _jax_run_sim([*common, "--checkpoint-dir", tmp_path / "jax"])
+    assert capsys.readouterr().out.count("grid-points/s") == 8
+    for n in range(1, 5):
+        got, step, _ = checkpoint.load_checkpoint(
+            tmp_path / "port" / f"step_{n:06d}")
+        want, _, _ = checkpoint.load_checkpoint(
+            tmp_path / "jax" / f"step_{n:06d}")
+        assert step == n and sorted(got) == sorted(want) == sorted(STATE)
+        outputs_allclose(got, want, **TOL)
+
+
+def test_run_sim_steps_per_sync_matches_host(tmp_path, balanced_fx, capsys):
+    """--steps-per-sync 2: the final checkpoint equals host stepping's bit
+    for bit, the chunks say they are device-resident, and the per-step
+    diagnostics series is printed on both paths (tests/test_run_sim.py)."""
+    common = [str(balanced_fx), "--device", "cpu", "--steps", "4",
+              "--closure", "nudge", "--diagnostics"]
+    assert run_sim.main(common + ["--checkpoint-dir",
+                                  str(tmp_path / "host")]) == 0
+    assert run_sim.main(common + ["--steps-per-sync", "2", "--checkpoint-dir",
+                                  str(tmp_path / "chunk")]) == 0
+    out = capsys.readouterr().out
+    assert out.count("device-resident") == 2
+    assert out.count("total dry mass") >= 8
+    host, _, _ = checkpoint.load_checkpoint(tmp_path / "host" / "step_000004")
+    chunk, step, _ = checkpoint.load_checkpoint(
+        tmp_path / "chunk" / "step_000004")
+    assert step == 4 and sorted(chunk) == sorted(host)
+    for name in host:
+        np.testing.assert_array_equal(chunk[name], host[name], err_msg=name)
+    # the chunk's float32 perturbation sums are the host's float64 ones to
+    # rtol 1e-5 (the total adds sum(mut) on one path, sums muts on the
+    # other, as in JAX's run_sim, so the drift columns differ)
+    pert = [float(x) for x in re.findall(r"perturbation sum ([-+0-9.e]+)",
+                                         out)]
+    assert len(pert) == 8
+    np.testing.assert_allclose(pert[4:], pert[:4], rtol=1e-5)
+
+
+def test_run_sim_nudge_resume_continuity(tmp_path, balanced_fx, capsys):
+    """A resumed --closure nudge run relaxes toward the run's ORIGINAL
+    state, not the checkpointed one: 2 steps + resume 2 equals 4 straight
+    steps bit for bit (tests/test_run_sim.py)."""
+    common = [str(balanced_fx), "--device", "cpu", "--closure", "nudge"]
+    assert run_sim.main(common + ["--steps", "4", "--checkpoint-dir",
+                                  str(tmp_path / "ck4")]) == 0
+    ck = tmp_path / "ck_res"
+    assert run_sim.main(common + ["--steps", "2", "--checkpoint-dir",
+                                  str(ck)]) == 0
+    assert run_sim.main(common + ["--steps", "2", "--checkpoint-dir",
+                                  str(ck), "--resume"]) == 0
+    assert "resuming from" in capsys.readouterr().out
+    straight, _, _ = checkpoint.load_checkpoint(tmp_path / "ck4" /
+                                                "step_000004")
+    resumed, step, _ = checkpoint.load_checkpoint(ck / "step_000004")
+    assert step == 4
+    for name in STATE:
+        np.testing.assert_array_equal(resumed[name], straight[name],
+                                      err_msg=name)
+
+
+def test_run_sim_chunk_checkpoints_where_jax_puts_them(tmp_path, balanced_fx,
+                                                       capsys):
+    """--steps-per-sync 3 --checkpoint-every 2 over 5 steps: a checkpoint
+    when a chunk crosses a multiple of 2 and at the end, the same
+    directories JAX's run_sim writes (steps 3 and 5)."""
+    flags = [balanced_fx, "--closure", "nudge", "--steps", "5",
+             "--steps-per-sync", "3", "--checkpoint-every", "2"]
+    assert run_sim.main([*map(str, flags), "--device", "cpu",
+                         "--checkpoint-dir", str(tmp_path / "port")]) == 0
+    _jax_run_sim([*flags, "--kernel", "xla", "--checkpoint-dir",
+                  tmp_path / "jax"])
+    names = {d: sorted(p.name for p in (tmp_path / d).iterdir())
+             for d in ("port", "jax")}
+    assert names["port"] == names["jax"] == ["step_000003", "step_000005"]
+    assert capsys.readouterr().out.count("device-resident") == 4
+
+
+def test_run_sim_profile_writes_trace(tmp_path, balanced_fx, capsys):
+    """--profile DIR writes a torch.profiler Chrome trace there."""
+    assert run_sim.main([str(balanced_fx), "--device", "cpu", "--closure",
+                         "nudge", "--steps", "2", "--steps-per-sync", "2",
+                         "--profile", str(tmp_path / "tr")]) == 0
+    traces = list((tmp_path / "tr").glob("trace_*.json"))
+    assert len(traces) == 1
+    assert '"traceEvents"' in traces[0].read_text()
+
+
+def test_run_sim_nudge_mesh_equals_1x1(tmp_path, balanced_fx, capsys):
+    """--closure nudge on a 2x2 mesh under the rdma backend (K5's plain
+    version on the CPU) equals the 1x1 run bit for bit over 3 steps."""
+    common = [str(balanced_fx), "--device", "cpu", "--closure", "nudge",
+              "--steps", "3"]
+    for name, extra in (("mesh", ["--mesh", "2x2", "--halo-backend",
+                                  "rdma"]), ("ref", [])):
+        assert run_sim.main(common + ["--checkpoint-dir",
+                                      str(tmp_path / name), *extra]) == 0
+    got, _, _ = checkpoint.load_checkpoint(tmp_path / "mesh" / "step_000003")
+    ref, _, _ = checkpoint.load_checkpoint(tmp_path / "ref" / "step_000003")
+    for name in STATE:
+        np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
 
 
 @pytest.mark.parametrize("flags", [

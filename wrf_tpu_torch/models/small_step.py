@@ -65,7 +65,7 @@ from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_uv import DEFAULT_CS2, advance_uv, advance_uv_numpy
 from ..ops.advance_w import DEFAULT_CW, DEFAULT_GW, advance_w, advance_w_numpy
 from ..ops.reference_numpy import advance_mu_t_numpy
-from ..ops.thomas import thomas_vectors
+from ..ops.thomas import ThomasCache
 from ..ops.halo_rdma_cuda import (
     remote_refresh_multi, remote_refresh_multi_plain,
 )
@@ -266,12 +266,22 @@ class SmallStepLoop:
         self.carry_keys = (CARRY_KEYS + (W_STATE if with_w else ())
                            + self._damp)
         self.out_names = OUT_NAMES + (W_STATE if with_w else ())
+        #: the w/pp Thomas K-vectors of every (vector, dts) this loop met
+        self.thomas = ThomasCache()
 
     def prepare(self, arrays) -> dict:
         """Ring-shaped arrays (numpy) -> float32 tensors on the device(s),
-        padded to the mesh."""
-        return prepare_arrays(arrays, self.mesh, extra=self._extra,
-                              blocks=self._blocks)
+        padded to the mesh.  With ``with_w`` the host copies of ``rdn`` and
+        ``rdnw`` are kept beside their tensors (``self.thomas``), so no
+        call reads them back from the card."""
+        out = prepare_arrays(arrays, self.mesh, extra=self._extra,
+                             blocks=self._blocks)
+        if self.with_w:
+            blocks = as_blocks(out, self.mesh, self._blocks)
+            for n in W_FIELDS_1D + ("rdnw",):
+                for t in blocks[n].values():
+                    self.thomas.register(t, arrays[n])
+        return out
 
     def unprepare(self, arrays, names) -> dict[str, torch.Tensor]:
         """The inverse of ``prepare`` for ``names``: ring-shaped global
@@ -389,8 +399,9 @@ class SmallStepLoop:
     def _fused_inputs(self, local, scalars, offs):
         """What every K1 and K3 launch of a call shares, per shard: the
         common keywords (window, offsets, vertical bounds, scalars, and with
-        ``with_w`` the Thomas K-vectors of this dts, computed once per
-        device; fast: with the cumsum scale vectors), and the carried state
+        ``with_w`` the Thomas K-vectors of this dts, built once per device
+        and vector and kept across calls; fast: with the cumsum scale
+        vectors), and the carried state
         at the start (``ww_row`` from ww's seed level, a zero ``mudf`` under
         damping: no divergence tendency before the first substep)."""
         _, _, nz = self.domain
@@ -402,7 +413,7 @@ class SmallStepLoop:
             if self.with_w:
                 dev = padded["rdn"].device
                 if dev not in thomas:
-                    thomas[dev] = thomas_vectors(
+                    thomas[dev] = self.thomas.get(
                         rdn=padded["rdn"], rdnw=padded["rdnw"],
                         dts=scalars["dts"], epssm=scalars["epssm"],
                         cw=self.cw, gw=self.gw, k0=k0, k1=k1, fast=self.fast)

@@ -15,9 +15,11 @@ against their plain versions, and those against the numpy golden path):
 ``((cb*cb)*rdn)*roll(rdnw, 1)``, ``(1 + a) + b``, and the recurrence
 ``den = d + a*cp_prev; cp = -b/den`` run sequentially, one level at a time.
 
-:func:`thomas_vectors` bundles them for a wrapper; a loop calls it once per
-call and passes the bundle to every substep (``thomas=``), so the one
-device-to-host read of ``rdn``/``rdnw`` is not repeated per launch.
+:func:`thomas_vectors` bundles them for a wrapper, and a loop passes the
+bundle to every substep (``thomas=``).  A loop keeps its bundles in a
+:class:`ThomasCache` across calls: its ``prepare`` registers host copies
+of ``rdn``/``rdnw`` beside the tensors it made, so no call reads them back
+from the card, and each stage's ``dts`` uploads its K-vectors once.
 """
 
 from __future__ import annotations
@@ -109,20 +111,34 @@ class ThomasVectors:
     fast: tuple | None = None
 
 
+def _host(x) -> np.ndarray:
+    """A ``(K,)`` vector on the host: numpy as it is, a tensor read back
+    (on the card, a device-to-host copy and a synchronise)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x, F32)
+
+
 def thomas_vectors(*, rdn, rdnw, dts, epssm, cw, gw, k0: int, k1: int,
-                   fast: bool = False) -> ThomasVectors:
+                   fast: bool = False, device=None) -> ThomasVectors:
     """The bundle for one ``(dts, epssm, cw, gw, k0, k1)``, from the ``(K,)``
-    tensors ``rdn`` and ``rdnw`` (read back to the host once)."""
-    dev = rdnw.device
+    vectors ``rdn`` and ``rdnw``: numpy arrays, or tensors (read back to the
+    host once).  The K-vectors go to ``device`` (default: ``rdnw``'s, which
+    must then be a tensor); to a card from pinned memory, without a
+    synchronise."""
+    dev = torch.device(device) if device is not None else rdnw.device
+    rdn, rdnw = _host(rdn), _host(rdnw)
     K = rdnw.shape[0]
     c_w, g_t, a, b, diag, crdn, erdn = thomas_coeffs(
-        rdn.detach().cpu().numpy(), rdnw.detach().cpu().numpy(), dts, epssm,
-        cw, gw, K, k0, k1)
+        rdn, rdnw, dts, epssm, cw, gw, K, k0, k1)
     cp, den = thomas_hoisted(a, b, diag)
     beta = F32(0.5) * (F32(1.0) + F32(epssm))
 
     def dev_vec(x):
-        return torch.from_numpy(np.ascontiguousarray(x, F32)).to(dev)
+        x = torch.from_numpy(np.ascontiguousarray(x, F32))
+        if dev.type != "cuda":
+            return x.to(dev)
+        return x.pin_memory().to(dev, non_blocking=True)
 
     fast_vecs = None
     if fast:
@@ -133,3 +149,42 @@ def thomas_vectors(*, rdn, rdnw, dts, epssm, cw, gw, k0: int, k1: int,
         alfa=float(F32(1.0) - beta), a=dev_vec(a), cp=dev_vec(cp),
         den=dev_vec(den), crdn=dev_vec(crdn), erdn=dev_vec(erdn),
         fast=fast_vecs)
+
+
+class ThomasCache:
+    """A loop's Thomas bundles, kept across its calls.
+
+    ``register(tensor, host)`` records the host copy of a vertical vector
+    the loop's ``prepare`` put on a device; :meth:`get` builds a bundle
+    from the host copies of the tensors it is given (a tensor nobody
+    registered is read back once) and returns the same bundle for the
+    same tensors and scalars on every later call.  Entries are keyed by
+    the tensors' identity and hold them, so an id is never reused while
+    its entry lives."""
+
+    def __init__(self):
+        self._host = {}
+        self._bundles = {}
+
+    def register(self, tensor: torch.Tensor, host) -> None:
+        self._host[id(tensor)] = (tensor, np.array(host, F32))
+
+    def _host_copy(self, tensor: torch.Tensor) -> np.ndarray:
+        hit = self._host.get(id(tensor))
+        if hit is not None and hit[0] is tensor:
+            return hit[1]
+        host = _host(tensor)
+        self.register(tensor, host)
+        return host
+
+    def get(self, *, rdn: torch.Tensor, rdnw: torch.Tensor, dts, epssm, cw,
+            gw, k0: int, k1: int, fast: bool = False) -> ThomasVectors:
+        key = (id(rdn), id(rdnw), dts, epssm, cw, gw, k0, k1, fast)
+        hit = self._bundles.get(key)
+        if hit is None or hit[0] is not rdn or hit[1] is not rdnw:
+            bundle = thomas_vectors(
+                rdn=self._host_copy(rdn), rdnw=self._host_copy(rdnw),
+                dts=dts, epssm=epssm, cw=cw, gw=gw, k0=k0, k1=k1, fast=fast,
+                device=rdnw.device)
+            hit = self._bundles[key] = (rdn, rdnw, bundle)
+        return hit[2]
