@@ -189,6 +189,18 @@ not 0 and no result line is printed):
 11. one ``torch.profiler`` trace per halo backend of the damped (2,2)
     loop: per substep the device's busy share, the copy kernels, K1's and
     K5's launches and K5's device time.
+12. the loops across processes (``parallel/distributed.py``, through
+    ``wrf_tpu_torch.tools.multihost_check``): at 512x512x50 on the (2,2) mesh, with every shard on ``cuda:0``,
+    2 processes of 2 shards and 4 of 1, over gloo (rows and blocks staged
+    through pinned host memory): the coupled loop at S=1 (9 substeps) and
+    ``inner_steps=2``, ``ShardedAdvanceMuT(inner_steps=8)`` for 17 steps,
+    3 closed RK3 large steps (4 acoustic substeps, nudging) and the
+    transport alone (one j refresh of v and of mu, an i refresh of mu, a
+    gather of t), every field bit-equal (``different=0``) to the
+    one-process (2,2) run on the same card, every rank's K1, K2 and K3
+    launches as its shards' share, the ms per large step and per
+    exchange; each worker checks that it imported neither jax nor the JAX
+    package.
 
 The last three lines of standard output are the card's name and power
 limit (again), the kernel table ``{"kernels": [...]}`` (eight kernels,
@@ -3402,24 +3414,81 @@ def phase_mesh_profile(card="", counts=(9, 33), shapes=((2, 2),)):
     return out
 
 
+#: K1, K2 and K3 launches per shard of each program of the multi-process
+#: phase (multihost_check's "chip" suite): S=1 9 substeps; S=2 4 blocks
+#: and the final substep; the mu/t loop's 2 blocks of 8 and its final
+#: substep; 3 large steps of 1 + 2 + 4 substeps
+MULTIPROCESS_LAUNCHES = {
+    "coupled S=1": {"k1": 9, "k2": 0, "k3": 0},
+    "coupled S=2": {"k1": 1, "k2": 0, "k3": 4},
+    "mu_t S=8": {"k1": 1, "k2": 2, "k3": 0},
+    "rk3": {"k1": 21, "k2": 0, "k3": 0},
+    "exchange": {"k1": 0, "k2": 0, "k3": 0},
+}
+
+
+def phase_multiprocess(card="", grid=BIG_GRID, nprocs=(2, 4),
+                       timeout=300.0):
+    """The loops across processes on the one card: the main path's
+    programs (``multihost_check``'s "chip" suite) on the (2,2) mesh at
+    ``grid`` in 2 and 4 gloo processes on ``cuda:0``, each field held bit
+    for bit against the one-process (2,2) run in this process; every
+    rank's launches must be its shards' share.  Returns ``{"reference":
+    reports, nproc: multihost_check.run's result}``."""
+    from wrf_tpu_torch.tools import multihost_check as mh
+
+    progs = mh.suite("chip", grid)
+    doms = mh.domains(progs)
+    ref = mh.reference(progs, doms, "cuda", (2, 2), 1)
+
+    def check_launches(what, reports, n_shards):
+        for tag, r in reports.items():
+            want = {k: n * n_shards
+                    for k, n in MULTIPROCESS_LAUNCHES[tag].items()}
+            if r["launches"] != want:
+                raise AssertionError(f"{what} {tag}: launches "
+                                     f"{r['launches']}, expected {want}")
+
+    def describe_reports(reports):
+        out = []
+        for tag, r in reports.items():
+            line = f"{tag} {r['launches']} {r['ms']:.1f} ms"
+            if "step_ms" in r:
+                line += (" (ms per large step "
+                         + ", ".join(f"{x:.2f}" for x in r["step_ms"]) + ")")
+            if tag == "exchange":
+                line += " (" + ", ".join(
+                    f"{k} {r[k + ' ms']:.4f} ms, {r[k + ' bytes sent']} B"
+                    for k in ("v j", "mu j", "mu i", "t gather")) + ")"
+            out.append(line)
+        return "; ".join(out)
+
+    check_launches("one process", ref[1], 4)
+    print(f"[multiprocess 1 process 2x2 {grid}] {describe_reports(ref[1])} "
+          f"({card})")
+    res = {"reference": ref[1]}
+    for nproc in nprocs:
+        r = mh.run(nproc, "cuda", suite_name="chip", grid=grid,
+                   mesh_shape=(2, 2), timeout=timeout, doms=doms, ref=ref)
+        print(f"[multiprocess {nproc} processes 2x2 gloo cuda:0] different= "
+              f"{json.dumps(r['different'])}")
+        for rep in r["ranks"]:
+            check_launches(f"{nproc} processes rank {rep['rank']}",
+                           rep["programs"], len(rep["shards"]))
+            print(f"[multiprocess {nproc} processes rank {rep['rank']} "
+                  f"shards {rep['shards']}] "
+                  f"{describe_reports(rep['programs'])} ({card})")
+        bad = {k: d for k, d in r["different"].items() if d}
+        if bad:
+            raise AssertionError(f"{nproc} processes differ from one: {bad}")
+        res[nproc] = r
+    return res
+
+
 #: the H100 SXM's data-sheet peaks the bounds are taken against: device
 #: memory bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-#: float32 operations per cell (one level of one column) and substep,
-#: counted from the kernels' arithmetic: K1's fused scan substep (wind
-#: rebuild, dvdxi, dmdt, ww scan, theta), K2's lean substep (winds scaled,
-#: no wind update), and what the w/pp solve adds (rhs, two sweeps, pp);
-#: K2's fast form per cell and LAUNCH, whatever S (its two passes: the
-#: column sums, the cumsums, the G terms and the summed update)
-OPS_PER_CELL = {"k1": 46, "k2": 42, "w": 25, "k2 fast": 67}
-
-
-def field_bytes(shape, n3, n2, n1):
-    """Bytes of ``n3`` 3-D, ``n2`` 2-D and ``n1`` vertical float32 fields
-    of a (J, K, I) block (a bf16 field counts as half a field)."""
-    J, K, I = shape
-    return int(4 * (n3 * J * K * I + n2 * J * I + n1 * K))
 
 
 def bound_ms(nbytes, ops):
@@ -3434,69 +3503,64 @@ def bound_ms(nbytes, ops):
 def kernel_bounds():
     """``{row: (bound_ms, bound_by)}`` for the rows of the kernels
     line, per launch (K1) or per substep (K2-K4), at the big grid's padded
-    block (ring-S arrays for K3/K4).  Field counts: K1's fused scan substep
-    reads u, v, t, t_1, tconst, dvdxi_const and writes u, v, t (9 passes),
-    11 2-D fields in and 5 out; K2 reads the same six and writes t (7), 6
-    2-D in and 2 out, per launch of S substeps; K3 as K1's scan with 9 2-D
-    in and 2 out, per launch of S; fuse_w adds w and pp read and written
-    (4 passes, once per launch) and 5 K-vectors."""
+    block (ring-S arrays for K3/K4).  The streams each kernel form moves
+    and its operations per cell are ``wrf_tpu_torch/utils/traffic.py``'s;
+    the bound counts each stream once, with no tile term."""
+    from wrf_tpu_torch.utils.traffic import (
+        OPS_PER_CELL, padded_block, stream_bytes,
+    )
+
     nx, ny, K = BIG_GRID
-    blk = (ny + 4, K, nx + 4)
+    blk = padded_block(nx, ny, K)
     cells = blk[0] * blk[1] * blk[2]
     out = {}
     for w in (False, True):
         tag = "+w" if w else ""
         ops = OPS_PER_CELL["k1"] + (OPS_PER_CELL["w"] if w else 0)
-        extra3, extra1 = (4, 5) if w else (0, 0)
-        out["k1" + tag] = bound_ms(
-            field_bytes(blk, 9 + extra3, 16, 4 + extra1), ops * cells)
+        out["k1" + tag] = bound_ms(stream_bytes("k1 scan", blk, with_w=w),
+                                   ops * cells)
         if not w:
-            # damping reads one more 2-D field (mudf_in); the reference's
-            # plain full call reads ww_1, u, u_1, v, v_1, t, t_1, ft and
-            # writes ww, t, t_ave (11 passes), 9 2-D fields in and 4 out,
-            # and capture adds one 3-D and four 2-D writes
-            out["k1 smdiv"] = bound_ms(field_bytes(blk, 9, 17, 4),
+            out["k1 smdiv"] = bound_ms(stream_bytes("k1 smdiv", blk),
                                        (ops + 1) * cells)
-            out["k1 full"] = bound_ms(field_bytes(blk, 11, 13, 4),
+            out["k1 full"] = bound_ms(stream_bytes("k1 full", blk),
                                       ops * cells)
-            out["k1 capture"] = bound_ms(field_bytes(blk, 12, 17, 4),
+            out["k1 capture"] = bound_ms(stream_bytes("k1 capture", blk),
                                          ops * cells)
         for S in (2, 4, 8):
-            ring = (blk[0] + 2 * (S - 1), K, blk[2])
-            nb = field_bytes(ring, 9 + extra3, 11, 4 + extra1) / S
+            ring = padded_block(nx, ny, K, S)
+            nb = stream_bytes("k3", ring, with_w=w) / S
             out[f"k3 S={S}{tag}"] = bound_ms(
                 nb, ops * ring[0] * ring[1] * ring[2])
-    out["k2 S=8"] = bound_ms(field_bytes(blk, 7, 8, 4) / 8,
+    out["k2 S=8"] = bound_ms(stream_bytes("k2", blk) / 8,
                              OPS_PER_CELL["k2"] * cells)
     # the fast form at S=32: the same passes per launch, 1/32 per substep
-    out["k2 fast S=32"] = bound_ms(field_bytes(blk, 7, 8, 4) / 32,
+    out["k2 fast S=32"] = bound_ms(stream_bytes("k2", blk) / 32,
                                    OPS_PER_CELL["k2 fast"] * cells / 32)
-    # the mu/t loop's lean lite substep: reads u, v, t, t_1, tconst,
-    # dvdxi_const and writes t (7 passes), 10 2-D fields in and 5 out
-    out["k1 lite_ws"] = bound_ms(field_bytes(blk, 7, 15, 4),
+    # the mu/t loop's lean lite substep
+    out["k1 lite_ws"] = bound_ms(stream_bytes("k1 lite", blk),
                                  OPS_PER_CELL["k2"] * cells)
-    # bf16 constant streams: a narrow pass is half a float32 pass.  K1's
-    # fused scan reads t_1, tconst and dvdxi_const narrow (3 of 9), its
-    # lite substep and K2 also u and v (5 of 7), K3 the same 3 of 9
+    # bf16 constant streams: a narrow pass is half a float32 pass
     ops = OPS_PER_CELL["k1"]
-    out["k1 bf16"] = bound_ms(field_bytes(blk, 7.5, 16, 4), ops * cells)
-    out["k1 lite_ws bf16"] = bound_ms(field_bytes(blk, 4.5, 15, 4),
+    out["k1 bf16"] = bound_ms(stream_bytes("k1 scan", blk, bf16=True),
+                              ops * cells)
+    out["k1 lite_ws bf16"] = bound_ms(stream_bytes("k1 lite", blk,
+                                                   bf16=True),
                                       OPS_PER_CELL["k2"] * cells)
-    out["k2 S=8 bf16"] = bound_ms(field_bytes(blk, 4.5, 8, 4) / 8,
+    out["k2 S=8 bf16"] = bound_ms(stream_bytes("k2", blk, bf16=True) / 8,
                                   OPS_PER_CELL["k2"] * cells)
     for S in (2, 4, 8):
-        ring = (blk[0] + 2 * (S - 1), K, blk[2])
+        ring = padded_block(nx, ny, K, S)
         out[f"k3 S={S} bf16"] = bound_ms(
-            field_bytes(ring, 7.5, 11, 4) / S,
+            stream_bytes("k3", ring, bf16=True) / S,
             ops * ring[0] * ring[1] * ring[2])
     # one (2,2) shard's block, where the in-kernel exchange is timed: the
     # neighbours' rows are 2 (+2 under damping) more row reads, nothing
     # beside the block
     sh = ((ny + 2) // 2 + 2, K, (nx + 2) // 2 + 2)
     sh_cells = sh[0] * sh[1] * sh[2]
-    out["k1 shard"] = bound_ms(field_bytes(sh, 9, 16, 4), ops * sh_cells)
+    out["k1 shard"] = bound_ms(stream_bytes("k1 scan", sh), ops * sh_cells)
     ring = (sh[0] + 2, K, sh[2] + 2)
-    out["k3 S=2 shard"] = bound_ms(field_bytes(ring, 9, 11, 4) / 2,
+    out["k3 S=2 shard"] = bound_ms(stream_bytes("k3", ring) / 2,
                                    ops * ring[0] * ring[1] * ring[2])
     return out
 
@@ -3590,6 +3654,8 @@ def main() -> int:
     loops, loops_ev = timed("loop timings", phase_loop_timings, card=smi)
     profile = timed("profile of the damped 2x2 loop", phase_mesh_profile,
                     card=smi)
+    multiprocess = timed("loops across processes", phase_multiprocess,
+                         card=smi)
     borrowed = [m for m in sys.modules
                 if m == "jax" or m == "wrf_tpu" or m.startswith("wrf_tpu.")]
     if borrowed:
@@ -3649,6 +3715,16 @@ def main() -> int:
           + ", ".join(f"{k} {'none' if v is None else 'yes'}"
                       for k, v in closure["sync"].items()) + f" ({smi})")
     print("[closure profile] " + json.dumps(closure["profile"]))
+    mp_steps = {"1 process": multiprocess["reference"]["rk3"]["step_ms"]}
+    for nproc in (2, 4):
+        for rep in multiprocess[nproc]["ranks"]:
+            mp_steps[f"{nproc} processes rank {rep['rank']}"] = \
+                rep["programs"]["rk3"]["step_ms"]
+    print(f"[multiprocess] ms per closed large step at {BIG_GRID} on the "
+          f"(2,2) mesh, every shard on cuda:0, gloo staged through host "
+          f"memory (steps 1-3): " + "; ".join(
+              f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+              for k, v in mp_steps.items()) + f" ({smi})")
     for run in ("S=1", "2x2 ppermute", "2x2 rdma", "2x2 overlap", "S=2",
                 "S=2 2x2 overlap", "smdiv", "smdiv 2x2 rdma",
                 "smdiv 2x2 overlap", "bf16", "bf16 2x2 overlap"):

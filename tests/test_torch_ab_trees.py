@@ -49,6 +49,7 @@ def test_order_must_name_known_trees(capsys):
     ("k7", ["k7"]),
     ("k8", ["k8"]),
     ("k7,k8", ["k7", "k8"]),
+    ("k5,mesh", ["k5", "mesh"]),
 ])
 def test_phase_list_accepts_the_known_phases(text, want):
     assert ab_trees.phase_list(text) == want

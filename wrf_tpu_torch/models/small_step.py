@@ -178,6 +178,12 @@ class SmallStepLoop:
       every shard on one card there is no transfer to hide, and what is
       left is the launches and copies it saves the host.
 
+    On a mesh whose shards sit in several processes
+    (``parallel/distributed.py``) only "ppermute" runs: its copies to a
+    neighbour on another rank go through ``torch.distributed``, while
+    "rdma" and "rdma_overlap" write through device pointers inside one
+    process and raise.
+
     ``const_dtype`` (``torch.bfloat16`` or None): reduced-precision
     constant streams, see the module docstring; requires the fused kernel.
 
@@ -227,6 +233,8 @@ class SmallStepLoop:
         self.device = torch.device(device)
         self._blocks = mesh is not None
         self.mesh = local_mesh(mesh, self.device)
+        if halo_backend != "ppermute":
+            self.mesh.require_one_process(f"halo_backend={halo_backend!r}")
         nj, ni = self.mesh.shape
         if (inner_steps > 1 and halo_backend == "rdma"
                 and n_steps - 1 >= inner_steps
@@ -285,7 +293,8 @@ class SmallStepLoop:
 
     def unprepare(self, arrays, names) -> dict[str, torch.Tensor]:
         """The inverse of ``prepare`` for ``names``: ring-shaped global
-        tensors on the first shard's device, the mesh padding dropped."""
+        tensors on the first local shard's device (on every rank of a mesh
+        that spans processes), the mesh padding dropped."""
         nx, ny, _ = self.domain
         blocks = as_blocks({n: arrays[n] for n in names}, self.mesh,
                            self._blocks)
@@ -296,7 +305,7 @@ class SmallStepLoop:
         mesh = self.mesh
         arrays = as_blocks({n: arrays[n] for n in self._names}, mesh,
                            self._blocks)
-        nj_loc, _, ni_loc = arrays["t"][0, 0].shape
+        nj_loc, _, ni_loc = next(iter(arrays["t"].values())).shape
         n_loc = (nj_loc, ni_loc)
         local = pad_local(arrays, mesh, self._j_sh, self._i_sh)
         # every shard's padded-local row/column 0 in ring coordinates

@@ -277,6 +277,7 @@ def rdma_rows(rows: dict, axis_name: str, mesh, *,
         if r.shape[0] != 2:
             raise ValueError(f"rows[{c}]: a 2-slot buffer (2, ...), got "
                              f"{tuple(r.shape)}")
+    mesh.require_one_process("the rdma exchange (K5)")
     recv = {c: torch.empty_like(r) for c, r in rows.items()}
     _exchange([rows, recv], ("rows", "recv"),
               _rows_rings(rows, recv, axis_name, mesh), plain)
@@ -315,6 +316,7 @@ def _field_names(n: int) -> tuple[str, ...]:
 
 
 def _refresh(fields, axis_name, mesh, n_interior, recv_only, plain):
+    mesh.require_one_process("the rdma exchange (K5)")
     ro = tuple(recv_only) + ("",) * (len(fields) - len(recv_only))
     _exchange(fields, _field_names(len(fields)),
               _refresh_rings(fields, axis_name, mesh, n_interior, ro),

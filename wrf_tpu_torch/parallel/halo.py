@@ -21,6 +21,15 @@ update the halo cells of the given blocks IN PLACE and return them: every
 send reads owned cells and every receive writes halo cells, so no order of
 the copies changes a result.
 
+On a mesh that spans processes (``parallel/distributed.py``) the dicts hold
+this process's shards only.  A neighbour on the same process is read as
+above; one on another rank arrives through ``torch.distributed``
+point-to-point messages, one ``batch_isend_irecv`` per exchange call
+(:func:`neighbour_slabs`), in an order every rank derives alike: shards
+j-major, then the slab to the next neighbour before the slab to the
+previous one.  On a ring of two both neighbours are the same remote rank,
+and the two messages stay apart by their tags.
+
 Ring-S halos serve the depth-S coupled trapezoid: S coupled substeps
 advance information S cells, so the blocked loop reads mu S rows deep and
 u/v S-1 rows deep around each row it updates, exchanged 1/S as often at S
@@ -33,6 +42,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import distributed
+
 
 def _n_int(x: torch.Tensor, axis: int, n_interior, ring: int = 1) -> int:
     return x.shape[axis] - 2 * ring if n_interior is None else n_interior
@@ -43,18 +54,41 @@ def _recv(src: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return src.to(like.device, non_blocking=True)
 
 
+def neighbour_slabs(blocks: dict, mesh, axis_name: str, to_next,
+                    to_prev) -> dict:
+    """``{c: (from_prev, from_next)}`` for every shard ``c`` of ``blocks``:
+    ``to_next(b)`` is the slab a shard's block ``b`` gives its next
+    neighbour along ``axis_name`` and ``to_prev(b)`` the one it gives its
+    previous neighbour (every block has one shape, and both slabs of a
+    block have one shape).  A slab from a shard of
+    this process is that view itself; one from another rank arrives in a
+    new tensor, all of them through one :func:`distributed.p2p` batch, in
+    the order of the mesh's cached plan (:meth:`Mesh.exchange_plan`)."""
+    sources, outgoing, incoming = mesh.exchange_plan(axis_name)
+    give = (to_next, to_prev)
+    recvs = [torch.empty_like(to_next(blocks[d]),
+                              memory_format=torch.contiguous_format)
+             for _, _, d in incoming]
+    distributed.p2p(
+        mesh, [(r, tag, give[slot](blocks[s]))
+               for r, tag, s, slot in outgoing],
+        [(r, tag, x) for (r, tag, _), x in zip(incoming, recvs)])
+    return {c: tuple(give[slot](blocks[s]) if isinstance(s, tuple)
+                     else recvs[s] for slot, s in enumerate(src))
+            for c, src in sources.items()}
+
+
 def exchange_axis(blocks: dict, axis: int, axis_name: str, mesh) -> dict:
     """Pad every block with one halo cell on both sides of ``axis``, filled
     with the neighbouring shards' edge cells (ring exchange; edges masked)."""
-    out = {}
-    for c, x in blocks.items():
-        prev = blocks[mesh.neighbour(c, axis_name, -1)]
-        nxt = blocks[mesh.neighbour(c, axis_name, +1)]
-        # the previous shard's top row is our bottom halo, and vice versa
-        from_prev = _recv(prev.narrow(axis, prev.shape[axis] - 1, 1), x)
-        from_next = _recv(nxt.narrow(axis, 0, 1), x)
-        out[c] = torch.cat([from_prev, x, from_next], dim=axis)
-    return out
+    # the previous shard's top row is our bottom halo, and vice versa
+    slabs = neighbour_slabs(
+        blocks, mesh, axis_name,
+        lambda b: b.narrow(axis, b.shape[axis] - 1, 1),
+        lambda b: b.narrow(axis, 0, 1))
+    return {c: torch.cat([_recv(slabs[c][0], x), x, _recv(slabs[c][1], x)],
+                         dim=axis)
+            for c, x in blocks.items()}
 
 
 def _pad_axes(x: torch.Tensor, axes) -> torch.Tensor:
@@ -118,14 +152,13 @@ def refresh_axis_w(blocks: dict, axis: int, axis_name: str, mesh,
     (owned cells sit at ``[width, width+n)``; halos at ``[0, width)`` and
     ``[width+n, 2*width+n)`` — :func:`widen_ring_to`'s layout)."""
     R = width
+    n = _n_int(next(iter(blocks.values())), axis, n_interior, R)
+    slabs = neighbour_slabs(blocks, mesh, axis_name,
+                            lambda b: b.narrow(axis, n, R),   # my last R
+                            lambda b: b.narrow(axis, R, R))   # my first R
     for c, x in blocks.items():
-        n = _n_int(x, axis, n_interior, R)
-        prev = blocks[mesh.neighbour(c, axis_name, -1)]
-        nxt = blocks[mesh.neighbour(c, axis_name, +1)]
-        x.narrow(axis, 0, R).copy_(prev.narrow(axis, n, R),
-                                   non_blocking=True)      # prev's last R
-        x.narrow(axis, n + R, R).copy_(nxt.narrow(axis, R, R),
-                                       non_blocking=True)  # next's first R
+        x.narrow(axis, 0, R).copy_(slabs[c][0], non_blocking=True)
+        x.narrow(axis, n + R, R).copy_(slabs[c][1], non_blocking=True)
     return blocks
 
 
@@ -154,21 +187,19 @@ def widen_ring_to(x, axis: int, width: int, axis_name: str | None = None,
         if isinstance(x, dict):
             return {c: _widen_zero(b, axis, R) for c, b in x.items()}
         return _widen_zero(x, axis, R)
-    out = {}
-    for c, b in x.items():
-        n = _n_int(b, axis, n_interior)
-        if n < R:
-            raise ValueError(f"ring-{R} needs >= {R} interior cells per "
-                             f"shard along {axis_name!r}, got {n}")
-        prev = x[mesh.neighbour(c, axis_name, -1)]
-        nxt = x[mesh.neighbour(c, axis_name, +1)]
-        # interior cell e sits at ring-1 index 1+e: the extra low cells are
-        # the previous shard's interior [n-R, n-1) (our cells -R..-2), the
-        # extra high cells the next shard's interior [1, R)
-        lo_x = _recv(prev.narrow(axis, n - R + 1, R - 1), b)
-        hi_x = _recv(nxt.narrow(axis, 2, R - 1), b)
-        out[c] = torch.cat([lo_x, b, hi_x], dim=axis)
-    return out
+    n = _n_int(next(iter(x.values())), axis, n_interior)
+    if n < R:
+        raise ValueError(f"ring-{R} needs >= {R} interior cells per "
+                         f"shard along {axis_name!r}, got {n}")
+    # interior cell e sits at ring-1 index 1+e: the extra low cells are
+    # the previous shard's interior [n-R, n-1) (our cells -R..-2), the
+    # extra high cells the next shard's interior [1, R)
+    slabs = neighbour_slabs(x, mesh, axis_name,
+                            lambda b: b.narrow(axis, n - R + 1, R - 1),
+                            lambda b: b.narrow(axis, 2, R - 1))
+    return {c: torch.cat([_recv(slabs[c][0], b), b, _recv(slabs[c][1], b)],
+                         dim=axis)
+            for c, b in x.items()}
 
 
 def strip_ring(x: torch.Tensor, axis: int, width: int) -> torch.Tensor:

@@ -17,6 +17,12 @@ mesh is a dict of local blocks keyed by the shard's ``(jj, ii)``
 
 Shards on different CUDA devices exchange halos through peer pointers, so
 neighbouring devices must have peer access; a mesh without it raises.
+
+A mesh may span several processes (``parallel/distributed.py``, the port of
+the JAX package's multi-host recipe): its owner table names the process
+rank of every shard, counted j-major, and each process holds and drives
+only its own shards' blocks (:meth:`Mesh.local_coords`).  A one-process
+mesh owns every shard.
 """
 
 from __future__ import annotations
@@ -41,16 +47,48 @@ def factor_near_square(n: int) -> tuple[int, int]:
 class Mesh:
     """An ``(nj, ni)`` grid of devices, one entry per shard; each axis is a
     ring (shard ``n-1``'s next neighbour is shard 0; the window masks keep
-    the wrapped rows out of every result)."""
+    the wrapped rows out of every result).
 
-    def __init__(self, devices, shape: tuple[int, int]):
+    ``owners`` is the process rank of every shard, j-major (default: every
+    shard this process's), ``rank`` the calling process's rank,
+    ``backend`` the transport of the default ``torch.distributed`` process
+    group ("gloo" or "nccl"; ``group`` is that group's handle, None) and
+    ``hosts`` every rank's host name (default: one host).  NCCL needs one
+    card per rank: a mesh that puts two ranks on one device under NCCL
+    raises here, before any exchange."""
+
+    #: the ``torch.distributed`` process group the ranks count in: the
+    #: default one
+    group = None
+
+    def __init__(self, devices, shape: tuple[int, int], *, owners=None,
+                 rank: int = 0, backend: str | None = None, hosts=None):
         nj, ni = (int(n) for n in shape)
         devices = [torch.device(d) for d in devices]
         if nj < 1 or ni < 1 or nj * ni != len(devices):
             raise ValueError(f"mesh shape {tuple(shape)} != device count "
                              f"{len(devices)}")
+        owners = [0] * len(devices) if owners is None else [int(r) for r
+                                                             in owners]
+        if len(owners) != len(devices):
+            raise ValueError(f"owner table of {len(owners)} ranks for "
+                             f"{len(devices)} shards")
+        if backend not in (None, "gloo", "nccl"):
+            raise ValueError(f"bad backend {backend!r}: gloo or nccl")
         self.shape = (nj, ni)
         self.devices = [devices[jj * ni:(jj + 1) * ni] for jj in range(nj)]
+        self.owners = [owners[jj * ni:(jj + 1) * ni] for jj in range(nj)]
+        self.rank = int(rank)
+        self.backend = backend
+        self.hosts = hosts
+        #: whether the shards sit in more than one process
+        self.spans_processes = len(set(owners)) > 1
+        self._plans: dict = {}
+        if self.spans_processes and backend is None:
+            raise ValueError("a mesh over several processes needs its "
+                             "backend (gloo or nccl)")
+        if backend == "nccl":
+            self._check_nccl()
         self._check_peer_access()
 
     def coords(self) -> list[tuple[int, int]]:
@@ -58,8 +96,61 @@ class Mesh:
         nj, ni = self.shape
         return [(jj, ii) for jj in range(nj) for ii in range(ni)]
 
+    def owner(self, coord) -> int:
+        """The rank of the process that holds shard ``coord``."""
+        return self.owners[coord[0]][coord[1]]
+
+    def local_coords(self) -> list[tuple[int, int]]:
+        """The shards this process holds, j-major."""
+        return [c for c in self.coords() if self.owner(c) == self.rank]
+
+    def require_one_process(self, what: str) -> None:
+        """Raise for ``what``, which works through device pointers inside one
+        process, on a mesh whose shards sit in several."""
+        if self.spans_processes:
+            raise ValueError(
+                f"{what} writes through device pointers inside one process; "
+                f"this mesh's neighbouring shards sit in different processes "
+                f"(owners {self.owners}): use halo_backend='ppermute'")
+
     def device(self, coord) -> torch.device:
         return self.devices[coord[0]][coord[1]]
+
+    def exchange_plan(self, axis_name: str) -> tuple:
+        """How this process's shards meet their neighbours along
+        ``axis_name``, built once per axis: ``(sources, outgoing,
+        incoming)``.  ``sources`` maps every local shard to the source of
+        its halo from the previous and from the next neighbour: a local
+        shard's coordinate, or the position of the message in ``incoming``.
+        ``outgoing`` lists ``(rank, tag, shard, slot)`` (the slab a local
+        shard gives a remote neighbour: slot 0 its slab to the next
+        neighbour, 1 to the previous) and ``incoming`` ``(rank, tag,
+        shard)``.  Every rank enumerates the mesh's messages in one order
+        (shards j-major, to the next neighbour before to the previous) and
+        tags them by that position, so two messages between one pair of
+        ranks (a ring of two) stay apart."""
+        if axis_name in self._plans:
+            return self._plans[axis_name]
+        sources = {c: [None, None] for c in self.local_coords()}
+        outgoing, incoming = [], []
+        tag = 0
+        for s in self.coords():
+            for shift, slot in ((+1, 0), (-1, 1)):
+                d = self.neighbour(s, axis_name, shift)
+                src, dst = self.owner(s), self.owner(d)
+                if dst == self.rank:
+                    if src == self.rank:
+                        sources[d][slot] = s
+                    else:
+                        sources[d][slot] = len(incoming)
+                        incoming.append((src, tag, d))
+                elif src == self.rank:
+                    outgoing.append((dst, tag, s, slot))
+                tag += src != dst
+        plan = ({c: tuple(v) for c, v in sources.items()}, outgoing,
+                incoming)
+        self._plans[axis_name] = plan
+        return plan
 
     def neighbour(self, coord, axis_name: str, shift: int) -> tuple[int, int]:
         """The shard ``shift`` steps along the ring of ``axis_name``."""
@@ -77,8 +168,9 @@ class Mesh:
         return [[(jj, ii) for ii in range(ni)] for jj in range(nj)]
 
     def unique_devices(self) -> list[torch.device]:
+        """The devices of this process's shards, in shard order."""
         seen: list[torch.device] = []
-        for c in self.coords():
+        for c in self.local_coords():
             if self.device(c) not in seen:
                 seen.append(self.device(c))
         return seen
@@ -89,7 +181,8 @@ class Mesh:
         other.  What a kernel that reads a neighbour shard's block through
         a peer pointer needs before it (the neighbour's block is complete)
         and after it (the neighbour may reuse the block).  Nothing on one
-        device, whose stream orders its shards, or on the CPU."""
+        device, whose stream orders its shards, or on the CPU; only this
+        process's devices."""
         devs = [d for d in self.unique_devices() if d.type == "cuda"]
         if len(devs) < 2:
             return
@@ -104,11 +197,35 @@ class Mesh:
                 if other != d:
                     stream.wait_event(ev)
 
-    def _check_peer_access(self) -> None:
+    def _check_nccl(self) -> None:
+        """NCCL refuses two ranks on one device: name them here."""
+        place: dict = {}
         for c in self.coords():
+            dev, r = self.device(c), self.owner(c)
+            if dev.type != "cuda":
+                raise ValueError(f"the nccl backend moves CUDA tensors; "
+                                 f"shard {c} sits on {dev}")
+            host = self.hosts[r] if self.hosts is not None else ""
+            ranks = place.setdefault((host, str(dev)), set())
+            ranks.add(r)
+            if len(ranks) > 1:
+                raise ValueError(
+                    f"the nccl backend needs one card per rank, but ranks "
+                    f"{sorted(ranks)} both drive {dev}"
+                    + (f" on {host}" if host else "")
+                    + ": use backend='gloo' on a shared card")
+
+    def _check_peer_access(self) -> None:
+        """Neighbouring shards of this process on different CUDA devices
+        need peer access (the exchanges across processes go through
+        ``torch.distributed``)."""
+        for c in self.local_coords():
             a = self.device(c)
             for axis in AXES:
-                b = self.device(self.neighbour(c, axis, 1))
+                nb = self.neighbour(c, axis, 1)
+                if self.owner(nb) != self.rank:
+                    continue
+                b = self.device(nb)
                 if a == b or "cuda" not in (a.type, b.type):
                     continue
                 if a.type != b.type:
@@ -122,8 +239,10 @@ class Mesh:
                         "peer pointers")
 
     def __repr__(self) -> str:
+        procs = (f", rank {self.rank} of owners {self.owners}"
+                 if self.spans_processes else "")
         return (f"Mesh({self.shape[0]}x{self.shape[1]} on "
-                f"{[str(d) for d in self.unique_devices()]})")
+                f"{[str(d) for d in self.unique_devices()]}{procs})")
 
 
 def default_devices() -> list[torch.device]:
@@ -176,5 +295,10 @@ def describe(mesh: Mesh) -> str:
     four-shards-on-one-card time as a four-card time."""
     devs = mesh.unique_devices()
     nj, ni = mesh.shape
-    return (f"mesh {nj}x{ni}: {nj * ni} shard(s) on {len(devs)} device(s) "
-            f"({', '.join(str(d) for d in devs)})")
+    out = (f"mesh {nj}x{ni}: {nj * ni} shard(s) on {len(devs)} device(s) "
+           f"({', '.join(str(d) for d in devs)})")
+    if mesh.spans_processes:
+        n = len({r for row in mesh.owners for r in row})
+        out += (f" in this process (rank {mesh.rank}), of {n} processes "
+                f"over {mesh.backend}")
+    return out

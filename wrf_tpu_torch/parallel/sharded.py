@@ -8,7 +8,10 @@ through ``cudaMemcpy``, here
 
 * a field on a mesh is a dict of local blocks keyed by the shard's
   ``(jj, ii)``, each on its shard's device (:func:`scatter`,
-  :func:`gather`); one process drives every shard;
+  :func:`gather`); one process drives every shard, or, on a mesh that
+  spans processes, each process its own shards (``parallel/distributed.py``),
+  and :func:`gather` all-gathers the blocks so that every process holds the
+  domain-shaped result;
 * the 1-cell halo each stencil needs is exchanged between neighbouring
   blocks (``parallel/halo.py``), never through the host;
 * per-shard boundary handling is *mask-based*: every shard runs the same
@@ -36,7 +39,7 @@ from ..grid import ConfigFlags, GridBounds
 from ..ops.advance_mu_t_cuda import advance_mu_t_fused, lean_kwargs
 from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_mu_t_msteps_cuda import advance_mu_t_multistep, wind_ramp
-from . import halo
+from . import distributed, halo
 from .mesh import Mesh, make_mesh
 
 #: the ten 3-D and nine 2-D fields of the kernel signature, in argument order
@@ -82,16 +85,16 @@ def pad_to_mesh(x, mesh=(1, 1)):
 
 
 def scatter(x, mesh: Mesh) -> dict:
-    """A global (mesh-divisible) array -> its local blocks, a dict keyed by
-    the shard's ``(jj, ii)``, each a float32 tensor on its shard's device.
-    Vertical vectors (1-D) are replicated.  Blocks of a tensor that already
-    lies on the shard's device are views of it."""
+    """A global (mesh-divisible) array -> the blocks of this process's
+    shards, a dict keyed by the shard's ``(jj, ii)``, each a float32 tensor
+    on its shard's device.  Vertical vectors (1-D) are replicated.  Blocks
+    of a tensor that already lies on the shard's device are views of it."""
     nj, ni = mesh.shape
     if x.ndim in (2, 3) and (x.shape[0] % nj or x.shape[-1] % ni):
         raise ValueError(f"array {tuple(x.shape)} does not divide over the "
                          f"{nj}x{ni} mesh (pad_to_mesh first)")
     out = {}
-    for jj, ii in mesh.coords():
+    for jj, ii in mesh.local_coords():
         blk = x
         if x.ndim in (2, 3):
             njl, nil = x.shape[0] // nj, x.shape[-1] // ni
@@ -107,15 +110,18 @@ def scatter(x, mesh: Mesh) -> dict:
 
 def gather(blocks: dict, mesh: Mesh, device=None) -> torch.Tensor:
     """Inverse of :func:`scatter`: the global tensor on ``device`` (default:
-    the first shard's).  A 1x1 mesh gives its one block back, and a
-    replicated vector its first copy (no copy in either case when the block
-    lies on ``device``)."""
+    this process's first shard's).  A 1x1 mesh gives its one block back,
+    and a replicated vector its first copy (no copy in either case when the
+    block lies on ``device``).  On a mesh that spans processes the blocks
+    of every rank are all-gathered first, and every rank gets the whole."""
     device = (torch.device(device) if device is not None
-              else mesh.device((0, 0)))
+              else mesh.device(mesh.local_coords()[0]))
     nj, ni = mesh.shape
-    first = blocks[0, 0]
+    first = next(iter(blocks.values()))
     if first.ndim == 1 or (nj, ni) == (1, 1):
         return first.to(device)
+    if mesh.spans_processes:
+        blocks = distributed.all_gather_blocks(mesh, blocks, device)
     rows = [torch.cat([blocks[jj, ii].to(device) for ii in range(ni)], dim=-1)
             if ni > 1 else blocks[jj, 0].to(device) for jj in range(nj)]
     return torch.cat(rows, dim=0) if nj > 1 else rows[0]
@@ -170,14 +176,15 @@ def pad_local(arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool) -> dict:
             padded[n] = halo.halo2(b, mesh, j_sharded=j_sh, i_sharded=i_sh)
         else:
             padded[n] = b
-    return {c: {n: padded[n][c] for n in padded} for c in mesh.coords()}
+    return {c: {n: padded[n][c] for n in padded}
+            for c in mesh.local_coords()}
 
 
 def strip_local(outs: dict, names, domain, mesh: Mesh) -> dict:
     """Domain-shaped outputs from the shards' padded ones: every block's
-    owned interior (halo dropped), gathered on the first shard's device,
-    the boundary ring and the mesh padding dropped.  Views all the way on
-    a 1x1 mesh."""
+    owned interior (halo dropped), gathered on the first local shard's
+    device (on every rank of a mesh that spans processes), the boundary
+    ring and the mesh padding dropped.  Views all the way on a 1x1 mesh."""
     nx, ny, _ = domain
     res = {}
     for n in names:
@@ -291,7 +298,7 @@ class ShardedAdvanceMuT:
         i0, i1, j0, j1, k0, k1 = self.window
         mesh = self.mesh
         arrays = as_blocks(arrays, mesh, self._blocks)
-        nj_loc, _, ni_loc = arrays["t"][0, 0].shape
+        nj_loc, _, ni_loc = next(iter(arrays["t"].values())).shape
         local = pad_local(arrays, mesh, mesh.shape[0] > 1, mesh.shape[1] > 1)
         scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "epssm": epssm}
         last = self.n_steps - 1

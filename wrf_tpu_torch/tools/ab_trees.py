@@ -43,6 +43,13 @@ are the same in every tree compared):
   events and the host clock), and ``run_sim --mesh 2x2 --halo-backend
   rdma`` for 3 large steps through ``chip_smoke.run_sim_launches``;
 * ``k6``: ``phase_copy_ceiling``;
+* ``mesh``: the one-process (2,2) mesh's host costs at 512x512x50, every
+  shard on ``cuda:0``: the ppermute exchanges (a j refresh of mu's and
+  v's blocks, an i refresh of mu's, a 1-cell j exchange of mu's unpadded
+  blocks; marginal ms per call between chains of 50 and 250, CUDA events
+  and the host clock), then ``run_sim --mesh 2x2 --closure nudge`` for 10
+  large steps under ppermute and ``rdma_overlap`` (mean ms of steps 2-10;
+  the unclosed shell diverges within 10 steps);
 * ``trace``: the driver's ``--tier coupled --inner-steps 4`` loop (17
   steps at 512x512x50, built as the driver builds it): the host span of
   two warm runs, then one run under ``torch.profiler``: the device's busy
@@ -273,6 +280,49 @@ if "k5" in phases:
                                  "step3_ms": step_ms[2]}
         print(f"[slice] run_sim 2x2 rdma: launches {launches}, step 3 alone "
               f"{step_ms[2]:.3f} ms ({smi})")
+if "mesh" in phases:
+    from wrf_tpu_torch.io import fixtures
+    from wrf_tpu_torch.parallel import halo
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    nx, ny, K = c.BIG_GRID
+    mesh = make_mesh(["cuda:0"] * 4, (2, 2))
+    njl, nil = (ny + 2) // 2, (nx + 2) // 2
+    mu = c.ring_blocks(mesh, (njl + 2, nil + 2), 5)
+    v = c.ring_blocks(mesh, (njl + 2, K, nil + 2), 6)
+    mu_in = c.ring_blocks(mesh, (njl, nil), 7)
+    fns = {"refresh j mu+v": lambda: (halo.refresh_axis(mu, 0, "j", mesh, njl),
+                                      halo.refresh_axis(v, 0, "j", mesh, njl)),
+           "refresh i mu": lambda: halo.refresh_axis(mu, 1, "i", mesh, nil),
+           "exchange j mu": lambda: halo.exchange_axis(mu_in, 0, "j", mesh)}
+    row = {"events ms": {k: [] for k in fns}, "host ms": {k: [] for k in fns}}
+    for name in list(fns) + list(fns)[::-1]:
+        ev, hc = c.chain_marginal_ms(lambda i: fns[name](), n1=50, n2=250,
+                                     repeats=5)
+        row["events ms"][name].append(ev)
+        row["host ms"][name].append(hc)
+    res["mesh exchange 2x2"] = row
+    print("[mesh exchange 2x2] marginal ms per call, events / host clock: "
+          + ", ".join(f"{k} {sum(row['events ms'][k]) / 2:.5f} / "
+                      f"{sum(row['host ms'][k]) / 2:.5f}" for k in fns)
+          + f" ({smi})")
+    with tempfile.TemporaryDirectory(prefix="ab_mesh_") as tmp:
+        tmp = Path(tmp)
+        fx = fixtures.write_case(c.case_at(c.BIG_GRID, balanced=True),
+                                 tmp / "big", steps=1)
+        runs = {"2x2 ppermute closed": ("--mesh", "2x2", "--closure",
+                                        "nudge"),
+                "2x2 overlap closed": ("--mesh", "2x2", "--halo-backend",
+                                       "rdma_overlap", "--closure", "nudge")}
+        res["mesh run_sim"] = {}
+        for run, flags in runs.items():
+            launches, step_ms, _ = c.run_sim_launches(
+                tmp, fx, run.replace(" ", "_"), *flags, steps=10)
+            later = sum(step_ms[1:]) / len(step_ms[1:])
+            res["mesh run_sim"][run] = {"launches": launches,
+                                        "step_ms": step_ms,
+                                        "steps 2-10 ms": later}
+            print(f"[mesh] run_sim {run}: steps 2-10 {later:.3f} ms a step "
+                  f"({smi})")
 if "k6" in phases:
     res["k6"] = keyed(c.phase_copy_ceiling(card=smi)[0])
 if "k7" in phases:
@@ -411,7 +461,7 @@ Path(sys.argv[2]).write_text(json.dumps(res))
 
 #: the phases a round can run (see the module docstring)
 PHASES = ("k1", "k2", "k3", "k5", "k6", "k7", "k8", "host", "trace",
-          "slice")
+          "slice", "mesh")
 
 
 def phase_list(text: str) -> list[str]:
