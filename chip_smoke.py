@@ -202,6 +202,28 @@ not 0 and no result line is printed):
     exchange; each worker checks that it imported neither jax nor the JAX
     package.
 
+13. the in-loop exchange's cost, ``wrf_tpu_torch.tools.bench_halo``: the
+    coupled loop on a (1,1) mesh with and without ``force_exchange`` under
+    each backend, S=1 and the depth-4 trapezoid, at 128x128x50 and
+    512x512x50 (ms per substep, host clock; overhead in us);
+14. the weak-scaling ladders, ``wrf_tpu_torch.tools.weak_scaling``, over
+    every visible card (rung n on ``cuda:0`` .. ``cuda:n-1``; rung 1 alone
+    on one card) at tiles of 256 and 512 under each backend at S=1 and
+    S=4, one JSON line each;
+15. the mesh over several cards in one process (shard s on ``cuda:s``):
+    placement and ``scatter``/``gather``, the peer-access table and the
+    refusal of a pair without it; K5 on the (2,2) mesh over four cards
+    against its plain version, ``ppermute`` and the one-card mesh (one
+    launch per card per exchange); both loops on (2,1), (3,1) and (2,2)
+    over 2-4 cards under every backend (S=1, ``smdiv``, ``with_w``, S=2,
+    S=4; the mu/t loop at S=1 and S=8) bit-equal to the same mesh on one
+    card and to 1x1; ``run_sim --mesh 2x2`` under each backend and the
+    closed 10-step run in one chunk bit-equal to 1x1; the mu/t loop on
+    (3,1) over three cards at 74x61x32 timed beside BASELINE.md's 0.051
+    ms; a profile of the damped (2,2) substep per card.  A check that
+    needs more cards than are visible prints ``[multicard] not run: N
+    CUDA device(s) visible`` and is not passed.
+
 The last three lines of standard output are the card's name and power
 limit (again), the kernel table ``{"kernels": [...]}`` (eight kernels,
 each with its launches on the main paths, its time, its plain version's
@@ -2053,6 +2075,47 @@ def blocks_different(tag, got, want):
         raise AssertionError(f"{tag}: {n} elements differ")
 
 
+def k5_checks(tag, mesh, make, njl, nil, launch):
+    """K5's entries on ``mesh`` (its blocks' rows at the 512x512x50 loop's
+    size, ``njl`` x ``nil`` owned cells a shard) bit for bit against their
+    plain versions and the ``ppermute`` refresh: ``rdma_rows``,
+    ``remote_refresh_axis`` and ``remote_refresh_multi`` (3-D and 2-D
+    fields mixed, one ``recv_only="hi"``).  ``make(shape, seed)`` gives a
+    field's blocks; ``launch(fn, *args, **kw)`` calls an entry.  Returns
+    the fields ``remote_refresh_multi`` refreshed."""
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel import halo
+
+    K = BIG_GRID[2]
+    J, I = njl + 2, nil + 2
+    rows = make((2, K * I + I), 1)
+    blocks_different(f"{tag} rdma_rows", launch(k5.rdma_rows, rows, "j", mesh),
+                     k5.rdma_rows_plain(rows, "j", mesh))
+    a3, b2, c3 = (make(sh, seed) for seed, sh in
+                  ((2, (J, K, I)), (3, (J, I)), (4, (J, K, I))))
+    got = launch(k5.remote_refresh_axis, clone_blocks(a3), "j", mesh, njl)
+    blocks_different(f"{tag} refresh_axis vs plain", got,
+                     k5.remote_refresh_axis_plain(clone_blocks(a3), "j",
+                                                  mesh, njl))
+    blocks_different(f"{tag} refresh_axis vs ppermute", got,
+                     halo.refresh_axis(clone_blocks(a3), 0, "j", mesh, njl))
+    ro = ("", "", "hi")
+    got = launch(k5.remote_refresh_multi,
+                 [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
+                 recv_only=ro)
+    want = k5.remote_refresh_multi_plain(
+        [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
+        recv_only=ro)
+    perm = [halo.refresh_axis(clone_blocks(x), 0, "j", mesh, njl)
+            for x in (a3, b2, c3)]
+    for c in mesh.coords():   # a recv-only field keeps its LOW halo
+        perm[2][c][0] = c3[c][0]
+    for name, g, w, p in zip("abc", got, want, perm):
+        blocks_different(f"{tag} refresh_multi {name} vs plain", g, w)
+        blocks_different(f"{tag} refresh_multi {name} vs ppermute", g, p)
+    return got
+
+
 def phase_k5_vs_plain(card=""):
     """K5, the ring exchange, against its plain version and against the
     ``ppermute`` refresh: ``rdma_rows``, ``remote_refresh_axis`` and
@@ -2089,36 +2152,9 @@ def phase_k5_vs_plain(card=""):
 
     for (nj, ni), mesh in meshes:
         njl, nil = -(-(ny + 2) // nj), -(-(nx + 2) // ni)
-        J, I = njl + 2, nil + 2
-        tag = f"k5 ring {nj}x{ni} {J}x{K}x{I}"
-        rows = ring_blocks(mesh, (2, K * I + I), 1)
-        blocks_different(f"{tag} rdma_rows",
-                         one_launch(tag, k5.rdma_rows, rows, "j", mesh),
-                         k5.rdma_rows_plain(rows, "j", mesh))
-        a3, b2, c3 = (ring_blocks(mesh, sh, seed) for seed, sh in
-                      ((2, (J, K, I)), (3, (J, I)), (4, (J, K, I))))
-        got = one_launch(tag, k5.remote_refresh_axis, clone_blocks(a3), "j",
-                         mesh, njl)
-        blocks_different(f"{tag} refresh_axis vs plain", got,
-                         k5.remote_refresh_axis_plain(clone_blocks(a3), "j",
-                                                      mesh, njl))
-        blocks_different(f"{tag} refresh_axis vs ppermute", got,
-                         halo.refresh_axis(clone_blocks(a3), 0, "j", mesh,
-                                           njl))
-        ro = ("", "", "hi")
-        got = one_launch(tag, k5.remote_refresh_multi,
-                         [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh,
-                         njl, recv_only=ro)
-        want = k5.remote_refresh_multi_plain(
-            [clone_blocks(x) for x in (a3, b2, c3)], "j", mesh, njl,
-            recv_only=ro)
-        perm = [halo.refresh_axis(clone_blocks(x), 0, "j", mesh, njl)
-                for x in (a3, b2, c3)]
-        for c in mesh.coords():   # a recv-only field keeps its LOW halo
-            perm[2][c][0] = c3[c][0]
-        for name, g, w, p in zip("abc", got, want, perm):
-            blocks_different(f"{tag} refresh_multi {name} vs plain", g, w)
-            blocks_different(f"{tag} refresh_multi {name} vs ppermute", g, p)
+        tag = f"k5 ring {nj}x{ni} {njl + 2}x{K}x{nil + 2}"
+        k5_checks(tag, mesh, functools.partial(ring_blocks, mesh), njl,
+                  nil, functools.partial(one_launch, tag))
         torch.cuda.synchronize()
 
     # times on the 2x2 mesh: what one substep of the mesh loop exchanges
@@ -2517,6 +2553,15 @@ def rk3_vs_oracle(acoustic_steps: int, inner_steps: int, expected: dict,
             raise AssertionError(f"{tag} vs oracle: {r}")
 
 
+def cards_2x2():
+    """The cards ``run_sim --mesh 2x2`` spreads its shards over (the visible
+    ones in order, wrapping round): one on a one-card machine, where K5
+    launches once per substep; one launch per card otherwise."""
+    from wrf_tpu_torch.parallel.mesh import mesh_from_spec
+
+    return len(mesh_from_spec("2x2", "cuda").unique_devices())
+
+
 def phase_slice(tmp: Path, fx: Path):
     """run_sim at 512x512x50 through its entry point, by default and with
     the coupled trapezoid (acoustic_steps=4: stages of 1, 2 and 4
@@ -2536,7 +2581,8 @@ def phase_slice(tmp: Path, fx: Path):
             # K1 per substep (7 substeps x 3 steps), and under rdma K5 once
             # per device per substep
             "2x2 rdma": (("--mesh", "2x2", "--halo-backend", "rdma"),
-                         {"k1": 84, "k3": 0, "k4": 0, "k5": 21}),
+                         {"k1": 84, "k3": 0, "k4": 0,
+                          "k5": 21 * cards_2x2()}),
             "2x2 ppermute": (("--mesh", "2x2"),
                              {"k1": 84, "k3": 0, "k4": 0}),
             # the j exchange inside the kernels: the same K1 launches and
@@ -2569,7 +2615,7 @@ def phase_slice(tmp: Path, fx: Path):
                      {"k1": 21, "k3": 0, "k4": 0})
     runs["smdiv 2x2 rdma"] = (
         damped + ("--mesh", "2x2", "--halo-backend", "rdma"),
-        {"k1": 84, "k3": 0, "k4": 0, "k5": 21})
+        {"k1": 84, "k3": 0, "k4": 0, "k5": 21 * cards_2x2()})
     runs["smdiv 2x2 overlap"] = (
         damped + ("--mesh", "2x2", "--halo-backend", "rdma_overlap"),
         {"k1": 84, "k3": 0, "k4": 0, "k5": 0})
@@ -2988,7 +3034,7 @@ def phase_closure(tmp: Path, fx: Path, card=""):
     # (c) the mesh: four shards on the one card, 10 closed steps
     launches, _, ref = run_sim_text(tmp, fx, "closed_10", *nudge, steps=10,
                                     echo=False)
-    for backend, k5 in (("rdma_overlap", 0), ("rdma", 70)):
+    for backend, k5 in (("rdma_overlap", 0), ("rdma", 70 * cards_2x2())):
         launches, _, got = run_sim_text(
             tmp, fx, f"closed_2x2_{backend}", *nudge, "--mesh", "2x2",
             "--halo-backend", backend, steps=10, echo=False)
@@ -3208,13 +3254,14 @@ def phase_capture_driver(tmp: Path, steps: int = 5, device="cuda"):
 
 
 def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
-                     prepared=None, **kw):
+                     prepared=None, devices=None, **kw):
     """ms per substep of ShardedAdvanceMuT (the coupled SmallStepLoop with
     ``coupled``) by the difference of two step counts, best of ``reps``
     each, so the per-call set-up cancels; every call is read on two
     clocks, the host clock around the call and the synchronise that ends
     it, and CUDA events around the call.  Returns ``(host_ms, events_ms)``.
-    ``mesh_shape``: that many shards, all on the one card.  ``prepared``:
+    ``mesh_shape``: that many shards, all on the one card (on ``devices``,
+    one shard each, when they are given).  ``prepared``:
     a dict that keeps the last layout's arrays on the card between calls
     (the loops leave their prepared arrays alone, and a copy of a
     512x512x50 case to the card costs more than the timed substeps)."""
@@ -3230,8 +3277,9 @@ def loop_marginal_ms(case, counts, reps=5, coupled=False, mesh_shape=None,
     b = case.bounds
     best = {}
     if mesh_shape:
-        kw["mesh"] = make_mesh(["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
-                               mesh_shape)
+        kw["mesh"] = make_mesh(
+            devices or ["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
+            mesh_shape)
     for n in counts:
         if coupled:
             loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=n,
@@ -3485,6 +3533,444 @@ def phase_multiprocess(card="", grid=BIG_GRID, nprocs=(2, 4),
     return res
 
 
+# ---------------------------------------------------------------------------
+# the scaling tools, and the mesh over several cards in one process
+# ---------------------------------------------------------------------------
+#: the grids of the exchange-overhead rows
+HALO_GRIDS = ((128, 128, 50), BIG_GRID)
+#: the local tiles of the weak-scaling ladders
+WEAK_TILES = (256, 512)
+
+
+def phase_halo_overhead(card=""):
+    """``python -m wrf_tpu_torch.tools.bench_halo``'s seven rows at
+    128x128x50 and 512x512x50 on cuda:0: the coupled loop on a (1,1) mesh
+    without an exchange, with ``force_exchange`` under ``ppermute``,
+    ``rdma`` and ``rdma_overlap``, and the depth-4 trapezoid without and
+    with its block exchange (``ppermute``, ``rdma_overlap``); ms per
+    substep on the host clock (two counts, 100 and 400) and each row's
+    overhead against its baseline.  Returns ``{grid: {row: (ms, us)}}``."""
+    from wrf_tpu_torch.tools import bench_halo
+
+    def echo(line, **kw):
+        print(f"[halo overhead] {line} ({card})", **kw)
+
+    return {grid: bench_halo.run(*grid, device="cuda:0", echo=echo)
+            for grid in HALO_GRIDS}
+
+
+def phase_weak_scaling(card=""):
+    """``python -m wrf_tpu_torch.tools.weak_scaling`` over every visible
+    card (rung n on ``cuda:0`` .. ``cuda:n-1``; on one card rung 1 alone)
+    at tiles of 256 and 512 (nz 50), under each backend at S=1 and at
+    ``inner_steps`` 4 (which runs ``ppermute`` under every backend, the
+    JAX tool's rule, so its ladder is timed once and printed per backend
+    with that backend's model): one JSON line per ladder.  Returns
+    ``{(tile, S, backend): record}``."""
+    import torch
+    from wrf_tpu_torch.tools import weak_scaling
+
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    out, timings = {}, {}
+    for tile in WEAK_TILES:
+        for S in (1, 4):
+            for backend in MESH_BACKENDS:
+                rec = weak_scaling.ladder(devices, (tile, tile), 50,
+                                          inner_steps=S,
+                                          halo_backend=backend,
+                                          timings=timings)
+                out[tile, S, backend] = rec
+                print(f"[weak scaling tile {tile} S={S} {backend}] "
+                      f"{json.dumps(rec)} ({card})")
+    return out
+
+
+def cards_for(check, need):
+    """``cuda:0`` .. ``cuda:need-1``, or None after printing that ``check``
+    was not run because fewer cards are visible (it is not passed)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < need:
+        print(f"[multicard] not run: {n} CUDA device(s) visible ({check} "
+              f"needs {need})")
+        return None
+    return [f"cuda:{i}" for i in range(need)]
+
+
+def multicard_placement(card=""):
+    """Every shard of ``mesh_from_spec`` on its own card when enough are
+    visible; ``scatter`` puts each block there and ``gather`` brings them
+    back to ``cuda:0`` bit for bit; the peer-access table; a mesh whose
+    neighbours lack peer access raises, naming both cards."""
+    import torch
+    from wrf_tpu_torch.parallel import mesh as mesh_mod
+    from wrf_tpu_torch.parallel.sharded import gather, scatter
+
+    n = torch.cuda.device_count()
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j)
+              for j in range(n)] for i in range(n)]
+    print(f"[multicard placement] peer access between the {n} card(s): "
+          + "; ".join(f"cuda:{i} -> " + ",".join(
+              str(j) for j in range(n) if peers[i][j] and i != j)
+              for i in range(n)))
+    for spec, need in (("2x1", 2), ("3x1", 3), ("2x2", 4)):
+        if cards_for(f"placement {spec}", need) is None:
+            continue
+        mesh = mesh_mod.mesh_from_spec(spec, "cuda")
+        placed = [str(mesh.device(c)) for c in mesh.coords()]
+        if placed != [f"cuda:{s}" for s in range(need)]:
+            raise AssertionError(f"mesh {spec}: shards on {placed}")
+        nj, ni = mesh.shape
+        g = torch.Generator(device="cuda:0").manual_seed(need)
+        x = torch.randn((nj * 66, 8, ni * 70), device="cuda:0", generator=g)
+        blocks = scatter(x, mesh)
+        where = sorted({str(b.device) for b in blocks.values()})
+        back = gather(blocks, mesh)
+        diff = count_different(back, x)
+        print(f"[multicard placement {spec}] {mesh_mod.describe(mesh)}; "
+              f"blocks on {where}; gather on {back.device} different={diff}")
+        if where != sorted(placed) or back.device != x.device or diff:
+            raise AssertionError(f"mesh {spec}: scatter/gather moved the "
+                                 "blocks wrongly")
+    if cards_for("the peer-access refusal", 2) is None:
+        return
+    real = torch.cuda.can_device_access_peer
+    torch.cuda.can_device_access_peer = lambda a, b: {a, b} != {0, 1}
+    try:
+        mesh_mod.make_mesh(["cuda:0", "cuda:1"], (2, 1))
+    except RuntimeError as e:
+        if "cuda:0" not in str(e) or "cuda:1" not in str(e):
+            raise
+        print(f"[multicard placement] a pair without peer access raises: "
+              f"{e}")
+    else:
+        raise AssertionError("a mesh over cards without peer access was "
+                             "built")
+    finally:
+        torch.cuda.can_device_access_peer = real
+
+
+def multicard_k5(card=""):
+    """K5 across four cards: the (2,2) mesh on ``cuda:0`` .. ``cuda:3``
+    and the same mesh on ``cuda:0``, on identical blocks: every entry
+    bit-equal to its plain version and to the ``ppermute`` refresh
+    (:func:`k5_checks`, at the 512x512x50 loop's row sizes), and the four
+    cards' refreshed fields to the one card's; launches per exchange: one
+    per card (4), against 1 on one card.  Returns the launches of each
+    exchange."""
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+
+    devs = cards_for("k5 across cards", 4)
+    if devs is None:
+        return None
+    nx, ny, _ = BIG_GRID
+    one = make_mesh(["cuda:0"] * 4, (2, 2))
+    launches, res = {}, {}
+    for where, mesh in (("4 cards", make_mesh(devs, (2, 2))),
+                        ("1 card", one)):
+        def make(shape, seed, mesh=mesh):
+            return {c: x.to(mesh.device(c))
+                    for c, x in ring_blocks(one, shape, seed).items()}
+
+        def counted(fn, *args, where=where, **kw):
+            before = k5.LAUNCHES
+            out = fn(*args, **kw)
+            launches[f"{fn.__name__} {where}"] = k5.LAUNCHES - before
+            return out
+
+        res[where] = k5_checks(f"multicard k5 {where}", mesh, make,
+                               (ny + 2) // 2, (nx + 2) // 2, counted)
+    for name, g, w in zip("abc", res["4 cards"], res["1 card"]):
+        blocks_different(f"multicard k5 refresh_multi {name} 4 cards vs 1 "
+                         "card", {c: x.to("cuda:0") for c, x in g.items()}, w)
+    print(f"[multicard k5] launches per exchange: {launches} (one per card)")
+    cards = len(set(devs))
+    want = {f"{fn} {where}": n for where, n in (("4 cards", cards),
+                                               ("1 card", 1))
+            for fn in ("rdma_rows", "remote_refresh_axis",
+                       "remote_refresh_multi")}
+    if launches != want:
+        raise AssertionError(f"k5 launches {launches}, expected {want}")
+    return launches
+
+
+#: the coupled loop's configurations of the multi-card checks: (tag,
+#: keywords, backends)
+MULTICARD_LOOPS = (
+    ("S=1", {}, MESH_BACKENDS),
+    ("S=1 smdiv", dict(smdiv=SMDIV), MESH_BACKENDS),
+    ("S=1 +w", dict(with_w=True), MESH_BACKENDS),
+    ("S=2", dict(inner_steps=2), ("ppermute", "rdma_overlap")),
+    ("S=4", dict(inner_steps=4), ("ppermute", "rdma_overlap")),
+)
+MULTICARD_MESHES = ((2, 1), (3, 1), (2, 2))
+
+
+def multicard_loops(card="", grid=BIG_GRID, n=9):
+    """Both loops on meshes over several cards at ``grid``: the coupled loop
+    on (2,1), (3,1) and (2,2) over 2, 3 and 4 cards (one shard a card)
+    under ``ppermute``, ``rdma`` and ``rdma_overlap`` at S=1 (plain, with
+    ``smdiv``, with ``with_w``) and blocked S=2 and S=4 (``ppermute``,
+    ``rdma_overlap``: ``rdma`` has no width-S exchange), ``n`` substeps;
+    the mu/t loop (``ShardedAdvanceMuT``) at S=1 and S=8 (K2).  Every run
+    bit-equal (``different=`` per field) to the same mesh on one card and
+    to 1x1; K1, K3 and K5 launches as many as on one card but for K5, once
+    per card per substep.  Returns the launches of each multi-card run."""
+    import torch
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
+    from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+    from wrf_tpu_torch.ops import advance_mu_t_msteps_cuda as k2
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import (
+        ShardedAdvanceMuT, case_to_domain,
+    )
+
+    case = case_at(grid, balanced=True)
+    b = case.bounds
+    prepared = {}
+
+    def run(cls, devs, shape, with_w=False, **kw):
+        mesh = make_mesh(devs, shape) if devs else None
+        loop = cls(b.ide, b.jde, b.kdim, case.flags, device="cuda:0",
+                   mesh=mesh, **({"with_w": True} if with_w else {}), **kw)
+        key = (tuple(devs or ()), with_w)
+        if key not in prepared:   # one layout of each kind on the cards
+            for k in [k for k in prepared if k[0] == key[0]]:
+                del prepared[k]
+            prepared[key] = loop.prepare(case_to_domain(case,
+                                                        with_w=with_w))
+        k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+        out = loop(prepared[key], case.rdx, case.rdy, case.dts, case.epssm)
+        torch.cuda.synchronize()
+        return out, {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "k3": k3.LAUNCHES,
+                     "k5": k5.LAUNCHES}
+
+    mut = {"mu/t S=1": dict(n_steps=n), "mu/t S=8": dict(n_steps=n,
+                                                         inner_steps=8)}
+    meshes = [(shape, cards_for(f"the loops on {shape[0]}x{shape[1]} over "
+                                f"{shape[0] * shape[1]} cards",
+                                shape[0] * shape[1]))
+              for shape in MULTICARD_MESHES]
+    out = {}
+    if all(devs is None for _, devs in meshes):
+        return out
+    ref = {tag: run(SmallStepLoop, None, None, n_steps=n, **kw)[0]
+           for tag, kw, _ in MULTICARD_LOOPS}
+    ref.update({tag: run(ShardedAdvanceMuT, None, None, **kw)[0]
+                for tag, kw in mut.items()})
+    for shape, devs in meshes:
+        if devs is None:
+            continue
+        shards = shape[0] * shape[1]
+        for tag, kw, backends in MULTICARD_LOOPS:
+            one, one_n = run(SmallStepLoop, ["cuda:0"] * shards, shape,
+                             n_steps=n, **kw)
+            for backend in backends:
+                got, counts = run(SmallStepLoop, devs, shape, n_steps=n,
+                                  halo_backend=backend, **kw)
+                name = f"{shape[0]}x{shape[1]} {backend} {tag}"
+                want = dict(one_n, k5=(n * len(set(devs))
+                                       if backend == "rdma" else 0))
+                print(f"[multicard loop {name}] launches {counts} (one card, "
+                      f"ppermute: {one_n})")
+                if counts != want:
+                    raise AssertionError(f"multicard {name}: launches "
+                                         f"{counts}, expected {want}")
+                check_state(f"multicard loop {name} vs one card", got, one,
+                            bit_exact=True)
+                check_state(f"multicard loop {name} vs 1x1", got, ref[tag],
+                            bit_exact=True)
+                out[name] = counts
+            del one
+        for tag, kw in mut.items():
+            one, one_n = run(ShardedAdvanceMuT, ["cuda:0"] * shards, shape,
+                             **kw)
+            got, counts = run(ShardedAdvanceMuT, devs, shape, **kw)
+            name = f"{shape[0]}x{shape[1]} {tag}"
+            print(f"[multicard loop {name}] launches {counts}")
+            if counts != one_n:
+                raise AssertionError(f"multicard {name}: launches {counts}, "
+                                     f"one card {one_n}")
+            check_state(f"multicard loop {name} vs one card", got, one,
+                        bit_exact=True)
+            check_state(f"multicard loop {name} vs 1x1", got, ref[tag],
+                        bit_exact=True)
+            out[name] = counts
+    return out
+
+
+def multicard_run_sim(tmp: Path, fx: Path):
+    """The main path over four cards: ``run_sim --mesh 2x2`` (3 large steps
+    at 512x512x50) under each backend bit-equal to 1x1, K1 84 launches and
+    K5 84 under ``rdma`` (one per card per substep); ``run_sim --closure
+    nudge --steps 10 --steps-per-sync 10 --mesh 2x2 --halo-backend
+    rdma_overlap`` bit-equal to the 1x1 run in one chunk.  Returns the
+    launches and ms per large step of each run."""
+    if cards_for("run_sim --mesh 2x2 over four cards", 4) is None:
+        return None
+    res = {}
+    _, ref = run_sim_launches(tmp, fx, "mc_1x1")[1:]
+    for backend in MESH_BACKENDS:
+        launches, step_ms, got = run_sim_launches(
+            tmp, fx, f"mc_2x2_{backend}", "--mesh", "2x2", "--halo-backend",
+            backend)
+        want = {"k1": 84, "k3": 0, "k4": 0,
+                "k5": 21 * cards_2x2() if backend == "rdma" else 0}
+        if launches != want:
+            raise AssertionError(f"run_sim --mesh 2x2 {backend} on four "
+                                 f"cards launched {launches}, expected {want}")
+        check_state(f"multicard run_sim --mesh 2x2 --halo-backend {backend} "
+                    "vs 1x1, step 3", got, ref, bit_exact=True)
+        res[backend] = launches, step_ms
+    nudge = ("--closure", "nudge", "--steps-per-sync", "10")
+    _, _, ref = run_sim_text(tmp, fx, "mc_closed_1x1", *nudge, steps=10,
+                             echo=False)
+    launches, text, got = run_sim_text(
+        tmp, fx, "mc_closed_2x2", *nudge, "--mesh", "2x2", "--halo-backend",
+        "rdma_overlap", steps=10, echo=False)
+    if launches != {"k1": 280, "k3": 0, "k4": 0, "k5": 0}:
+        raise AssertionError(f"closed run on four cards launched {launches}")
+    check_state("multicard run_sim --closure nudge --steps-per-sync 10 "
+                "--mesh 2x2 --halo-backend rdma_overlap vs 1x1, step 10",
+                got, ref, bit_exact=True)
+    res["closed rdma_overlap"] = launches, chunk_ms(text)
+    print(f"[multicard run_sim] ms per large step (steps 1-3): " + "; ".join(
+        f"{k} {', '.join(f'{x:.2f}' for x in v[1])}"
+        for k, v in res.items()))
+    return res
+
+
+def multicard_reference(card=""):
+    """The reference's own decomposition: the mu/t loop
+    (``ShardedAdvanceMuT``, S=1, ``vary_winds``) on a (3,1) mesh over three
+    cards at 74x61x32, ms per substep (two counts, host clock and CUDA
+    events on cuda:0), beside the same mesh on one card and 1x1.  Returns
+    ``{row: (host_ms, events_ms)}``."""
+    devs = cards_for("the (3,1) reference decomposition over three cards",
+                     3)
+    if devs is None:
+        return None
+    case = case_at(REF_GRID, balanced=True)
+    out = {}
+    for tag, kw in (("3x1 over 3 cards", dict(mesh_shape=(3, 1),
+                                              devices=devs)),
+                    ("3x1 on one card", dict(mesh_shape=(3, 1))),
+                    ("1x1", {})):
+        out[tag] = loop_marginal_ms(case, (65, 257), **kw)
+    print("[multicard reference] mu/t loop S=1 at 74x61x32, ms per substep, "
+          "host clock (CUDA events): " + ", ".join(
+              f"{k} {h:.4f} ({e:.4f})" for k, (h, e) in out.items())
+          + f"; BASELINE.md: 0.051 on 3x GTX-680 ({card})")
+    return out
+
+
+def multicard_profile(card="", counts=(9, 33)):
+    """``torch.profiler`` over the damped coupled loop (``smdiv``) at
+    512x512x50 on the (2,2) mesh over four cards, per backend, at two step
+    counts: per substep (the difference of the two traces over the
+    difference of the counts) the host span and, for every card, its busy
+    device ms, K1's launches and us, K5's launches and us and the copy
+    kernels'.  Returns the rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from wrf_tpu_torch.models.small_step import SmallStepLoop
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
+
+    devs = cards_for("the profile over four cards", 4)
+    if devs is None:
+        return None
+    case = case_at(BIG_GRID, balanced=True)
+    b = case.bounds
+    kinds = {"k1": ("advance_mu_t_kernel",), "k5": ("put_kernel",),
+             "copy": ("copy", "Memcpy")}
+    mesh = make_mesh(devs, (2, 2))
+    arrays = None
+
+    def trace(backend, n):
+        nonlocal arrays
+        loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=n,
+                             device="cuda:0", mesh=mesh,
+                             halo_backend=backend, smdiv=SMDIV)
+        if arrays is None:
+            arrays = loop.prepare(case_to_domain(case))
+        loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
+            for d in devs:
+                torch.cuda.synchronize(d)
+            span = (time.perf_counter() - t0) * 1e3
+        row = {"span_ms": span}
+        for d in range(len(devs)):
+            row[d, "busy_ms"] = 0.0
+            for k in kinds:
+                row[d, k + "_n"], row[d, k + "_ms"] = 0, 0.0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            d, ms = e.device_index, e.time_range.elapsed_us() / 1e3
+            if (d, "busy_ms") not in row:
+                continue
+            row[d, "busy_ms"] += ms
+            for k, words in kinds.items():
+                if any(w in e.name for w in words):
+                    row[d, k + "_n"] += 1
+                    row[d, k + "_ms"] += ms
+                    break
+        if not sum(row[d, "busy_ms"] for d in range(len(devs))) > 0:
+            raise AssertionError("torch.profiler traced no device time")
+        return row
+
+    n1, n2 = counts
+    out = {}
+    for backend in MESH_BACKENDS:
+        lo, hi = trace(backend, n1), trace(backend, n2)
+        r = {k: (hi[k] - lo[k]) / (n2 - n1) for k in lo}
+        out[backend] = r
+        for d in range(len(devs)):
+            for k in ("k1", "k5"):
+                r[d, k + "_us_each"] = (1e3 * r[d, k + "_ms"] / r[d, k + "_n"]
+                                        if r[d, k + "_n"] else 0.0)
+        print(f"[multicard profile smdiv 2x2 {backend}] per substep "
+              f"(n={n1}/{n2}), four cards: host span {r['span_ms']:.4f} ms "
+              "under the profiler; " + "; ".join(
+                  f"cuda:{d} busy {r[d, 'busy_ms']:.4f} ms "
+                  f"({100 * r[d, 'busy_ms'] / r['span_ms']:.1f} %), K1 "
+                  f"{r[d, 'k1_n']:.2f} x {r[d, 'k1_us_each']:.1f} us, K5 "
+                  f"{r[d, 'k5_n']:.2f} x {r[d, 'k5_us_each']:.2f} us, copies "
+                  f"{r[d, 'copy_n']:.2f}, {r[d, 'copy_ms']:.4f} ms"
+                  for d in range(len(devs))) + f" ({card})")
+    return out
+
+
+def phase_multicard(tmp: Path, fx: Path, card=""):
+    """The mesh over several cards in one process (shard s on ``cuda:s``):
+    placement, K5 across cards, both loops on (2,1), (3,1) and (2,2) under
+    every backend, ``run_sim --mesh 2x2`` and its closed run, the
+    reference's (3,1) decomposition and a profile of the damped (2,2)
+    substep over four cards.  A check that needs more cards than are
+    visible prints ``[multicard] not run: N CUDA device(s) visible`` and
+    is not passed.  Returns the readings (None where not run)."""
+    return {"placement": timed("multicard placement", multicard_placement,
+                               card=card),
+            "k5": timed("multicard k5", multicard_k5, card=card),
+            "loops": timed("multicard loops", multicard_loops, card=card),
+            "run_sim": timed("multicard run_sim", multicard_run_sim, tmp,
+                             fx),
+            "reference": timed("multicard reference", multicard_reference,
+                               card=card),
+            "profile": timed("multicard profile", multicard_profile,
+                             card=card)}
+
+
 #: the H100 SXM's data-sheet peaks the bounds are taken against: device
 #: memory bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -3651,11 +4137,15 @@ def main() -> int:
         drv = timed("driver", phase_driver, tmp, fx_big, big_steps)
         timed("driver --dump-intermediates and the native executable",
               phase_capture_driver, tmp)
+        multicard = timed("multicard", phase_multicard, tmp, fx_big,
+                          card=smi)
     loops, loops_ev = timed("loop timings", phase_loop_timings, card=smi)
     profile = timed("profile of the damped 2x2 loop", phase_mesh_profile,
                     card=smi)
     multiprocess = timed("loops across processes", phase_multiprocess,
                          card=smi)
+    halo_rows = timed("halo overhead", phase_halo_overhead, card=smi)
+    weak = timed("weak scaling", phase_weak_scaling, card=smi)
     borrowed = [m for m in sys.modules
                 if m == "jax" or m == "wrf_tpu" or m.startswith("wrf_tpu.")]
     if borrowed:
@@ -3731,6 +4221,28 @@ def main() -> int:
         print(f"[slice] run_sim {run}: step 3 alone {sim[run][1][2]:.3f} ms "
               f"({smi})")
 
+    for grid, rows in halo_rows.items():
+        print(f"[halo overhead] {'x'.join(map(str, grid))}, us per substep "
+              "over the baseline: " + ", ".join(
+                  f"{k} {us:.1f}" for k, (_, us) in rows.items())
+              + f" ({smi})")
+    for (tile, S, backend), rec in weak.items():
+        print(f"[weak scaling] tile {tile} S={S} {backend}: " + ", ".join(
+            f"{r['n_devices']} card(s) {r['ms_per_substep']:.4f} ms "
+            f"(efficiency {r['efficiency']})" for r in rec["ladder"])
+            + f"; pass_80pct {rec['pass_80pct']} ({smi})")
+    mc_sim = multicard["run_sim"]
+    mc_prof = multicard["profile"]
+
+    def per_card(kind):
+        """A kernel's launches and us per substep on each of the four cards
+        in the profile of the damped (2,2) loop (None: not run)."""
+        if mc_prof is None:
+            return None
+        return {backend: {f"cuda:{d}": {
+            "launches": r[d, kind + "_n"], "us_each": r[d, kind + "_us_each"]}
+            for d in range(4)} for backend, r in mc_prof.items()}
+
     print(smi)   # again, close to the end: the log is long
     print(json.dumps({"kernels": [{
         "name": "advance_mu_t_fused",
@@ -3768,6 +4280,13 @@ def main() -> int:
             "driver coupled S=4": drv["coupled"]["k1"],
             "driver coupled S=4 --with-w": drv["coupled +w"]["k1"]},
         "max_abs_err": k1_abs,
+        # the (2,2) mesh over four cards, one shard a card (None where
+        # fewer cards are visible): run_sim's launches and the profile
+        "multicard": None if mc_sim is None else {
+            "launches_by_path": {
+                f"run_sim --mesh 2x2 --halo-backend {b}, four cards":
+                    mc_sim[b][0]["k1"] for b in MESH_BACKENDS},
+            "profile_smdiv_2x2_per_card": per_card("k1")},
         # ms per launch at 516x50x516: run_sim's fused scan substep
         "ms": mean(k1_times[BIG_GRID, "scan"]["cuda"]),
         "plain_ms": mean(k1_times[BIG_GRID, "scan"]["plain"]),
@@ -3865,6 +4384,15 @@ def main() -> int:
             "run_sim --closure nudge --inner-steps 2 --profile, 3 steps":
                 closure["launches"]["profile S=2"]["k3"]},
         "max_abs_err": k3_abs["k3"],
+        # the blocked loops over several cards (None where fewer cards are
+        # visible): K3 launches of the (2,2) mesh over four cards, 9
+        # substeps, S=2 and S=4 under rdma_overlap
+        "multicard": None if "2x2 rdma_overlap S=2" not in multicard[
+            "loops"] else {
+            "launches_by_path": {
+                f"SmallStepLoop 2x2 rdma_overlap {S}, four cards":
+                    multicard["loops"][f"2x2 rdma_overlap {S}"]["k3"]
+                for S in ("S=2", "S=4")}},
         # ms per substep (per launch / S) at 512x512x50, exact S=2 (the
         # run_sim path's depth); every mode in ms_by_mode
         "ms": ms_of(k3_times, "exact S=2")["cuda"],
@@ -3947,6 +4475,14 @@ def main() -> int:
             "SmallStepLoop 2x2 rdma_overlap, 5 substeps":
                 ov_launches[(2, 2), "S=1"]["k5"]},
         "max_abs_err": 0.0,
+        # the (2,2) mesh over four cards, one launch per card per exchange
+        # writing into the peers' blocks (None where fewer are visible)
+        "multicard": None if mc_sim is None else {
+            "launches_by_path": {
+                "run_sim --mesh 2x2 --halo-backend rdma, four cards":
+                    mc_sim["rdma"][0]["k5"]},
+            "launches_per_exchange": multicard["k5"],
+            "profile_smdiv_2x2_per_card": per_card("k5")},
         # marginal ms per launch, one 2x2 exchange (every shard's mu rows
         # both ways and v row up, at the 2x2 mesh's row size), between two
         # chains of exchanges through the wrapper, on CUDA events (host_ms:

@@ -53,6 +53,7 @@ import functools
 import torch
 
 from .. import _build
+from ..parallel.halo import count_sent
 
 #: CUDA kernel launches since import (one per device per exchange, and only
 #: there)
@@ -281,6 +282,8 @@ def rdma_rows(rows: dict, axis_name: str, mesh, *,
     recv = {c: torch.empty_like(r) for c, r in rows.items()}
     _exchange([rows, recv], ("rows", "recv"),
               _rows_rings(rows, recv, axis_name, mesh), plain)
+    row = next(iter(rows.values())).stride(0)   # elements of one slot
+    count_sent(f"rdma {axis_name}", 2 * len(rows), 8 * len(rows) * row)
     return recv
 
 
@@ -321,6 +324,13 @@ def _refresh(fields, axis_name, mesh, n_interior, recv_only, plain):
     _exchange(fields, _field_names(len(fields)),
               _refresh_rings(fields, axis_name, mesh, n_interior, ro),
               plain)
+    # one segment (a row, as long in every block of a field) per shard
+    # and direction; a "hi" field's shards send only their first row
+    n = len(fields[0])
+    rows = [(1 if r == "hi" else 2, next(iter(f.values())).stride(0))
+            for f, r in zip(fields, ro)]
+    count_sent(f"rdma {axis_name}", n * sum(m for m, _ in rows),
+               4 * n * sum(m * row for m, row in rows))
 
 
 def remote_refresh_axis(blocks: dict, axis_name: str, mesh,

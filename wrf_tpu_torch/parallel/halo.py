@@ -35,14 +35,35 @@ advance information S cells, so the blocked loop reads mu S rows deep and
 u/v S-1 rows deep around each row it updates, exchanged 1/S as often at S
 times the width.  The port's blocks carry no alignment rows after the
 ring, so the layout is ``[lo_S..lo1, interior, hi1..hi_S]``.
+
+Every exchange counts what it moves in :data:`SENT`: a plain count, kept
+for ``tools/scaling_report.py``, which reads it around a loop's call; no
+exchange times itself, and no loop reads the count.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
 
 from . import distributed
+
+#: what the exchanges of this process moved since import, by the function
+#: that moved it and the mesh axis (``"exchange_axis j"``,
+#: ``"refresh_axis_w i"``, ``"widen_ring_to j"`` here; ``"rdma j"`` for
+#: K5, ``ops/halo_rdma_cuda.py``): ``(kind, "messages")`` counts one slab
+#: that one shard receives from one neighbour, ``(kind, "bytes")`` its
+#: bytes, summed over this process's shards.  Read it as a difference
+#: around a call.
+SENT: collections.Counter = collections.Counter()
+
+
+def count_sent(kind: str, messages: int, nbytes: int) -> None:
+    """Add one exchange's messages and bytes to :data:`SENT`."""
+    SENT[kind, "messages"] += messages
+    SENT[kind, "bytes"] += nbytes
 
 
 def _n_int(x: torch.Tensor, axis: int, n_interior, ring: int = 1) -> int:
@@ -55,7 +76,7 @@ def _recv(src: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def neighbour_slabs(blocks: dict, mesh, axis_name: str, to_next,
-                    to_prev) -> dict:
+                    to_prev, kind: str) -> dict:
     """``{c: (from_prev, from_next)}`` for every shard ``c`` of ``blocks``:
     ``to_next(b)`` is the slab a shard's block ``b`` gives its next
     neighbour along ``axis_name`` and ``to_prev(b)`` the one it gives its
@@ -63,7 +84,8 @@ def neighbour_slabs(blocks: dict, mesh, axis_name: str, to_next,
     block have one shape).  A slab from a shard of
     this process is that view itself; one from another rank arrives in a
     new tensor, all of them through one :func:`distributed.p2p` batch, in
-    the order of the mesh's cached plan (:meth:`Mesh.exchange_plan`)."""
+    the order of the mesh's cached plan (:meth:`Mesh.exchange_plan`).
+    ``kind`` names the caller in :data:`SENT` (two messages a shard)."""
     sources, outgoing, incoming = mesh.exchange_plan(axis_name)
     give = (to_next, to_prev)
     recvs = [torch.empty_like(to_next(blocks[d]),
@@ -73,9 +95,13 @@ def neighbour_slabs(blocks: dict, mesh, axis_name: str, to_next,
         mesh, [(r, tag, give[slot](blocks[s]))
                for r, tag, s, slot in outgoing],
         [(r, tag, x) for (r, tag, _), x in zip(incoming, recvs)])
-    return {c: tuple(give[slot](blocks[s]) if isinstance(s, tuple)
-                     else recvs[s] for slot, s in enumerate(src))
-            for c, src in sources.items()}
+    out = {c: tuple(give[slot](blocks[s]) if isinstance(s, tuple)
+                    else recvs[s] for slot, s in enumerate(src))
+           for c, src in sources.items()}
+    slab = next(iter(out.values()))[0]   # sized from a slab made above
+    count_sent(f"{kind} {axis_name}", 2 * len(out),
+               2 * len(out) * slab.numel() * slab.element_size())
+    return out
 
 
 def exchange_axis(blocks: dict, axis: int, axis_name: str, mesh) -> dict:
@@ -85,7 +111,7 @@ def exchange_axis(blocks: dict, axis: int, axis_name: str, mesh) -> dict:
     slabs = neighbour_slabs(
         blocks, mesh, axis_name,
         lambda b: b.narrow(axis, b.shape[axis] - 1, 1),
-        lambda b: b.narrow(axis, 0, 1))
+        lambda b: b.narrow(axis, 0, 1), "exchange_axis")
     return {c: torch.cat([_recv(slabs[c][0], x), x, _recv(slabs[c][1], x)],
                          dim=axis)
             for c, x in blocks.items()}
@@ -155,7 +181,8 @@ def refresh_axis_w(blocks: dict, axis: int, axis_name: str, mesh,
     n = _n_int(next(iter(blocks.values())), axis, n_interior, R)
     slabs = neighbour_slabs(blocks, mesh, axis_name,
                             lambda b: b.narrow(axis, n, R),   # my last R
-                            lambda b: b.narrow(axis, R, R))   # my first R
+                            lambda b: b.narrow(axis, R, R),   # my first R
+                            "refresh_axis_w")
     for c, x in blocks.items():
         x.narrow(axis, 0, R).copy_(slabs[c][0], non_blocking=True)
         x.narrow(axis, n + R, R).copy_(slabs[c][1], non_blocking=True)
@@ -196,7 +223,8 @@ def widen_ring_to(x, axis: int, width: int, axis_name: str | None = None,
     # extra high cells the next shard's interior [1, R)
     slabs = neighbour_slabs(x, mesh, axis_name,
                             lambda b: b.narrow(axis, n - R + 1, R - 1),
-                            lambda b: b.narrow(axis, 2, R - 1))
+                            lambda b: b.narrow(axis, 2, R - 1),
+                            "widen_ring_to")
     return {c: torch.cat([_recv(slabs[c][0], b), b, _recv(slabs[c][1], b)],
                          dim=axis)
             for c, b in x.items()}
