@@ -2212,6 +2212,165 @@ def phase_k5_vs_plain(card=""):
     return out, host, nbytes
 
 
+def phase_ipc_vs_plain(card="", rounds=3):
+    """The two kernels of the exchange across processes
+    (``csrc/halo_ipc.cu``: the signalled put and the wait) in this process,
+    through ``loopback``: every ring message of the (2,2) mesh on cuda:0
+    goes through this process's own mailbox, as if every neighbour sat in
+    another process, at the 512x512x50 loop's row sizes.  Over ``rounds``
+    exchanges (both slot parities, and the releases), bit for bit: the
+    ``rdma`` form (the wait scatters mu's rows both ways and v's up into
+    the halo rows) against its plain version, K5 and the ``ppermute``
+    refresh; the ``rdma_overlap`` form (the rows stay in the mailbox) of
+    K1's rows and of K3's S=2 slabs against its plain version and the rows
+    where they lie.  Every loopback exchange is one put and one wait launch
+    and no K5 launch, and no error word is set.  Then the times per
+    exchange (CUDA events, host clock beside; order plain, library,
+    kernel, kernel, library, plain): the ``rdma`` form, its plain version,
+    the ``ppermute`` refresh (``Tensor.copy_``) and ``torch.cat`` of the
+    same rows (one call that packs what the put packs); the ``rdma_overlap``
+    form and its plain version; and each kernel's device time per launch
+    in a ``torch.profiler`` trace of 40 exchanges of each form.  Returns
+    ``{"ms": ..., "host_ms": ..., "device_us": ..., "bytes": ...}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel import halo
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+
+    nx, ny, K = BIG_GRID
+    mesh = make_mesh(["cuda:0"] * 4, (2, 2))
+    njl, nil = (ny + 2) // 2, (nx + 2) // 2
+    S = 2
+
+    def counted(tag, fn):
+        before = (k5.LAUNCHES, k5.PUT_LAUNCHES, k5.WAIT_LAUNCHES)
+        out = fn()
+        got = tuple(a - b for a, b in zip(
+            (k5.LAUNCHES, k5.PUT_LAUNCHES, k5.WAIT_LAUNCHES), before))
+        if got != (0, 1, 1):
+            raise AssertionError(f"{tag}: K5, put, wait launches {got} for "
+                                 "one loopback exchange (expected 0, 1, 1)")
+        return out
+
+    ro = ("", "hi")
+    for r in range(rounds):
+        mu = ring_blocks(mesh, (njl + 2, nil + 2), 10 + r)
+        v = ring_blocks(mesh, (njl + 2, K, nil + 2), 20 + r)
+        got = counted("ipc rdma", lambda: k5.remote_refresh_multi(
+            [clone_blocks(mu), clone_blocks(v)], "j", mesh, njl,
+            recv_only=ro, loopback=True))
+        plain = k5.remote_refresh_multi_plain(
+            [clone_blocks(mu), clone_blocks(v)], "j", mesh, njl,
+            recv_only=ro, loopback=True)
+        inproc = k5.remote_refresh_multi([clone_blocks(mu), clone_blocks(v)],
+                                         "j", mesh, njl, recv_only=ro)
+        perm = [halo.refresh_axis(clone_blocks(x), 0, "j", mesh, njl)
+                for x in (mu, v)]
+        for c in mesh.coords():   # a recv-only field keeps its LOW halo
+            perm[1][c][0] = v[c][0]
+        for name, g, pl, k, pp in zip(("mu", "v"), got, plain, inproc, perm):
+            blocks_different(f"ipc rdma {name} round {r} vs plain", g, pl)
+            blocks_different(f"ipc rdma {name} round {r} vs K5", g, k)
+            blocks_different(f"ipc rdma {name} round {r} vs ppermute", g, pp)
+        # the overlap form: K1's rows, then K3's S=2 slabs on ring-2 blocks
+        k1_spec = ([("mu_lo", mu, njl, 1)],
+                   [("mu_hi", mu, 1, 1), ("v_hi", v, 1, 1)])
+        wide = {n: ring_blocks(mesh, (njl + 2 * S,) + ((K,) if n != "mu"
+                                                     else ())
+                               + (nil + 2 * S,), 30 + 3 * r + q)
+                for q, n in enumerate(("mu", "u", "v"))}
+        k3_spec = ([(n + "_lo", wide[n], njl, S) for n in wide],
+                   [(n + "_hi", wide[n], S, S) for n in wide])
+        for form, (to_next, to_prev) in (("k1 rows", k1_spec),
+                                         ("k3 S=2 slabs", k3_spec)):
+            got = counted(f"ipc overlap {form}",
+                          lambda: k5.Mailbox.neighbour_rows(
+                              mesh, "j", to_next, to_prev, loopback=True))
+            plain = k5.Mailbox.neighbour_rows(mesh, "j", to_next, to_prev,
+                                              plain=True, loopback=True)
+            where = {c: {} for c in mesh.coords()}
+            for shift, lst in ((-1, to_next), (1, to_prev)):
+                for c in mesh.coords():
+                    nb = mesh.neighbour(c, "j", shift)
+                    for name, blocks, row, n in lst:
+                        where[c][name] = blocks[nb][row:row + n]
+            for name in where[0, 0]:
+                blocks_different(
+                    f"ipc overlap {form} {name} round {r} vs plain",
+                    {c: g[name] for c, g in got.items()},
+                    {c: g[name] for c, g in plain.items()})
+                blocks_different(
+                    f"ipc overlap {form} {name} round {r} vs the rows",
+                    {c: g[name] for c, g in got.items()},
+                    {c: w[name] for c, w in where.items()})
+    torch.cuda.synchronize()
+    for box in mesh.mailboxes.values():
+        box.raise_if_failed()
+
+    # times: what one substep of the (2,2) loop exchanges
+    mu = ring_blocks(mesh, (njl + 2, nil + 2), 5)
+    v = ring_blocks(mesh, (njl + 2, K, nil + 2), 6)
+    rows = [x[c][r] for c in mesh.coords()
+            for x, r in ((mu, njl), (mu, 1), (v, 1))]
+    nbytes = 4 * sum(x.numel() for x in rows)
+    forms = {
+        "rdma": lambda: k5.remote_refresh_multi(
+            [mu, v], "j", mesh, njl, recv_only=ro, loopback=True),
+        "rdma plain": lambda: k5.remote_refresh_multi_plain(
+            [mu, v], "j", mesh, njl, recv_only=ro, loopback=True),
+        "ppermute": lambda: [halo.refresh_axis(x, 0, "j", mesh, njl)
+                             for x in (mu, v)],
+        "cat": lambda: torch.cat([x.reshape(-1) for x in rows]),
+        "overlap": lambda: k5.Mailbox.neighbour_rows(
+            mesh, "j", [("mu_lo", mu, njl, 1)],
+            [("mu_hi", mu, 1, 1), ("v_hi", v, 1, 1)], loopback=True),
+        "overlap plain": lambda: k5.Mailbox.neighbour_rows(
+            mesh, "j", [("mu_lo", mu, njl, 1)],
+            [("mu_hi", mu, 1, 1), ("v_hi", v, 1, 1)], plain=True,
+            loopback=True)}
+    ms = {k: [] for k in forms}
+    host = {k: [] for k in forms}
+    order = ("rdma plain", "overlap plain", "ppermute", "cat", "rdma",
+             "overlap")
+    for name in order + order[::-1]:
+        ev, hc = chain_marginal_ms(lambda i: forms[name](), n1=20, n2=100,
+                                   repeats=5)
+        ms[name].append(ev)
+        host[name].append(hc)
+    device_us = {}
+    for form in ("rdma", "overlap"):
+        forms[form]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(40):
+                forms[form]()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            for kern in ("mailbox_put", "mailbox_wait"):
+                if kern in e.key and e.count:
+                    us = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                    device_us[form, kern] = us / e.count
+    torch.cuda.synchronize()
+    for box in mesh.mailboxes.values():
+        box.raise_if_failed()
+    mesh.mailboxes.clear()
+    print(f"[ipc time 2x2 loopback, rows of {nil + 2}, {nbytes} bytes an "
+          f"exchange] marginal ms per exchange, CUDA events (host clock): "
+          + ", ".join(f"{k} " + " / ".join(f"{x:.5f}" for x in ms[k])
+                      + " (" + " / ".join(f"{x:.5f}" for x in host[k]) + ")"
+                      for k in order)
+          + "; device us per launch (profile of 40): " + ", ".join(
+              f"{f} {k} {u:.2f}" for (f, k), u in device_us.items())
+          + f" ({card})")
+    if not all((f, k) in device_us for f in ("rdma", "overlap")
+               for k in ("mailbox_put", "mailbox_wait")):
+        raise AssertionError(f"the profile saw {sorted(device_us)}")
+    return {"ms": ms, "host_ms": host, "device_us": device_us,
+            "bytes": nbytes}
+
+
 def phase_mesh_loops():
     """The loops on a mesh at the full 512x512x50 width, four (or one)
     shards on the one card: the coupled loop on (2,2) and (4,1) under both
@@ -3472,64 +3631,132 @@ MULTIPROCESS_LAUNCHES = {
     "mu_t S=8": {"k1": 1, "k2": 2, "k3": 0},
     "rk3": {"k1": 21, "k2": 0, "k3": 0},
     "exchange": {"k1": 0, "k2": 0, "k3": 0},
+    "coupled S=1 rdma": {"k1": 9, "k2": 0, "k3": 0},
+    "coupled S=1 rdma_overlap": {"k1": 9, "k2": 0, "k3": 0},
+    "coupled S=2 rdma_overlap": {"k1": 1, "k2": 0, "k3": 4},
+    "rk3 rdma_overlap": {"k1": 21, "k2": 0, "k3": 0},
+    "rdma exchange": {"k1": 0, "k2": 0, "k3": 0},
+}
+#: the j exchanges of each program through the rdma backends: one K5
+#: launch per card each in one process under ``rdma`` (none under
+#: ``rdma_overlap``, whose K1 and K3 read the rows in place); across
+#: processes on (2,2) every j neighbour sits in another process, so one put
+#: and one wait launch per process each, and no K5.  S=2: 4 slab exchanges
+#: and the final substep's rows; the transport alone: 21 ``rdma_rows`` and
+#: 21 ``remote_refresh_multi``
+MULTIPROCESS_EXCHANGES = {
+    "coupled S=1 rdma": ("rdma", 9),
+    "coupled S=1 rdma_overlap": ("rdma_overlap", 9),
+    "coupled S=2 rdma_overlap": ("rdma_overlap", 5),
+    "rk3 rdma_overlap": ("rdma_overlap", 21),
+    "rdma exchange": ("rdma", 42),
 }
 
 
+def expected_launches(tag, n_shards, n_cards, across):
+    """What a process of the multi-process phase launches for program
+    ``tag``: K1-K3 per shard, K5 per card and exchange in one process, the
+    signalled put and the wait per exchange across processes."""
+    want = {k: n * n_shards for k, n in MULTIPROCESS_LAUNCHES[tag].items()}
+    backend, n = MULTIPROCESS_EXCHANGES.get(tag, ("ppermute", 0))
+    want["k5"] = n * n_cards if backend == "rdma" and not across else 0
+    want["put"] = want["wait"] = n if across else 0
+    return want
+
+
+def describe_reports(reports):
+    """One line of a process's programs: launches, ms, step ms."""
+    out = []
+    for tag, r in reports.items():
+        line = f"{tag} {r['launches']} {r['ms']:.1f} ms"
+        if "step_ms" in r:
+            line += (" (ms per large step "
+                     + ", ".join(f"{x:.2f}" for x in r["step_ms"]) + ")")
+        if tag == "exchange":
+            line += " (" + ", ".join(
+                f"{k} {r[k + ' ms']:.4f} ms, {r[k + ' bytes sent']} B"
+                for k in ("v j", "mu j", "mu i", "t gather")) + ")"
+        if tag == "rdma exchange":
+            line += " (" + ", ".join(
+                f"{k} {r[k + ' ms']:.4f} ms"
+                for k in ("rdma_rows", "remote_refresh_multi")) + ")"
+        out.append(line)
+    return "; ".join(out)
+
+
+def check_launches(what, reports, n_shards, n_cards, across):
+    for tag, r in reports.items():
+        want = expected_launches(tag, n_shards, n_cards, across)
+        if r["launches"] != want:
+            raise AssertionError(f"{what} {tag}: launches {r['launches']}, "
+                                 f"expected {want}")
+
+
+def multiprocess_runs(label, nprocs, backend, ref, doms, grid, timeout,
+                      card):
+    """``multihost_check.run`` of the "chip" suite at each process count
+    against the one-process ``ref``: a ``different=`` line per program, each
+    rank's launches against its share and its programs' ms; raises on any
+    difference.  Returns ``{nproc: result}``."""
+    from wrf_tpu_torch.tools import multihost_check as mh
+
+    out = {}
+    for nproc in nprocs:
+        r = mh.run(nproc, "cuda", suite_name="chip", grid=grid,
+                   mesh_shape=(2, 2), backend=backend, timeout=timeout,
+                   doms=doms, ref=ref)
+        for tag in dict.fromkeys(k.split("/")[0] for k in r["different"]):
+            diff = {k.split("/")[1]: d for k, d in r["different"].items()
+                    if k.split("/")[0] == tag}
+            print(f"[multiprocess {nproc} {label}] {tag}: different= "
+                  f"{json.dumps(diff)}")
+        for rep in r["ranks"]:
+            check_launches(f"{nproc} {label} rank {rep['rank']}",
+                           rep["programs"], len(rep["shards"]), 1, True)
+            print(f"[multiprocess {nproc} {label} rank {rep['rank']} "
+                  f"shards {rep['shards']}] "
+                  f"{describe_reports(rep['programs'])} ({card})")
+        bad = {k: d for k, d in r["different"].items() if d}
+        if bad:
+            raise AssertionError(f"{nproc} {label} differ from one "
+                                 f"process: {bad}")
+        out[nproc] = r
+    return out
+
+
 def phase_multiprocess(card="", grid=BIG_GRID, nprocs=(2, 4),
-                       timeout=300.0):
-    """The loops across processes on the one card: the main path's
-    programs (``multihost_check``'s "chip" suite) on the (2,2) mesh at
-    ``grid`` in 2 and 4 gloo processes on ``cuda:0``, each field held bit
-    for bit against the one-process (2,2) run in this process; every
-    rank's launches must be its shards' share.  Returns ``{"reference":
-    reports, nproc: multihost_check.run's result}``."""
+                       timeout=400.0):
+    """The loops across processes: the main path's programs
+    (``multihost_check``'s "chip" suite: the loops under ``ppermute``, then
+    under ``rdma`` and ``rdma_overlap``, whose j exchange crosses processes
+    through the mailboxes, and the rdma transport alone) on the (2,2) mesh
+    at ``grid`` in 2 and 4 gloo processes on ``cuda:0``, each field held
+    bit for bit against the one-process (2,2) run in this process; every
+    rank's K1-K3 launches must be its shards' share and its put and wait
+    launches one per exchange.  Where four cards are visible, the same over
+    4 NCCL ranks, one card each, against one process over the four cards.
+    Returns ``{"reference": reports, nproc: multihost_check.run's result,
+    "nccl": None or {"reference": ..., 4: ...}}``."""
     from wrf_tpu_torch.tools import multihost_check as mh
 
     progs = mh.suite("chip", grid)
     doms = mh.domains(progs)
     ref = mh.reference(progs, doms, "cuda", (2, 2), 1)
-
-    def check_launches(what, reports, n_shards):
-        for tag, r in reports.items():
-            want = {k: n * n_shards
-                    for k, n in MULTIPROCESS_LAUNCHES[tag].items()}
-            if r["launches"] != want:
-                raise AssertionError(f"{what} {tag}: launches "
-                                     f"{r['launches']}, expected {want}")
-
-    def describe_reports(reports):
-        out = []
-        for tag, r in reports.items():
-            line = f"{tag} {r['launches']} {r['ms']:.1f} ms"
-            if "step_ms" in r:
-                line += (" (ms per large step "
-                         + ", ".join(f"{x:.2f}" for x in r["step_ms"]) + ")")
-            if tag == "exchange":
-                line += " (" + ", ".join(
-                    f"{k} {r[k + ' ms']:.4f} ms, {r[k + ' bytes sent']} B"
-                    for k in ("v j", "mu j", "mu i", "t gather")) + ")"
-            out.append(line)
-        return "; ".join(out)
-
-    check_launches("one process", ref[1], 4)
+    check_launches("one process", ref[1], 4, 1, False)
     print(f"[multiprocess 1 process 2x2 {grid}] {describe_reports(ref[1])} "
           f"({card})")
     res = {"reference": ref[1]}
-    for nproc in nprocs:
-        r = mh.run(nproc, "cuda", suite_name="chip", grid=grid,
-                   mesh_shape=(2, 2), timeout=timeout, doms=doms, ref=ref)
-        print(f"[multiprocess {nproc} processes 2x2 gloo cuda:0] different= "
-              f"{json.dumps(r['different'])}")
-        for rep in r["ranks"]:
-            check_launches(f"{nproc} processes rank {rep['rank']}",
-                           rep["programs"], len(rep["shards"]))
-            print(f"[multiprocess {nproc} processes rank {rep['rank']} "
-                  f"shards {rep['shards']}] "
-                  f"{describe_reports(rep['programs'])} ({card})")
-        bad = {k: d for k, d in r["different"].items() if d}
-        if bad:
-            raise AssertionError(f"{nproc} processes differ from one: {bad}")
-        res[nproc] = r
+    res.update(multiprocess_runs("processes 2x2 gloo cuda:0", nprocs, "gloo",
+                                 ref, doms, grid, timeout, card))
+    res["nccl"] = None
+    if cards_for("the loops over 4 NCCL ranks", 4) is not None:
+        ref4 = mh.reference(progs, doms, "cuda", (2, 2), 4, "nccl")
+        check_launches("one process on four cards", ref4[1], 4, 4, False)
+        print(f"[multiprocess 1 process 2x2 four cards {grid}] "
+              f"{describe_reports(ref4[1])} ({card})")
+        res["nccl"] = {"reference": ref4[1], **multiprocess_runs(
+            "NCCL ranks 2x2, a card each", (4,), "nccl", ref4, doms, grid,
+            timeout, card)}
     return res
 
 
@@ -4076,6 +4303,55 @@ def k3_staged_bytes():
         f"{r} {n / 1e6:.1f} MB ({forms[r]})" for r, n in nbytes.items()))
 
 
+def ipc_kernel_rows(ipc, multiprocess):
+    """The ``kernels`` line's rows of the signalled put and the wait: their
+    launches on the main path (rank 0 of the 4-process run, every program;
+    each program and process count by path), their device time per launch
+    in the loopback profile (the ``rdma`` form), the plain version's time
+    per exchange (packing and scatter by indexing), the bound of the bytes
+    one exchange moves (read once, written once), and ``torch.cat`` of the
+    same rows (what the put packs) as the put's library yardstick."""
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    by_path = {}
+    for nproc in (2, 4):
+        for rep in multiprocess[nproc]["ranks"]:
+            for tag, r in rep["programs"].items():
+                if r["launches"]["put"]:
+                    by_path[f"{tag}, {nproc} processes, rank "
+                            f"{rep['rank']}"] = {
+                        k: r["launches"][k] for k in ("put", "wait")}
+    rank0 = multiprocess[4]["ranks"][0]["programs"].values()
+    bound = 2 * ipc["bytes"] / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for kern, name, library in (("mailbox_put", "put", mean(ipc["ms"]["cat"])),
+                                ("mailbox_wait", "wait", None)):
+        rows.append({
+            "name": {"put": "halo_ipc signalled put",
+                     "wait": "halo_ipc wait"}[name],
+            "route": "cuda",
+            "source": "wrf_tpu_torch/csrc/halo_ipc.cu",
+            "replaces": "wrf_tpu/parallel/halo.py:156",
+            "launches": sum(r["launches"][name] for r in rank0),
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            "max_abs_err": 0.0,
+            # device ms per launch in the loopback profile, rdma form
+            # (the overlap form's wait copies nothing: overlap_ms)
+            "ms": ipc["device_us"]["rdma", kern] / 1e3,
+            "overlap_ms": ipc["device_us"]["overlap", kern] / 1e3,
+            # the plain version of one loopback exchange (events)
+            "plain_ms": mean(ipc["ms"]["rdma plain"]),
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library,
+            "bytes_per_exchange": ipc["bytes"],
+            # the whole loopback exchange through the wrapper, put and wait
+            "exchange_ms": mean(ipc["ms"]["rdma"]),
+            "exchange_host_ms": mean(ipc["host_ms"]["rdma"]),
+        })
+    return rows
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, printing its wall time (host clock) as
     ``[time] name: N s``: where the script's run time goes."""
@@ -4117,6 +4393,7 @@ def main() -> int:
     k8, k8_launches = timed("k8 probe_2d_bisect", phase_k8, card=smi)
     k5_times, k5_host, k5_bytes = timed("k5 vs plain", phase_k5_vs_plain,
                                         card=smi)
+    ipc = timed("ipc kernels vs plain", phase_ipc_vs_plain, card=smi)
     k5_loop_launches, ov_launches = timed("mesh loops", phase_mesh_loops)
     _, k1_shard = timed("k1 at a 2x2 shard's block", phase_kernel_vs_plain,
                         cases=((SHARD_GRID, "specified"),),
@@ -4205,16 +4482,22 @@ def main() -> int:
           + ", ".join(f"{k} {'none' if v is None else 'yes'}"
                       for k, v in closure["sync"].items()) + f" ({smi})")
     print("[closure profile] " + json.dumps(closure["profile"]))
-    mp_steps = {"1 process": multiprocess["reference"]["rk3"]["step_ms"]}
-    for nproc in (2, 4):
-        for rep in multiprocess[nproc]["ranks"]:
-            mp_steps[f"{nproc} processes rank {rep['rank']}"] = \
-                rep["programs"]["rk3"]["step_ms"]
-    print(f"[multiprocess] ms per closed large step at {BIG_GRID} on the "
-          f"(2,2) mesh, every shard on cuda:0, gloo staged through host "
-          f"memory (steps 1-3): " + "; ".join(
-              f"{k} " + ", ".join(f"{x:.2f}" for x in v)
-              for k, v in mp_steps.items()) + f" ({smi})")
+    runs = [("every shard on cuda:0, gloo staged through host memory",
+             multiprocess, (2, 4))]
+    if multiprocess["nccl"] is not None:
+        runs.append(("four cards, NCCL, one rank a card",
+                     multiprocess["nccl"], (4,)))
+    for where, mp, counts in runs:
+        for tag in ("rk3", "rk3 rdma_overlap"):
+            mp_steps = {"1 process": mp["reference"][tag]["step_ms"]}
+            for nproc in counts:
+                for rep in mp[nproc]["ranks"]:
+                    mp_steps[f"{nproc} processes rank {rep['rank']}"] = \
+                        rep["programs"][tag]["step_ms"]
+            print(f"[multiprocess] {tag}: ms per closed large step at "
+                  f"{BIG_GRID} on the (2,2) mesh, {where} (steps 1-3): "
+                  + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                              for k, v in mp_steps.items()) + f" ({smi})")
     for run in ("S=1", "2x2 ppermute", "2x2 rdma", "2x2 overlap", "S=2",
                 "S=2 2x2 overlap", "smdiv", "smdiv 2x2 rdma",
                 "smdiv 2x2 overlap", "bf16", "bf16 2x2 overlap"):
@@ -4500,7 +4783,7 @@ def main() -> int:
         # the launch alone, from a prebuilt plan (no per-call wrapper work)
         "prebuilt_plan_ms": mean(k5_times["bare"]),
         "bytes_per_launch": 2 * k5_bytes,
-    }, {
+    }, *ipc_kernel_rows(ipc, multiprocess), {
         "name": "copy_probe",
         "route": "cuda",
         "source": "wrf_tpu_torch/csrc/copy.cu",

@@ -10,8 +10,8 @@ run on the same (2, 4) mesh, and that run's results (the tool's
 ``--save-reference``) are held against the JAX tool's three programs run
 in JAX on the same fixture arrays over the 8 CPU devices, at
 ``tests/test_torch_mesh.py``'s tolerance.  The checks that need no process
-group (the owner table, the NCCL and rdma refusals) use a fake owner
-table.
+group (the owner table, the NCCL refusal) use a fake owner table.  The
+rdma backends across processes are ``tests/test_torch_ipc_halo.py``'s.
 """
 
 import os
@@ -34,9 +34,6 @@ from wrf_tpu.models.tendencies import NudgingTendencies as JaxNudging
 from wrf_tpu.parallel import distributed as jax_distributed
 from wrf_tpu.parallel import mesh as jax_mesh
 from wrf_tpu.parallel import sharded as jax_sharded
-from wrf_tpu_torch.models.rk3 import RK3Integrator
-from wrf_tpu_torch.models.small_step import SmallStepLoop
-from wrf_tpu_torch.ops import halo_rdma_cuda
 from wrf_tpu_torch.parallel import distributed
 from wrf_tpu_torch.parallel.mesh import Mesh, describe
 from wrf_tpu_torch.parallel.sharded import (
@@ -231,25 +228,8 @@ def test_nccl_two_ranks_on_one_device_raises():
 
 
 # --------------------------------------------------------------------------
-# (e) the in-process exchange kernels refuse a mesh over processes
+# (e) a one-process mesh, and a rank's view of a mesh over processes
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("backend", ["rdma", "rdma_overlap"])
-def test_rdma_across_processes_raises(backend, small_case):
-    case = small_case
-    dims = (case.bounds.ide, case.bounds.jde, case.bounds.kdim)
-    mesh = fake_mesh(2, shape=(2, 2))
-    with pytest.raises(ValueError, match="different processes"):
-        SmallStepLoop(*dims, case.flags, n_steps=3, device="cpu", mesh=mesh,
-                      halo_backend=backend)
-    with pytest.raises(ValueError, match="different processes"):
-        RK3Integrator(*dims, case.flags, acoustic_steps=2, device="cpu",
-                      mesh=mesh, halo_backend=backend)
-    SmallStepLoop(*dims, case.flags, n_steps=3, device="cpu", mesh=mesh)
-    blocks = {c: torch.zeros(6, 4) for c in mesh.local_coords()}
-    with pytest.raises(ValueError, match="different processes"):
-        halo_rdma_cuda.remote_refresh_multi_plain([blocks], "j", mesh)
-
-
 def test_one_process_mesh_is_unchanged():
     mesh = Mesh(["cpu"] * 4, (2, 2))
     assert mesh.local_coords() == mesh.coords()

@@ -152,6 +152,7 @@ def test_library_name_tracks_sources():
         "advance_mu_t_bf16_overlap.cu", "advance_mu_t_coupled.cu",
         "advance_mu_t_coupled_bf16.cu", "advance_mu_t_coupled_bf16_overlap.cu",
         "advance_mu_t_coupled_overlap.cu", "advance_mu_t_msteps.cu",
-        "advance_mu_t_overlap.cu", "copy.cu", "halo_rdma.cu", "probe_2d.cu",
+        "advance_mu_t_overlap.cu", "copy.cu", "halo_ipc.cu", "halo_rdma.cu",
+        "probe_2d.cu",
         "probe_2d_bisect.cu", "advance_mu_t_coupled_kernel.cuh", "advance_mu_t_kernel.cuh",
         "const_stream.cuh", "w_solve.cuh"]

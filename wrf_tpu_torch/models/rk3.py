@@ -18,7 +18,10 @@ the vertically-implicit w/pp substep to every substep, and w and pp join
 the evolved state; ``smdiv`` turns on divergence damping in every stage's
 loop (each stage starts from a zero ``mudf``).  ``mesh`` and
 ``halo_backend`` pass to every stage's loop too (``rdma_overlap`` to every
-stage, blocked or not: K3 carries its own width-S exchange), except that a
+stage, blocked or not: K3 carries its own width-S exchange; on a mesh over
+processes on one host the rdma backends reach a j neighbour in another
+process through its mailbox, and across hosts each stage's loop refuses
+them), except that a
 stage whose blocked path engages under plain ``rdma`` downgrades to the
 width-S ppermute refresh, loudly (there is no width-S exchange kernel).
 ``const_dtype`` (bf16 constant streams) passes to every stage's loop.

@@ -67,7 +67,7 @@ from ..ops.advance_w import DEFAULT_CW, DEFAULT_GW, advance_w, advance_w_numpy
 from ..ops.reference_numpy import advance_mu_t_numpy
 from ..ops.thomas import ThomasCache
 from ..ops.halo_rdma_cuda import (
-    remote_refresh_multi, remote_refresh_multi_plain,
+    Mailbox, remote_refresh_multi, remote_refresh_multi_plain,
 )
 from ..parallel import halo
 from ..parallel.mesh import Mesh
@@ -179,10 +179,13 @@ class SmallStepLoop:
       left is the launches and copies it saves the host.
 
     On a mesh whose shards sit in several processes
-    (``parallel/distributed.py``) only "ppermute" runs: its copies to a
-    neighbour on another rank go through ``torch.distributed``, while
-    "rdma" and "rdma_overlap" write through device pointers inside one
-    process and raise.
+    (``parallel/distributed.py``) "ppermute" reaches a neighbour on another
+    rank through ``torch.distributed``; "rdma" and "rdma_overlap" reach a j
+    neighbour in another process on the same host through its mailbox
+    (``ops/halo_rdma_cuda.py::Mailbox``: a signalled put and a wait kernel,
+    CUDA IPC): under "rdma" the wait scatters the rows into the halo rows,
+    under "rdma_overlap" K1 and K3 read them in the mailbox.  Neighbours on
+    two hosts raise (``Mesh.require_one_host``).
 
     ``const_dtype`` (``torch.bfloat16`` or None): reduced-precision
     constant streams, see the module docstring; requires the fused kernel.
@@ -234,7 +237,7 @@ class SmallStepLoop:
         self._blocks = mesh is not None
         self.mesh = local_mesh(mesh, self.device)
         if halo_backend != "ppermute":
-            self.mesh.require_one_process(f"halo_backend={halo_backend!r}")
+            self.mesh.require_one_host(f"halo_backend={halo_backend!r}")
         nj, ni = self.mesh.shape
         if (inner_steps > 1 and halo_backend == "rdma"
                 and n_steps - 1 >= inner_steps
@@ -359,36 +362,55 @@ class SmallStepLoop:
         return {c: {"overlap": rows}
                 for c, rows in self._k1_overlap_rows(state, n_loc[0]).items()}
 
-    def _k1_overlap_rows(self, state, nj_loc):
-        """Every shard's K1 ``overlap`` rows: the rows the rdma refresh
-        would have moved, named where they lie.  They are views of the
-        neighbours' state of BEFORE this substep's launches (and keep it
-        alive through them), to be taken after every shard's i refresh."""
+    def _overlap_rows(self, state, to_next, to_prev):
+        """Every shard's ``overlap`` rows: ``to_next`` lists ``(name, field,
+        row, nrows)``, the rows of its previous neighbour's ``field`` that a
+        shard reads as ``name``, ``to_prev`` those of its next neighbour.
+        A neighbour of this process is read where its rows lie, as views of
+        its state of BEFORE this launch (kept alive through it); one in
+        another process sends them into this rank's mailbox first
+        (``Mailbox.neighbour_rows``).  Take them after every shard's i
+        refresh."""
+        mesh = self.mesh
+        remote = {}
+        if mesh.spans_processes:
+            def spec(lst):
+                return [(name, {c: st[f] for c, st in state.items()}, r, n)
+                        for name, f, r, n in lst]
+            remote = Mailbox.neighbour_rows(
+                mesh, "j", spec(to_next), spec(to_prev),
+                plain=self.kernel == "plain")
         rows = {}
         for c in state:
-            prv = state[self.mesh.neighbour(c, "j", -1)]
-            nxt = state[self.mesh.neighbour(c, "j", +1)]
-            rows[c] = dict(mu_lo=prv["mu"][nj_loc], mu_hi=nxt["mu"][1],
-                           v_hi=nxt["v"][1])
-            if self.smdiv:
-                rows[c].update(mudf_lo=prv["mudf"][nj_loc],
-                               mudf_hi=nxt["mudf"][1])
+            rows[c] = {}
+            for shift, lst in ((-1, to_next), (+1, to_prev)):
+                nb = mesh.neighbour(c, "j", shift)
+                for name, f, r, n in lst:
+                    rows[c][name] = (state[nb][f][r:r + n] if nb in state
+                                     else remote[c][name])
         return rows
+
+    def _k1_overlap_rows(self, state, nj_loc):
+        """Every shard's K1 ``overlap`` rows: the rows the rdma refresh
+        would have moved (a row, not a slab: the first of one-row
+        views)."""
+        damp = (("mudf_lo", "mudf", nj_loc, 1),) if self.smdiv else ()
+        to_prev = (("mu_hi", "mu", 1, 1), ("v_hi", "v", 1, 1)) + (
+            (("mudf_hi", "mudf", 1, 1),) if self.smdiv else ())
+        rows = self._overlap_rows(state, (("mu_lo", "mu", nj_loc, 1),)
+                                  + damp, to_prev)
+        return {c: {k: v[0] for k, v in r.items()} for c, r in rows.items()}
 
     def _k3_overlap_rows(self, st, nj_loc):
         """Every shard's K3 ``overlap`` slabs on ring-S blocks: the ring
         rows ``refresh_axis_w`` would have filled, named where they lie in
-        the neighbours' state of BEFORE this block's launches."""
+        the neighbours' state of BEFORE this block's launches (or, across
+        processes, in the mailbox)."""
         S = self.inner_steps
-        rows = {}
-        for c in st:
-            prv = st[self.mesh.neighbour(c, "j", -1)]
-            nxt = st[self.mesh.neighbour(c, "j", +1)]
-            rows[c] = {}
-            for name in ("mu", "u", "v"):
-                rows[c][name + "_lo"] = prv[name][nj_loc:nj_loc + S]
-                rows[c][name + "_hi"] = nxt[name][S:2 * S]
-        return rows
+        names = ("mu", "u", "v")
+        return self._overlap_rows(
+            st, [(n + "_lo", n, nj_loc, S) for n in names],
+            [(n + "_hi", n, S, S) for n in names])
 
     def _launch_all(self, launch, shards):
         """One kernel launch per shard.  Under ``rdma_overlap`` a launch

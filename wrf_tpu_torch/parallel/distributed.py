@@ -24,9 +24,14 @@ The transport is the process group's and is chosen explicitly
   mesh that puts two ranks on one device raises before any exchange
   (``Mesh``), and nothing switches to the other transport by itself.
 
-The in-process exchange kernels (``halo_backend`` "rdma" and
-"rdma_overlap") write through device pointers and cannot reach another
-process: a loop asked for them on a mesh that spans processes raises.
+The exchange kernels of ``halo_backend`` "rdma" and "rdma_overlap" write
+through device pointers.  A j neighbour in another process on the same
+host is reached through its mailbox: a persistent buffer of every rank,
+mapped into its neighbours' processes once with CUDA IPC
+(:func:`share_mailbox`), which a signalled put fills and a wait kernel
+empties (``ops/halo_rdma_cuda.py``).  Neighbours on two hosts refuse these
+backends by name (``Mesh.require_one_host``); ``ppermute`` serves any
+layout.
 
 ``tools/multihost_check.py`` (``python -m
 wrf_tpu_torch.tools.multihost_check``) drives this module across real OS
@@ -262,7 +267,10 @@ def all_gather_blocks(mesh: Mesh, blocks: dict, device) -> dict:
     """Every shard's block of a field on every rank: ``blocks`` holds this
     rank's (one shape for all), the result every shard's, keyed alike, on
     ``device``.  One all-gather of each rank's blocks stacked in shard
-    order (padded to the most any rank holds)."""
+    order (padded to the most any rank holds).  The loops read back here,
+    so this is where a timed-out wait of the mailbox exchange raises."""
+    for box in list(mesh.mailboxes.values()):
+        box.raise_if_failed()
     device = torch.device(device)
     local = mesh.local_coords()
     rank, size = mesh.rank, _world()[1]
@@ -287,3 +295,44 @@ def all_gather_blocks(mesh: Mesh, blocks: dict, device) -> dict:
         for k, c in enumerate(cs):
             out[c] = blocks[c] if r == rank else part[k]
     return out
+
+
+# --------------------------------------------------------------------------
+# The mailboxes of the cross-process rdma exchange
+# --------------------------------------------------------------------------
+def share_mailbox(mesh: Mesh, buf: torch.Tensor, peers) -> dict:
+    """Map this rank's mailbox ``buf`` (a CUDA tensor that lives as long as
+    the mesh) into the processes of ``peers`` (the ranks it exchanges
+    with), and theirs into this one: ``{rank: that rank's mailbox}``, each
+    a tensor on its owner's device whose memory is the owner's.  Every rank
+    calls this at the same point (one object all-gather over every rank,
+    on the gloo group that names the devices).  The handles are torch's
+    own CUDA IPC handles (``reduce_tensor``), which carry the allocation's
+    offset and keep the owner's block alive while a peer maps it."""
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    peers = sorted(int(r) for r in peers)
+    rank, size = _world()
+    every = [None] * size
+    dist.all_gather_object(every, (reduce_tensor(buf), peers),
+                           group=_naming_group())
+    out = {}
+    for r in peers:
+        (rebuild, args), theirs = every[r]
+        if rank not in theirs:
+            raise RuntimeError(f"rank {rank} exchanges with rank {r}, which "
+                               f"names only {theirs}: the ranks disagree on "
+                               "the mesh")
+        out[r] = rebuild(*args)
+    return out
+
+
+def close_mailboxes(mesh: Mesh) -> None:
+    """Drop this rank's mailboxes and its mappings of its peers' (after a
+    last check of their error words).  Call it on every rank before the
+    process group ends, so that no rank exits while a peer still maps its
+    memory."""
+    boxes = list(mesh.mailboxes.values())
+    mesh.mailboxes.clear()
+    for box in boxes:
+        box.raise_if_failed()

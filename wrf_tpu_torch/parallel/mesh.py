@@ -22,7 +22,10 @@ A mesh may span several processes (``parallel/distributed.py``, the port of
 the JAX package's multi-host recipe): its owner table names the process
 rank of every shard, counted j-major, and each process holds and drives
 only its own shards' blocks (:meth:`Mesh.local_coords`).  A one-process
-mesh owns every shard.
+mesh owns every shard.  The ``rdma`` exchanges reach a j neighbour in
+another process on the same host through its mailbox, mapped here with
+CUDA IPC (:meth:`Mesh.mailbox_plan`, ``ops/halo_rdma_cuda.py``); they
+refuse neighbours on two hosts (:meth:`Mesh.require_one_host`).
 """
 
 from __future__ import annotations
@@ -84,6 +87,11 @@ class Mesh:
         #: whether the shards sit in more than one process
         self.spans_processes = len(set(owners)) > 1
         self._plans: dict = {}
+        #: the mailboxes of the rdma exchange across processes
+        #: (``ops/halo_rdma_cuda.py::Mailbox``), made at first use and kept
+        #: for the mesh's lifetime
+        self.mailboxes: dict = {}
+        self._one_host: str | None = None
         if self.spans_processes and backend is None:
             raise ValueError("a mesh over several processes needs its "
                              "backend (gloo or nccl)")
@@ -104,14 +112,53 @@ class Mesh:
         """The shards this process holds, j-major."""
         return [c for c in self.coords() if self.owner(c) == self.rank]
 
-    def require_one_process(self, what: str) -> None:
-        """Raise for ``what``, which works through device pointers inside one
-        process, on a mesh whose shards sit in several."""
-        if self.spans_processes:
-            raise ValueError(
-                f"{what} writes through device pointers inside one process; "
-                f"this mesh's neighbouring shards sit in different processes "
-                f"(owners {self.owners}): use halo_backend='ppermute'")
+    def require_one_host(self, what: str) -> None:
+        """Raise for ``what``, which writes through device pointers (peer
+        pointers inside a process, CUDA IPC mappings between processes),
+        where it cannot: j neighbours in two processes on different hosts;
+        two such neighbours on CUDA devices without peer access; a rank
+        whose shards with a j neighbour in another process sit on more than
+        one device (its mailbox lies on one).  Checked once per mesh; a
+        one-process mesh passes."""
+        if not self.spans_processes:
+            return
+        if self._one_host is None:
+            self._one_host = self._device_pointer_fault()
+        if self._one_host:
+            raise ValueError(f"{what}: {self._one_host}")
+
+    def _device_pointer_fault(self) -> str:
+        host = (lambda r: self.hosts[r]) if self.hosts is not None else (
+            lambda r: "")
+        mine = set()
+        for c in self.coords():
+            for shift in (1, -1):
+                nb = self.neighbour(c, "j", shift)
+                a, b = self.owner(c), self.owner(nb)
+                if a == b:
+                    continue
+                if host(a) != host(b):
+                    return (f"neighbouring shards {c} (rank {a} on "
+                            f"{host(a)}) and {nb} (rank {b} on {host(b)}) sit "
+                            "on two hosts, and the port has no device-pointer "
+                            "transport between hosts: use "
+                            "halo_backend='ppermute'")
+                da, db = self.device(c), self.device(nb)
+                if da.type == db.type == "cuda" and da != db and not (
+                        torch.cuda.can_device_access_peer(da.index, db.index)
+                        and torch.cuda.can_device_access_peer(db.index,
+                                                              da.index)):
+                    return (f"neighbouring shards {c} (rank {a}, {da}) and "
+                            f"{nb} (rank {b}, {db}) sit on cards without peer "
+                            "access: the mailbox of one is mapped into the "
+                            "other's process")
+                if a == self.rank:
+                    mine.add(self.device(c))
+        if len(mine) > 1:
+            return (f"rank {self.rank}'s shards with a j neighbour in another "
+                    f"process sit on {sorted(map(str, mine))}: its mailbox "
+                    "lies on one device")
+        return ""
 
     def device(self, coord) -> torch.device:
         return self.devices[coord[0]][coord[1]]
@@ -150,6 +197,50 @@ class Mesh:
         plan = ({c: tuple(v) for c, v in sources.items()}, outgoing,
                 incoming)
         self._plans[axis_name] = plan
+        return plan
+
+    def mailbox_plan(self, axis_name: str, loopback: bool = False
+                     ) -> tuple:
+        """The messages of :meth:`exchange_plan` that cross processes, with
+        the places they take in the mailboxes of the cross-process rdma
+        exchange (``ops/halo_rdma_cuda.py``), built once per axis:
+        ``(outgoing, incoming, into, back, counts)``.  ``outgoing`` lists
+        ``(rank, tag, shard, slot)`` and ``incoming`` ``(rank, tag, shard,
+        slot)`` in :meth:`exchange_plan`'s order and tags (``slot`` 0: the
+        sender's slab to its next neighbour, the receiver's low halo; 1:
+        to its previous one, the high halo).  ``into[k]`` is outgoing
+        message k's position in its receiver's incoming list (its slot in
+        the receiver's mailbox), ``back[q]`` incoming message q's position
+        in its sender's outgoing list (its free counter in the sender's
+        mailbox), ``counts[r]`` rank r's (incoming, outgoing) message
+        counts.  ``loopback`` counts every ring message, within a process
+        too, as crossing: how one process drives the transport alone."""
+        key = ("mailbox", axis_name, loopback)
+        if key in self._plans:
+            return self._plans[key]
+        msgs = []   # (src rank, dst rank, src shard, dst shard, slot)
+        for s in self.coords():
+            for shift, slot in ((+1, 0), (-1, 1)):
+                d = self.neighbour(s, axis_name, shift)
+                src, dst = self.owner(s), self.owner(d)
+                if loopback or src != dst:
+                    msgs.append((src, dst, s, d, slot))
+        ranks = {r for row in self.owners for r in row}
+        n_out = dict.fromkeys(ranks, 0)
+        n_in = dict.fromkeys(ranks, 0)
+        outgoing, incoming, into, back = [], [], [], []
+        for tag, (src, dst, s, d, slot) in enumerate(msgs):
+            if src == self.rank:
+                outgoing.append((dst, tag, s, slot))
+                into.append(n_in[dst])
+            if dst == self.rank:
+                incoming.append((src, tag, d, slot))
+                back.append(n_out[src])
+            n_out[src] += 1
+            n_in[dst] += 1
+        plan = (outgoing, incoming, into, back,
+                {r: (n_in[r], n_out[r]) for r in ranks})
+        self._plans[key] = plan
         return plan
 
     def neighbour(self, coord, axis_name: str, shift: int) -> tuple[int, int]:
@@ -217,8 +308,10 @@ class Mesh:
 
     def _check_peer_access(self) -> None:
         """Neighbouring shards of this process on different CUDA devices
-        need peer access (the exchanges across processes go through
-        ``torch.distributed``)."""
+        need peer access.  Pairs across processes need it only for the rdma
+        backends, whose mailboxes are mapped into the neighbour's process
+        (:meth:`require_one_host` checks them when a loop asks for one);
+        ``ppermute`` reaches them through ``torch.distributed``."""
         for c in self.local_coords():
             a = self.device(c)
             for axis in AXES:

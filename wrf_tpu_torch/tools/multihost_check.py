@@ -23,10 +23,16 @@ Suites:
   exchange crosses processes too (a 2-D process grid);
 * ``chip``: the main path's loops at ``--grid`` (the balanced fixture): the
   coupled loop at S=1 (9 substeps) and at ``inner_steps=2`` (9),
-  ``ShardedAdvanceMuT(inner_steps=8)`` for 17 steps, and 3 closed RK3 large
-  steps (4 acoustic substeps); every rank reports its K1, K2 and K3
-  launches and the ms of each program (host clock, the device synchronised
-  around it) and of each large step.
+  ``ShardedAdvanceMuT(inner_steps=8)`` for 17 steps, 3 closed RK3 large
+  steps (4 acoustic substeps) and the transport alone, all under
+  ``ppermute``; then the same loops under the rdma backends, whose j
+  exchange crosses processes through the mailboxes
+  (``ops/halo_rdma_cuda.py::Mailbox``): S=1 under ``rdma`` and
+  ``rdma_overlap``, S=2 and the RK3 steps under ``rdma_overlap``, and
+  ``rdma_rows`` and ``remote_refresh_multi`` alone.  Every rank reports
+  its K1, K2, K3 and K5 launches, its launches of the signalled put and
+  the wait, and the ms of each program (host clock, the device
+  synchronised around it) and of each large step.
 
 The transport is gloo unless ``--backend nccl`` asks for NCCL, which needs
 one card per rank (rank r takes ``cuda:r``); on a one-card machine NCCL
@@ -82,7 +88,19 @@ CHIP_SUITE = (("coupled S=1", "coupled", None, dict(n_steps=9), "balanced"),
                "balanced"),
               ("rk3", "rk3", None, dict(acoustic_steps=4, steps=3),
                "balanced"),
-              ("exchange", "exchange", None, dict(repeats=20), "balanced"))
+              ("exchange", "exchange", None, dict(repeats=20), "balanced"),
+              ("coupled S=1 rdma", "coupled", None,
+               dict(n_steps=9, halo_backend="rdma"), "balanced"),
+              ("coupled S=1 rdma_overlap", "coupled", None,
+               dict(n_steps=9, halo_backend="rdma_overlap"), "balanced"),
+              ("coupled S=2 rdma_overlap", "coupled", None,
+               dict(n_steps=9, inner_steps=2, halo_backend="rdma_overlap"),
+               "balanced"),
+              ("rk3 rdma_overlap", "rk3", None,
+               dict(acoustic_steps=4, steps=3, halo_backend="rdma_overlap"),
+               "balanced"),
+              ("rdma exchange", "rdma exchange", None, dict(repeats=20),
+               "balanced"))
 
 
 def suite(name: str, grid=None) -> list:
@@ -103,12 +121,17 @@ def _case(grid, which):
     return make_case(*grid, halo=3, seed=7)
 
 
-def _counters():
+def _counters() -> dict:
+    """``{name: (module, its launch counter)}`` of every kernel a program
+    may launch: K1, K2, K3, K5 and the signalled put and the wait of the
+    exchange across processes."""
     from wrf_tpu_torch.ops import (
         advance_mu_t_coupled_cuda as k3, advance_mu_t_cuda as k1,
-        advance_mu_t_msteps_cuda as k2,
+        advance_mu_t_msteps_cuda as k2, halo_rdma_cuda as k5,
     )
-    return k1, k2, k3
+    return {"k1": (k1, "LAUNCHES"), "k2": (k2, "LAUNCHES"),
+            "k3": (k3, "LAUNCHES"), "k5": (k5, "LAUNCHES"),
+            "put": (k5, "PUT_LAUNCHES"), "wait": (k5, "WAIT_LAUNCHES")}
 
 
 def _sync(device) -> None:
@@ -140,8 +163,9 @@ def _assemble(loop, dom, mesh, multihost: bool) -> dict:
 
 def compute(mesh, device, progs, doms, multihost: bool):
     """Every program of ``progs`` on ``mesh``: ``({"tag/field": array},
-    {tag: report})``; a report holds the K1, K2 and K3 launches and the ms
-    of the program (and of each large step of the RK3 program)."""
+    {tag: report})``; a report holds the launches of every kernel of
+    :func:`_counters` and the ms of the program (and of each large step of
+    the RK3 program)."""
     from wrf_tpu_torch.models.rk3 import RK3Integrator
     from wrf_tpu_torch.models.small_step import SmallStepLoop
     from wrf_tpu_torch.models.tendencies import NudgingTendencies
@@ -152,15 +176,17 @@ def compute(mesh, device, progs, doms, multihost: bool):
     for tag, kind, grid, kw, which in progs:
         case, dom = doms[grid, which]
         nx, ny, nz = grid
-        for k in counters:
-            k.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         _sync(device)
         t0 = time.perf_counter()
         report = {}
         if kind == "rk3":
             A, steps = kw["acoustic_steps"], kw["steps"]
             rk3 = RK3Integrator(nx, ny, nz, case.flags, acoustic_steps=A,
-                                snapshot="base", device=device, mesh=mesh)
+                                snapshot="base", device=device, mesh=mesh,
+                                halo_backend=kw.get("halo_backend",
+                                                    "ppermute"))
             arrays = _assemble(rk3.loops[0], dom, mesh, multihost)
             dt = case.dts * A
             fn = NudgingTendencies(arrays, dt, tau_steps=5.0)
@@ -184,6 +210,13 @@ def compute(mesh, device, progs, doms, multihost: bool):
                              _assemble(loop, dom, mesh, multihost), report,
                              kw["repeats"])
             names = tuple(out)
+        elif kind == "rdma exchange":
+            loop = ShardedAdvanceMuT(nx, ny, nz, case.flags, device=device,
+                                     mesh=mesh)
+            out = _rdma_exchanges(mesh, device,
+                                  _assemble(loop, dom, mesh, multihost),
+                                  report, kw["repeats"])
+            names = tuple(out)
         else:
             if kind == "coupled":
                 loop = SmallStepLoop(nx, ny, nz, case.flags, device=device,
@@ -197,8 +230,8 @@ def compute(mesh, device, progs, doms, multihost: bool):
             names = ("t", "mu", "ww")
         _sync(device)
         report["ms"] = 1e3 * (time.perf_counter() - t0)
-        report["launches"] = dict(zip(("k1", "k2", "k3"),
-                                      (k.LAUNCHES for k in counters)))
+        report["launches"] = {k: getattr(mod, attr)
+                              for k, (mod, attr) in counters.items()}
         for name in names:
             results[f"{tag}/{name}"] = out[name].cpu().numpy()
         reports[tag] = report
@@ -251,6 +284,46 @@ def _exchanges(mesh, device, arrays, report, repeats: int) -> dict:
         report[f"{name} bytes sent"] = nbytes
     return {"v": gather(v, mesh), "mu": gather(mu, mesh),
             "t": gather(t, mesh)}
+
+
+def rdma_rows_input(v: dict, nj_loc: int) -> dict:
+    """Every shard's 2-slot staging buffer of ``rdma_rows`` from its padded
+    ``v`` block: its last interior row (slot 0, for the next shard) and its
+    first (slot 1, for the previous one), as the TPU wrapper stages them."""
+    return {c: torch.stack([b[nj_loc], b[1]]) for c, b in v.items()}
+
+
+def _rdma_exchanges(mesh, device, arrays, report, repeats: int) -> dict:
+    """The rdma transport alone, across processes through the mailboxes:
+    ``rdma_rows`` of v's staged edge rows, and ``remote_refresh_multi`` of
+    the j halos of mu and v (v's high halo only, as the coupled loop
+    refreshes it), once each and then ``repeats`` times timed; ``report``
+    gets the ms of one of each.  Returns the received rows and the
+    refreshed blocks, gathered."""
+    from wrf_tpu_torch.ops import halo_rdma_cuda as k5
+    from wrf_tpu_torch.parallel.sharded import gather, pad_local
+
+    local = pad_local({k: arrays[k] for k in ("v", "mu")}, mesh,
+                      mesh.shape[0] > 1, mesh.shape[1] > 1)
+    v = {c: p["v"] for c, p in local.items()}
+    mu = {c: p["mu"] for c, p in local.items()}
+    nj_loc = next(iter(v.values())).shape[0] - 2
+    rows = rdma_rows_input(v, nj_loc)
+    got = {}
+    for name, fn in (
+            ("rdma_rows", lambda: got.__setitem__(
+                "rows", k5.rdma_rows(rows, "j", mesh))),
+            ("remote_refresh_multi", lambda: k5.remote_refresh_multi(
+                [mu, v], "j", mesh, nj_loc, recv_only=("", "hi")))):
+        fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        _sync(device)
+        report[f"{name} ms"] = 1e3 * (time.perf_counter() - t0) / repeats
+    return {"rows": gather(got["rows"], mesh), "mu": gather(mu, mesh),
+            "v": gather(v, mesh)}
 
 
 def domains(progs) -> dict:
@@ -309,6 +382,7 @@ def worker(rank: int, nproc: int, workdir: str) -> int:
     (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(
         {"rank": rank, "device": device, "shards": mesh.local_coords(),
          "programs": reports}))
+    distributed.close_mailboxes(mesh)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     borrowed = [m for m in sys.modules
