@@ -1,0 +1,13 @@
+"""step_mfu_pct: the whole large step's share of the card's peak.  The least
+time of one large step's algorithmic work (``yardstick.step_work``: every
+substep of the three stages and the closure's fields, from the grid and
+the path, whatever kernels run) over the window's ms per large step."""
+
+from wrfbench import yardstick
+
+
+def read(run):
+    if run.program_peak_bytes is None:     # not run on the card
+        return None
+    least = yardstick.bound_s(*yardstick.step_work(run.cfg, run.traffic))
+    return 100.0 * least / (run.window_s / run.steps)
