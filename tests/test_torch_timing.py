@@ -67,13 +67,6 @@ def test_timed_and_per_step_time_match_jax(monkeypatch):
     assert got[4] == 5 + 10 + 2 * 5 + 2 * 13
 
 
-@pytest.mark.parametrize("args", [(512, 512, 50, 0.004), (74, 61, 32, 1e-5),
-                                  (1, 1, 1, 3.0)])
-def test_grid_points_per_s_matches_jax(args):
-    assert timing.grid_points_per_s(*args) == \
-        jax_timing.grid_points_per_s(*args)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     log_dir = tmp_path / "tr"
     with timing.trace(str(log_dir)) as d:

@@ -25,7 +25,8 @@ wrf_tpu_torch.driver``):
   ops.thomas, csrc/w_solve.cuh  the w/pp Thomas solve inside K1 and K3
   ops.advance_uv, ops.advance_w, ops.advance_mu_t_eager  the eager tier
   utils.copy_ceiling  K6, the copy kernel that sets the card's ceiling
-  utils.timing  best-of-N and marginal (two-count) timing, profiler traces
+  utils.timing  best-of-N and marginal (two-count) timing, profiler traces,
+              the program's spans (span, span_totals)
   tools.probe_2d, tools.probe_2d_bisect  K7 and K8, the tiling probes
               (``python -m wrf_tpu_torch.tools.<probe>``)
   native      the C++ scalar oracle (g++, built at first use)

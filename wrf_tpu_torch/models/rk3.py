@@ -35,6 +35,12 @@ back once at the end; the JAX package scans them in one compiled program,
 here the same launches run eagerly, so the result equals host stepping
 bit for bit.
 
+While a ``torch.profiler`` records, ``step`` is a ``wrf.rk3.step`` span
+with a ``wrf.closure.tendency`` span around each ``tendency_fn`` call and
+each stage's loop spans inside, and ``merge_evolved`` a ``wrf.rk3.merge``
+span (``utils/timing.py::span``; device time on the first local shard's
+card).
+
 ``snapshot="base"`` with the nudging closure and a balanced fixture
 integrates indefinitely (100/100 steps in ``tests/test_torch_closure.py``);
 ``snapshot="stage"`` amplifies the state ~5e4x per large step and is for
@@ -57,6 +63,7 @@ import torch
 from ..grid import ConfigFlags
 from ..ops.advance_uv import DEFAULT_CS2
 from ..parallel.sharded import as_blocks, merge_interior
+from ..utils.timing import span
 from .small_step import SmallStepLoop, small_step_golden
 
 #: large-step fields re-snapshotted at every stage start in "stage" mode
@@ -130,18 +137,22 @@ class RK3Integrator:
         previous stage's provisional (domain-shaped) outputs, None at stage
         0, and returns replacement prepared slow-tendency fields
         (``ft``/``mu_tend``)."""
-        out = None
-        for stage, ((frac, n_sub), loop) in enumerate(
-                zip(self.stages, self.loops)):
-            stage_arrays = dict(arrays)  # restart from step-start state
-            if self.snapshot == "stage":
-                for snap, src in _STAGE_SNAPSHOT.items():
-                    stage_arrays[snap] = arrays[src]
-            # "base": the *_1 advecting fields keep their prepared values
-            if tendency_fn is not None:
-                stage_arrays.update(tendency_fn(stage, out, stage_arrays))
-            dts = (frac * dt) / n_sub
-            out = loop(stage_arrays, rdx, rdy, dts, epssm)
+        dev = self.loops[0].span_device
+        with span("wrf.rk3.step", device=dev):
+            out = None
+            for stage, ((frac, n_sub), loop) in enumerate(
+                    zip(self.stages, self.loops)):
+                stage_arrays = dict(arrays)  # restart from step-start state
+                if self.snapshot == "stage":
+                    for snap, src in _STAGE_SNAPSHOT.items():
+                        stage_arrays[snap] = arrays[src]
+                # "base": the *_1 advecting fields keep their prepared values
+                if tendency_fn is not None:
+                    with span("wrf.closure.tendency", device=dev):
+                        stage_arrays.update(
+                            tendency_fn(stage, out, stage_arrays))
+                dts = (frac * dt) / n_sub
+                out = loop(stage_arrays, rdx, rdy, dts, epssm)
         return out
 
     def merge_evolved(self, arrays, out):
@@ -151,13 +162,14 @@ class RK3Integrator:
         mesh shard by shard)."""
         loop = self.loops[0]
         new = dict(arrays)
-        for name in self._EVOLVED:
-            if name not in out or name not in arrays:
-                continue
-            blocks = as_blocks({name: arrays[name]}, loop.mesh,
-                               loop._blocks)[name]
-            merged = merge_interior(blocks, out[name])
-            new[name] = merged if loop._blocks else merged[0, 0]
+        with span("wrf.rk3.merge", device=loop.span_device):
+            for name in self._EVOLVED:
+                if name not in out or name not in arrays:
+                    continue
+                blocks = as_blocks({name: arrays[name]}, loop.mesh,
+                                   loop._blocks)[name]
+                merged = merge_interior(blocks, out[name])
+                new[name] = merged if loop._blocks else merged[0, 0]
         return new
 
     def multi_step(self, arrays, n_steps: int, rdx, rdy, dt, epssm,

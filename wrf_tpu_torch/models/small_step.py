@@ -35,6 +35,13 @@ axes the ring-S cells hold the neighbours' data, and mu, u and v are
 refreshed with one width-S exchange per block of S substeps; under
 ``"rdma_overlap"`` the j leg of that exchange is inside K3 too.
 
+While a ``torch.profiler`` records, a call is three spans
+(``utils/timing.py::span``): ``wrf.loop.pad`` (``pad_local``; its count is
+the bytes of the new blocks), ``wrf.loop.inputs`` (from after the pad to
+the first launch: the carried state's start, the lean constants, the
+blocked path's widened inputs, the bf16 casts) and ``wrf.loop.substeps``
+(every launch with its halo refreshes, the final one included).
+
 ``const_dtype=torch.bfloat16`` narrows the never-written 3-D bases (u_1,
 v_1, ww_1, ft, t_1 and the 3-D lean constants; on the blocked path t_1,
 tconst and dvdxi_const of the widened constants) once per call, outside
@@ -75,6 +82,7 @@ from ..parallel.sharded import (
     FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, as_blocks, domain_window, gather,
     local_mesh, pad_local, prepare_arrays, shard_offsets, strip_local,
 )
+from ..utils.timing import span
 
 #: what the scan substeps carry: ww only as its 2-D scan-seed row
 CARRY_KEYS = ("ww_row", "mu", "t", "u", "v")
@@ -251,6 +259,8 @@ class SmallStepLoop:
                              "the plain rdma backend covers the single-step "
                              "loop")
         self.domain = (nx, ny, nz)
+        #: the device the spans time: the first local shard's
+        self.span_device = self.mesh.device(self.mesh.local_coords()[0])
         self.n_steps = n_steps
         self.kernel = kernel
         self.inner_steps = inner_steps
@@ -310,7 +320,11 @@ class SmallStepLoop:
                            self._blocks)
         nj_loc, _, ni_loc = next(iter(arrays["t"].values())).shape
         n_loc = (nj_loc, ni_loc)
-        local = pad_local(arrays, mesh, self._j_sh, self._i_sh)
+        with span("wrf.loop.pad", device=self.span_device) as sp:
+            local = pad_local(arrays, mesh, self._j_sh, self._i_sh)
+            if sp is not None:      # the new blocks (1-D fields pass as is)
+                sp.count = sum(x.nbytes for p in local.values()
+                               for x in p.values() if x.ndim > 1)
         # every shard's padded-local row/column 0 in ring coordinates
         offs = {c: shard_offsets(c, nj_loc, ni_loc) for c in local}
         scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "epssm": epssm}
@@ -460,32 +474,33 @@ class SmallStepLoop:
     def _run_fused(self, local, scalars, offs, n_loc):
         k0, k1 = self.window[4:]
         rdx, rdy, dts = (scalars[k] for k in ("rdx", "rdy", "dts"))
-        common, state = self._fused_inputs(local, scalars, offs)
         carry = self.carry_keys
-
-        rem = self.n_steps - 1
         S = self.inner_steps
-        if S > 1 and rem >= S:
-            state = self._run_blocks(local, state, common, rem // S, n_loc)
-            rem -= rem // S * S
-        if rem:
-            lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
-                       for c, p in local.items()}
-        if self.const_dtype is not None:
-            # reduced-precision constant streams: cast ONCE per call,
-            # outside the substeps, after every constant was computed from
-            # the float32 fields.  u and v are carried state here and stay
-            # float32; only the never-written 3-D bases narrow.
-            cd = self.const_dtype
-            for p in local.values():
-                for n in ("u_1", "v_1", "ww_1", "ft", "t_1"):
-                    p[n] = p[n].to(cd)
+        n_blocks = (self.n_steps - 1) // S if S > 1 else 0
+        rem = self.n_steps - 1 - n_blocks * S
+
+        with span("wrf.loop.inputs", device=self.span_device):
+            common, state = self._fused_inputs(local, scalars, offs)
+            if n_blocks:
+                blocked = self._block_inputs(local, state, common, n_loc)
             if rem:
-                lean_kw = {c: {k: (x.to(cd) if x.ndim == 3 else x)
-                               for k, x in kw.items()}
-                           for c, kw in lean_kw.items()}
-        const = {c: {k: v for k, v in p.items() if k not in carry}
-                 for c, p in local.items()}
+                lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
+                           for c, p in local.items()}
+            if self.const_dtype is not None:
+                # reduced-precision constant streams: cast ONCE per call,
+                # outside the substeps, after every constant was computed
+                # from the float32 fields.  u and v are carried state here
+                # and stay float32; only the never-written 3-D bases narrow.
+                cd = self.const_dtype
+                for p in local.values():
+                    for n in ("u_1", "v_1", "ww_1", "ft", "t_1"):
+                        p[n] = p[n].to(cd)
+                if rem:
+                    lean_kw = {c: {k: (x.to(cd) if x.ndim == 3 else x)
+                                   for k, x in kw.items()}
+                               for c, kw in lean_kw.items()}
+            const = {c: {k: v for k, v in p.items() if k not in carry}
+                     for c, p in local.items()}
 
         def ins(c):
             # the carried mudf is the kernel's mudf_in; its mudf output, a
@@ -495,25 +510,36 @@ class SmallStepLoop:
                 st.update(mudf_in=st.pop("mudf"), smdiv=self.smdiv)
             return st
 
-        for _ in range(rem):
+        with span("wrf.loop.substeps", device=self.span_device):
+            if n_blocks:
+                state = self._run_blocks(*blocked, n_blocks, n_loc)
+            for _ in range(rem):
+                ov = self._refresh_fused(state, n_loc)
+                outs = self._launch_all(
+                    lambda c: self._step(**const[c], **ins(c), **lean_kw[c],
+                                         **common[c], **ov[c], fuse_uv=True,
+                                         with_tave=False, ww_mode="lite",
+                                         lean=True), local)
+                state = {c: {k: out[k] for k in carry}
+                         for c, out in outs.items()}
             ov = self._refresh_fused(state, n_loc)
-            outs = self._launch_all(
-                lambda c: self._step(**const[c], **ins(c), **lean_kw[c],
-                                     **common[c], **ov[c], fuse_uv=True,
-                                     with_tave=False, ww_mode="lite",
-                                     lean=True), local)
-            state = {c: {k: out[k] for k in carry}
-                     for c, out in outs.items()}
-        ov = self._refresh_fused(state, n_loc)
-        return self._launch_all(
-            lambda c: self._step(**const[c], **ins(c), **common[c], **ov[c],
-                                 fuse_uv=True, with_tave=True,
-                                 ww_mode="final"), local)
+            return self._launch_all(
+                lambda c: self._step(**const[c], **ins(c), **common[c],
+                                     **ov[c], fuse_uv=True, with_tave=True,
+                                     ww_mode="final"), local)
 
     def _block_inputs(self, local, state, common, n_loc):
         """What the K3 launches of the blocked path take, per shard: the
         constants on ring-S blocks, the carried state widened to ring S and
-        the launches' common keywords (see :meth:`_run_blocks`)."""
+        the launches' common keywords (:meth:`_run_blocks` runs them).  The
+        ring-S layout is built ONCE: j is widened and, when i is sharded, i
+        too (an unsharded i keeps its ring-1 layout and wraps); on sharded
+        axes the outer cells hold the neighbours' data.  The constants are
+        computed ON the widened inputs, in the JAX loop's order (computed
+        first and widened after, dvdxi_const's rolls would leave wrapped
+        values in ring cells the trapezoid reads).  With ``const_dtype``
+        the three 3-D constants K3 streams are narrowed after they were
+        computed in float32."""
         S = self.inner_steps
         mesh = self.mesh
         nj_loc, ni_loc = n_loc
@@ -556,24 +582,17 @@ class SmallStepLoop:
                 j_off, i_off - (S - 1 if self._i_sh else 0)))
         return const, st, com
 
-    def _run_blocks(self, local, state, common, n_blocks, n_loc):
-        """``n_blocks`` K3 launches per shard of S substeps on ring-S copies
-        of the state; returns the state back in the ring-1 layout.  The
-        ring-S layout is built ONCE: j is widened and, when i is sharded, i
-        too (an unsharded i keeps its ring-1 layout and wraps); on sharded
-        axes the outer cells hold the neighbours' data and the
-        block-carried mu, u and v halos are refreshed per block with a
-        width-S exchange.  The constants are computed ON the widened
-        inputs, in the JAX loop's order (computed first and widened after,
-        dvdxi_const's rolls would leave wrapped values in ring cells the
-        trapezoid reads).  Under ``rdma_overlap`` the j leg of that exchange
-        is K3's own (``coupled_multistep(overlap=)``): only the i leg runs
-        here.  With ``const_dtype`` the three 3-D constants K3 streams are
-        narrowed after they were computed in float32."""
+    def _run_blocks(self, const, st, com, n_blocks, n_loc):
+        """``n_blocks`` K3 launches per shard of S substeps on the ring-S
+        inputs of :meth:`_block_inputs` (the constants, the widened state
+        and the launches' keywords); returns the state back in the ring-1
+        layout.  On sharded axes the block-carried mu, u and v halos are
+        refreshed per block with a width-S exchange.  Under
+        ``rdma_overlap`` the j leg of that exchange is K3's own
+        (``coupled_multistep(overlap=)``): only the i leg runs here."""
         S = self.inner_steps
         mesh = self.mesh
         nj_loc, ni_loc = n_loc
-        const, st, com = self._block_inputs(local, state, common, n_loc)
 
         for _ in range(n_blocks):
             if self._j_sh or self._i_sh:
@@ -619,53 +638,55 @@ class SmallStepLoop:
         i0, i1, j0, j1, k0, k1 = self.window
         nj_loc, ni_loc = n_loc
         carry = STATE_KEYS + (W_STATE if self.with_w else ()) + self._damp
-        masks, const, state = {}, {}, {}
-        for c, padded in local.items():
-            if self.smdiv:
-                padded["mudf"] = torch.zeros_like(padded["mu"])
-            J, _, I = padded["t"].shape
-            dev = padded["t"].device
-            i_idx = torch.arange(I, device=dev) + offs[c][1]
-            j_idx = torch.arange(J, device=dev) + offs[c][0]
-            masks[c] = dict(i_mask=(i_idx >= i0) & (i_idx <= i1),
-                            j_mask=(j_idx >= j0) & (j_idx <= j1))
-            const[c] = {k: v for k, v in padded.items()
-                        if k not in carry + W_FIELDS_1D}
-            state[c] = {k: padded[k] for k in carry}
-        outs = {c: dict(s) for c, s in state.items()}
-        for _ in range(self.n_steps):
-            mu = [{c: s[k] for c, s in state.items()}
-                  for k in ("mu",) + self._damp]
-            if self._j_sh:
-                self._refresh_j(mu, nj_loc)
-            if self._i_sh:
-                self._refresh_i(mu, ni_loc)
-            u, v = {}, {}
-            for c, s in state.items():
-                u[c], v[c] = advance_uv(
-                    u=s["u"], v=s["v"], mu=s["mu"], muu=const[c]["muu"],
-                    muv=const[c]["muv"], msfuy=const[c]["msfuy"],
-                    msfvx_inv=const[c]["msfvx_inv"], rdx=scalars["rdx"],
-                    rdy=scalars["rdy"], dts=scalars["dts"],
-                    window=(i0, i1, j0, j1), offsets=offs[c], cs2=self.cs2,
-                    mudf=s.get("mudf"), smdiv=self.smdiv)
-            if self._j_sh:
-                self._refresh_j([u, v], nj_loc)
-            if self._i_sh:
-                self._refresh_i([u, v], ni_loc)
-            for c, s in state.items():
-                ins = {k: s[k] for k in ("ww", "mu", "t", "t_ave")}
-                out = advance_mu_t_impl(**const[c], **ins, u=u[c], v=v[c],
-                                        **scalars, **masks[c], k0=k0, k1=k1,
-                                        kde=nz - 1)
-                out = {**out, "u": u[c], "v": v[c]}
-                if self.with_w:
-                    out["w"], out["pp"] = advance_w(
-                        w=s["w"], pp=s["pp"], t=out["t"],
-                        rdn=local[c]["rdn"], rdnw=local[c]["rdnw"],
-                        dts=scalars["dts"], epssm=scalars["epssm"],
-                        window=(i0, i1, j0, j1), offsets=offs[c], k0=k0,
-                        k1=k1, cw=self.cw, gw=self.gw)
-                outs[c] = out
-                state[c] = {k: out[k] for k in carry}
-        return outs
+        with span("wrf.loop.inputs", device=self.span_device):
+            masks, const, state = {}, {}, {}
+            for c, padded in local.items():
+                if self.smdiv:
+                    padded["mudf"] = torch.zeros_like(padded["mu"])
+                J, _, I = padded["t"].shape
+                dev = padded["t"].device
+                i_idx = torch.arange(I, device=dev) + offs[c][1]
+                j_idx = torch.arange(J, device=dev) + offs[c][0]
+                masks[c] = dict(i_mask=(i_idx >= i0) & (i_idx <= i1),
+                                j_mask=(j_idx >= j0) & (j_idx <= j1))
+                const[c] = {k: v for k, v in padded.items()
+                            if k not in carry + W_FIELDS_1D}
+                state[c] = {k: padded[k] for k in carry}
+        with span("wrf.loop.substeps", device=self.span_device):
+            outs = {c: dict(s) for c, s in state.items()}
+            for _ in range(self.n_steps):
+                mu = [{c: s[k] for c, s in state.items()}
+                      for k in ("mu",) + self._damp]
+                if self._j_sh:
+                    self._refresh_j(mu, nj_loc)
+                if self._i_sh:
+                    self._refresh_i(mu, ni_loc)
+                u, v = {}, {}
+                for c, s in state.items():
+                    u[c], v[c] = advance_uv(
+                        u=s["u"], v=s["v"], mu=s["mu"], muu=const[c]["muu"],
+                        muv=const[c]["muv"], msfuy=const[c]["msfuy"],
+                        msfvx_inv=const[c]["msfvx_inv"], rdx=scalars["rdx"],
+                        rdy=scalars["rdy"], dts=scalars["dts"],
+                        window=(i0, i1, j0, j1), offsets=offs[c], cs2=self.cs2,
+                        mudf=s.get("mudf"), smdiv=self.smdiv)
+                if self._j_sh:
+                    self._refresh_j([u, v], nj_loc)
+                if self._i_sh:
+                    self._refresh_i([u, v], ni_loc)
+                for c, s in state.items():
+                    ins = {k: s[k] for k in ("ww", "mu", "t", "t_ave")}
+                    out = advance_mu_t_impl(
+                        **const[c], **ins, u=u[c], v=v[c], **scalars,
+                        **masks[c], k0=k0, k1=k1, kde=nz - 1)
+                    out = {**out, "u": u[c], "v": v[c]}
+                    if self.with_w:
+                        out["w"], out["pp"] = advance_w(
+                            w=s["w"], pp=s["pp"], t=out["t"],
+                            rdn=local[c]["rdn"], rdnw=local[c]["rdnw"],
+                            dts=scalars["dts"], epssm=scalars["epssm"],
+                            window=(i0, i1, j0, j1), offsets=offs[c], k0=k0,
+                            k1=k1, cw=self.cw, gw=self.gw)
+                    outs[c] = out
+                    state[c] = {k: out[k] for k in carry}
+            return outs

@@ -53,6 +53,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.timing import span
+
 
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as a Python float: a float32 tensor times
@@ -90,6 +92,10 @@ class NudgingTendencies:
                 "steps destabilizes the RK3 stages (see module docstring)")
         self.ref_t = arrays["t"]
         self.ref_mu = arrays["mu"]
+        #: the device the ``wrf.closure.damp`` span times (the first block's)
+        t = self.ref_t
+        self.span_device = (next(iter(t.values())) if isinstance(t, dict)
+                            else t).device
         self.rate = 1.0 / (tau_steps * dt)
         self.rayleigh_uv = rayleigh_uv
         self.per_stage = per_stage
@@ -109,12 +115,15 @@ class NudgingTendencies:
 
     def damp_winds(self, arrays) -> None:
         """Apply the per-large-step Rayleigh damping ``u,v *= 1-r`` to the
-        prepared state dict in place (new tensors; no-op when r == 0)."""
-        if not self.rayleigh_uv:
-            return
-        d = _f32(1.0 - self.rayleigh_uv)
-        for name in ("u", "v"):
-            arrays[name] = _blockwise(lambda x: x * d, arrays[name])
+        prepared state dict in place (new tensors; no-op when r == 0).
+        While a ``torch.profiler`` records it is a ``wrf.closure.damp``
+        span (``utils/timing.py::span``)."""
+        with span("wrf.closure.damp", device=self.span_device):
+            if not self.rayleigh_uv:
+                return
+            d = _f32(1.0 - self.rayleigh_uv)
+            for name in ("u", "v"):
+                arrays[name] = _blockwise(lambda x: x * d, arrays[name])
 
 
 def golden_nudging_fn(case, dt: float, tau_steps: float = 5.0):

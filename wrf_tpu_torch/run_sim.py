@@ -57,7 +57,11 @@ its options:
 * ``--profile DIR`` wraps the run in a ``torch.profiler`` trace
   (``utils/timing.py::trace``; the card's kernels where CUDA is
   available), written as ``DIR/trace_*.json``; each large step (chunk) is
-  a span named ``run_sim step N`` (``run_sim steps A-B``) in it.
+  a span named ``run_sim step N`` (``run_sim steps A-B``) in it, with the
+  program's own spans inside (``utils/timing.py::span``: ``wrf.rk3.step``,
+  ``wrf.closure.tendency``, each stage's ``wrf.loop.pad``,
+  ``wrf.loop.inputs`` and ``wrf.loop.substeps``, ``wrf.rk3.merge``,
+  ``wrf.closure.damp``); without ``--profile`` no span is made.
 
 ``--device`` is explicit: ``cuda`` (the default) fails when there is no
 GPU, and ``cpu`` runs the kernels' plain PyTorch versions.
@@ -74,7 +78,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import GridConfigRecord, dynamics_params, read_namelist
 from .convert import arrays_to_numpy
@@ -83,7 +86,7 @@ from .models.rk3 import RK3Integrator
 from .models.tendencies import NudgingTendencies
 from .parallel.mesh import describe, mesh_from_spec
 from .parallel.sharded import case_to_domain
-from .utils.timing import trace
+from .utils.timing import span, trace
 
 #: the evolved large-step state — RK3Integrator is the source of truth
 _EVOLVED = RK3Integrator._EVOLVED
@@ -288,7 +291,7 @@ def main(argv=None) -> int:
             while step < end:
                 n = min(args.steps_per_sync, end - step)
                 t0 = time.perf_counter()
-                with record_function(f"run_sim steps {step + 1}-{step + n}"):
+                with span(f"run_sim steps {step + 1}-{step + n}"):
                     arrays, diags = rk3.multi_step(
                         arrays, n, dyn["rdx"], dyn["rdy"], dt, dyn["epssm"],
                         tendency_fn=tendency_fn)
@@ -321,7 +324,7 @@ def main(argv=None) -> int:
 
         for step in range(start_step, end):
             t0 = time.perf_counter()
-            with record_function(f"run_sim step {step + 1}"):
+            with span(f"run_sim step {step + 1}"):
                 out = rk3.step(arrays, dyn["rdx"], dyn["rdy"], dt,
                                dyn["epssm"], tendency_fn=tendency_fn)
                 arrays = rk3.merge_evolved(arrays, out)

@@ -13,7 +13,12 @@ PyTorch's CUDA calls return before the card has finished, so:
     cancel;
   * **profiler hooks** — ``trace`` wraps a block in a ``torch.profiler``
     trace and writes a Chrome trace (``chrome://tracing``, Perfetto) into
-    ``log_dir``.
+    ``log_dir``;
+  * **spans** — ``span`` marks a layer of the program (the RK3 step, a
+    stage's pad, inputs and substeps, the merge, the closure) while a
+    ``torch.profiler`` records, and does nothing otherwise; each finished
+    span lands in :data:`SPANS` with its host and device time, and
+    ``span_totals`` sums them by name.
 
 A time taken with these on the CPU is the host's; only a run on the card
 gives a device number.
@@ -28,6 +33,8 @@ import time
 from typing import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 
 def timed(fn: Callable[[], float], repeats: int = 4) -> float:
@@ -78,8 +85,113 @@ def blocked_counts(inner_steps: int, n1: int = 50, n2: int = 250,
     return a1, a1 + span
 
 
-def grid_points_per_s(nx: int, ny: int, nz: int, step_seconds: float) -> float:
-    return nx * ny * nz / step_seconds
+#: every finished span since the last ``trace`` opened, in closing order
+SPANS: list = []
+#: the spans open now, innermost last
+_OPEN: list = []
+#: what ``span`` returns while no profiler records: one shared no-op
+_OFF = contextlib.nullcontext()
+
+
+class Span:
+    """One span of the program: ``name``, the ``parent`` span it opened in
+    (None outside any), its ``count`` (None, or a number the caller sets
+    inside the block), the host clock at enter and exit (``t0``, ``t1``,
+    ``perf_counter_ns``) and, on a CUDA device, a pair of timing events on
+    that device's current stream.  Nothing is synchronised or read while a
+    span is open: :meth:`device_ms` reads the events afterwards.  A
+    finished span keeps only these: every other object it made is freed on
+    exit, so a traced step leaves few objects for the garbage collector to
+    count (a collection of the whole heap stalls the host for tens of ms)."""
+
+    __slots__ = ("name", "parent", "count", "t0", "t1", "_start", "_end",
+                 "_stream", "_rf")
+
+    def __init__(self, name: str, count, device):
+        self.name, self.count = name, count
+        self.parent = _OPEN[-1] if _OPEN else None
+        self.t0 = self.t1 = self._start = self._end = self._stream = None
+        if device is not None and torch.device(device).type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+        self._rf = record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        _OPEN.append(self)
+        self.t0 = time.perf_counter_ns()
+        if self._stream is not None:
+            self._start.record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self._stream is not None:
+            self._end.record(self._stream)
+        self.t1 = time.perf_counter_ns()
+        _OPEN.pop()
+        SPANS.append(self)
+        self._rf.__exit__(*exc)
+        self._stream = self._rf = None
+        return False
+
+    def host_ms(self) -> float:
+        return (self.t1 - self.t0) / 1e6
+
+    def device_ms(self) -> float | None:
+        """ms on the device's stream between enter and exit (waits for the
+        exit event); None for a span that took no events."""
+        if self._end is None:
+            return None
+        self._end.synchronize()
+        return self._start.elapsed_time(self._end)
+
+
+def span(name: str, count=None, device=None):
+    """A span named ``name`` around a block of the program, while a
+    ``torch.profiler`` records (``trace``, ``run_sim --profile``).
+
+    Off (no profiler recording) it returns one shared no-op context, which
+    yields None: no ``record_function``, no event, no allocation.  On, the
+    context yields its :class:`Span`: it enters ``record_function(name)``,
+    so the span nests in the Chrome trace under the caller's own, on the
+    device records' clock; takes the host clock at enter and exit; records
+    a pair of CUDA timing events on the current stream of ``device`` where
+    that is a CUDA device (none for the CPU), and appends itself to
+    :data:`SPANS` on exit.  ``count`` (or ``Span.count``, set inside the
+    block) is summed by :func:`span_totals`.  On a mesh of several cards
+    the callers pass the first local shard's device, so a span's device
+    time is that card's."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return Span(name, count, device)
+
+
+def span_totals() -> dict[str, dict]:
+    """:data:`SPANS` summed by name: ``calls``; ``host_ms``; ``device_ms``
+    and ``device_self_ms`` (the span less the part its child spans cover),
+    None unless every span of the name took events; ``count``, the sum of
+    the counts given.  Waits for the events of every span."""
+    dev = {id(s): s.device_ms() for s in SPANS}
+    covered = {}
+    for s in SPANS:
+        if s.parent is not None and dev[id(s)] is not None:
+            covered[id(s.parent)] = covered.get(id(s.parent), 0.0) + dev[id(s)]
+    out = {}
+    for s in SPANS:
+        t = out.setdefault(s.name, {"calls": 0, "host_ms": 0.0,
+                                    "device_ms": 0.0, "device_self_ms": 0.0,
+                                    "count": 0})
+        t["calls"] += 1
+        t["host_ms"] += s.host_ms()
+        t["count"] += s.count or 0
+        d = dev[id(s)]
+        if d is None or t["device_ms"] is None:
+            t["device_ms"] = t["device_self_ms"] = None
+        else:
+            t["device_ms"] += d
+            t["device_self_ms"] += d - covered.get(id(s), 0.0)
+    return out
 
 
 @contextlib.contextmanager
@@ -88,7 +200,9 @@ def trace(log_dir: str | None = None):
     host's activity, and the card's where CUDA is available, written as a
     Chrome trace ``trace_<pid>_<n>.json`` into ``log_dir`` (default
     ``wrf_tpu_trace`` in the temporary directory, ``$TMPDIR`` or
-    ``/tmp``).  Yields ``log_dir``."""
+    ``/tmp``).  Yields ``log_dir``.  Opening it clears :data:`SPANS`, so
+    after it they hold the spans of this trace alone."""
+    SPANS.clear()
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(), "wrf_tpu_trace")
     os.makedirs(log_dir, exist_ok=True)
