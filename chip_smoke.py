@@ -111,6 +111,11 @@ not 0 and no result line is printed):
    with one K1 (K3) launch per shard per substep (block) and no K5
    launch; K1 against its plain version, and timed, at 259x50x259, one
    shard's block of the 2x2 mesh;
+7c. the loops' pad memo: 3 closed RK3 steps at 512x512x50 with one
+   integrator bit-equal to fresh integrators that pad every stage anew
+   (1x1 with w and damping, blocked S=2, bf16 constants; (2,2) and (2,1)
+   under ``rdma``, (2,2) under ``rdma_overlap``), and the blocks built
+   and reused at 1x1 (31/32 on the first step, 20/43 on each later one);
 7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
@@ -2513,6 +2518,85 @@ def phase_mesh_loops():
     return launches, ov_launches
 
 
+def phase_pad_memo():
+    """The loops' pad memo on the card, where K1 updates its state and K5
+    the halos through device pointers (no ``_version`` sees those writes):
+    3 closed RK3 steps at 512x512x50 with one integrator, whose stages
+    reuse the pads of unchanged inputs, must equal bit for bit fresh
+    integrators that pad every stage anew, at 1x1 (with w and damping,
+    blocked S=2, bf16 constants) and on (2,2) and (2,1) meshes on the one
+    card under ``rdma`` and on (2,2) under ``rdma_overlap``; and
+    ``sharded.PADS`` must read 31 blocks built and 32 reused on the first
+    1x1 step with w, 20 and 43 on each later one.  Returns those counts."""
+    import torch
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.models.tendencies import NudgingTendencies
+    from wrf_tpu_torch.parallel.mesh import make_mesh
+    from wrf_tpu_torch.parallel.sharded import PADS, PadMemo, case_to_domain
+
+    case = case_at(BIG_GRID, balanced=True)
+    b = case.bounds
+    dt = case.dts * 6
+
+    def integrator(shape, keep, **kw):
+        mesh = (make_mesh(["cuda:0"] * (shape[0] * shape[1]), shape)
+                if shape else None)
+        rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
+                            acoustic_steps=6, kernel="cuda",
+                            snapshot="base", device="cuda", mesh=mesh,
+                            **dict(dict(with_w=True, smdiv=SMDIV), **kw))
+        if not keep:
+            memo = PadMemo(keep=False)
+            for loop in rk3.loops:
+                loop.pad_memo = memo
+        return rk3
+
+    def closed(shape, keep, steps=3, **kw):
+        rk3 = integrator(shape, keep, **kw)
+        arrays = rk3.prepare(case_to_domain(case,
+                                            with_w=kw.get("with_w", True)))
+        fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
+        outs, counts = [], []
+        for _ in range(steps):
+            before = dict(PADS)
+            out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
+                           tendency_fn=fn)
+            counts.append(tuple(PADS[k] - before.get(k, 0)
+                                for k in ("built", "reused")))
+            arrays = rk3.merge_evolved(arrays, out)
+            fn.damp_winds(arrays)
+            outs.append(out)
+            if not keep:
+                thomas, rk3 = rk3.loops[0].thomas, integrator(shape, keep,
+                                                              **kw)
+                for loop in rk3.loops:
+                    loop.thomas = thomas
+        torch.cuda.synchronize()
+        return outs, counts
+
+    paths = {"1x1": (None, {}),
+             "1x1 S=2": (None, dict(inner_steps=2, smdiv=0.0)),
+             "1x1 bf16": (None, dict(const_dtype=torch.bfloat16)),
+             "(2,2) rdma": ((2, 2), dict(halo_backend="rdma")),
+             "(2,1) rdma": ((2, 1), dict(halo_backend="rdma")),
+             "(2,2) rdma_overlap": ((2, 2),
+                                    dict(halo_backend="rdma_overlap"))}
+    counts = None
+    for tag, (shape, kw) in paths.items():
+        got, c = closed(shape, True, **kw)
+        want, _ = closed(shape, False, **kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_bits(f"pad memo {tag} step {i + 1}", g, w)
+        counts = c if tag == "1x1" else counts
+        del got, want
+    print(f"[pad memo] blocks built/reused at 1x1 with w, steps 1-3: "
+          f"{counts}")
+    if counts != [(31, 32), (20, 43), (20, 43)]:
+        raise AssertionError(f"pad memo: built/reused {counts}, expected "
+                             "(31, 32) then (20, 43)")
+    return counts
+
+
 def phase_golden_file(tmp: Path):
     import torch
     from wrf_tpu_torch.compare import compare
@@ -4395,6 +4479,7 @@ def main() -> int:
                                         card=smi)
     ipc = timed("ipc kernels vs plain", phase_ipc_vs_plain, card=smi)
     k5_loop_launches, ov_launches = timed("mesh loops", phase_mesh_loops)
+    timed("pad memo", phase_pad_memo)
     _, k1_shard = timed("k1 at a 2x2 shard's block", phase_kernel_vs_plain,
                         cases=((SHARD_GRID, "specified"),),
                         time_grids=(SHARD_GRID,), card=smi)

@@ -1,10 +1,10 @@
 """The program's spans (``utils/timing.py::span``): nothing while no profiler
 records; under a CPU profiler one closed RK3 step with the nudging closure
 makes the spans the layers promise, nested as they are called, with the
-pad's bytes as its count and the state bit-equal to an untraced step; the
-Chrome trace holds them inside the caller's span; and the benchmark's
-readers of them (``wrfbench/spans.py``, ``wrfbench/metrics/``) on a fake
-recorder."""
+bytes of the blocks the pad built as its count and the state bit-equal to
+an untraced step; the Chrome trace holds them inside the caller's span;
+and the benchmark's readers of them (``wrfbench/spans.py``,
+``wrfbench/metrics/``) on a fake recorder."""
 
 import json
 import types
@@ -62,15 +62,16 @@ def _integrator(case, kernel, inner, shape):
                          smdiv=0.1 if inner == 1 else 0.0, mesh=mesh)
 
 
-def _closed_step(case, rk3):
+def _closed_step(case, rk3, steps=1):
     """run_sim's loop body: step with the closure, merge, wind damping."""
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     dt = case.dts * 6
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
-    out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
-                   tendency_fn=fn)
-    arrays = rk3.merge_evolved(arrays, out)
-    fn.damp_winds(arrays)
+    for _ in range(steps):
+        out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
+                       tendency_fn=fn)
+        arrays = rk3.merge_evolved(arrays, out)
+        fn.damp_winds(arrays)
     return rk3.unprepare(arrays, [n for n in rk3._EVOLVED if n in arrays])
 
 
@@ -115,19 +116,44 @@ def test_span_parents(case, path):
     assert all(step.t0 <= s.t0 and s.t1 <= step.t1 for s in inside)
 
 
+#: the inputs a closed step gives new tensors: the evolved state and the
+#: closure's tendencies
+CHANGED = ("ww", "u", "v", "t", "t_ave", "w", "pp", "ft", "mu", "mu_tend")
+#: what stages 2 and 3 pad again, by path: K1 updates the state it carries
+#: (t, w, pp) and on its last launch ww and t_ave in place, the blocked
+#: stages carry t, w and pp on K3's copies, and on the mesh the first
+#: substep refreshes mu's and v's halos in place
+K1_STATE = ("ww", "t_ave", "t", "w", "pp")
+REPADS = {PATHS[0]: (K1_STATE, K1_STATE),
+          PATHS[1]: (K1_STATE, ("ww", "t_ave")),
+          PATHS[2]: ((), ()),
+          PATHS[3]: (K1_STATE + ("mu", "v"), K1_STATE + ("mu", "v"))}
+
+
 @pytest.mark.parametrize("path", PATHS)
 def test_pad_count_is_the_bytes_pad_local_writes(case, path):
-    rk3, _, made = _traced_step(case, path)
+    """The count is the bytes of the blocks the pad built: every block at a
+    step's first stage, then only what the memo could not give back."""
+    rk3 = _integrator(case, *path)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _closed_step(case, rk3, steps=2)
+    made = list(timing.SPANS)
     loop = rk3.loops[0]
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     blocks = {n: arrays[n] if loop._blocks else {(0, 0): arrays[n]}
               for n in loop._names}
     local = pad_local(blocks, loop.mesh, loop._j_sh, loop._i_sh)
+
+    def nbytes(names):
+        return sum(p[n].nbytes for p in local.values() for n in names)
+
     new = sum(x.nbytes for p in local.values() for x in p.values()
               if all(x is not b[c] for b in blocks.values() for c in b))
+    again = [nbytes(names) for names in REPADS[path]]
     pads = [s.count for s in made if s.name == "wrf.loop.pad"]
-    assert pads == [new] * 3 and new > 0
-    assert timing.span_totals()["wrf.loop.pad"]["count"] == 3 * new
+    assert pads == [new, *again, nbytes(CHANGED), *again]
+    assert 0 < nbytes(CHANGED) < new
+    assert timing.span_totals()["wrf.loop.pad"]["count"] == sum(pads)
 
 
 @pytest.mark.parametrize("path", PATHS)

@@ -25,6 +25,9 @@ them), except that a
 stage whose blocked path engages under plain ``rdma`` downgrades to the
 width-S ppermute refresh, loudly (there is no width-S exchange kernel).
 ``const_dtype`` (bf16 constant streams) passes to every stage's loop.
+The three loops share one pad memo (``parallel/sharded.py::PadMemo``): a
+stage pads only the inputs no stage has padded since they last changed,
+and the state K1 updates in place.
 
 ``step(..., tendency_fn)`` takes the slow-tendency hook: before each stage
 ``tendency_fn(stage, prev_stage_out, stage_arrays)`` returns replacement
@@ -121,10 +124,12 @@ class RK3Integrator:
                           const_dtype=const_dtype)
             for (_, n_sub) in self.stages
         ]
-        # one cache of the w/pp Thomas vectors for the three stages: the
-        # host copies prepare takes serve every stage's dts
+        # one cache of the w/pp Thomas vectors for the three stages (the
+        # host copies prepare takes serve every stage's dts) and one pad
+        # memo (every stage restarts from the same tensors)
         for loop in self.loops[1:]:
             loop.thomas = self.loops[0].thomas
+            loop.pad_memo = self.loops[0].pad_memo
         self.prepare = self.loops[0].prepare
         self.unprepare = self.loops[0].unprepare
 

@@ -5,8 +5,12 @@ is ONE launch per shard of the fused K1 kernel
 (``advance_mu_t_fused(fuse_uv=True)``): the wind update runs inside it from
 mu's neighbours, so u and v stream once per substep.  The loop pads every
 block by a 1-cell halo (the neighbours' edge cells on sharded axes, zeros
-elsewhere), computes the lean constants once, runs ``n_steps-1`` lean
-"lite" substeps that carry only ww's scan-seed row, then one final substep
+elsewhere) once per distinct input (``pad_memo``,
+``parallel/sharded.py::PadMemo``: an input the loop padded before, and
+that nothing wrote since, gives back its padded blocks; the three stages
+of an RK3 step share one memo; the state K1 updates in place is padded
+anew), computes the lean constants once, runs ``n_steps-1`` lean "lite"
+substeps that carry only ww's scan-seed row, then one final substep
 that re-materializes ww and writes t_ave, and trims the halo and the
 boundary ring.  The substeps are a Python loop over "for each shard".  With
 ``with_w`` every substep also runs the vertically-implicit w/pp substep
@@ -36,8 +40,9 @@ refreshed with one width-S exchange per block of S substeps; under
 ``"rdma_overlap"`` the j leg of that exchange is inside K3 too.
 
 While a ``torch.profiler`` records, a call is three spans
-(``utils/timing.py::span``): ``wrf.loop.pad`` (``pad_local``; its count is
-the bytes of the new blocks), ``wrf.loop.inputs`` (from after the pad to
+(``utils/timing.py::span``): ``wrf.loop.pad`` (``pad_local`` through the
+loop's pad memo; its count is the bytes of the blocks the call built),
+``wrf.loop.inputs`` (from after the pad to
 the first launch: the carried state's start, the lean constants, the
 blocked path's widened inputs, the bf16 casts) and ``wrf.loop.substeps``
 (every launch with its halo refreshes, the final one included).
@@ -79,8 +84,8 @@ from ..ops.halo_rdma_cuda import (
 from ..parallel import halo
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import (
-    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, as_blocks, domain_window, gather,
-    local_mesh, pad_local, prepare_arrays, shard_offsets, strip_local,
+    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, PadMemo, as_blocks, domain_window,
+    gather, local_mesh, prepare_arrays, shard_offsets, strip_local,
 )
 from ..utils.timing import span
 
@@ -289,6 +294,19 @@ class SmallStepLoop:
         self.out_names = OUT_NAMES + (W_STATE if with_w else ())
         #: the w/pp Thomas K-vectors of every (vector, dts) this loop met
         self.thomas = ThomasCache()
+        #: the halo pads of the inputs this loop met last: none kept where
+        #: a neighbour's block lies in another process or the
+        #: self-exchange writes the halo
+        self.pad_memo = PadMemo(keep=not (force_exchange
+                                          or self.mesh.spans_processes))
+        #: the inputs whose padded blocks the fused kernels update in place
+        #: (through device pointers: no ``_version`` sees it): K1's last
+        #: launch writes ww and t_ave, every K1 launch the carried t, w and
+        #: pp unless K3's blocks ran first on copies of them
+        n_blocks = (n_steps - 1) // inner_steps if inner_steps > 1 else 0
+        self._written = () if kernel == "eager" else (
+            ("ww", "t_ave")
+            + (() if n_blocks else ("t",) + (W_STATE if with_w else ())))
 
     def prepare(self, arrays) -> dict:
         """Ring-shaped arrays (numpy) -> float32 tensors on the device(s),
@@ -321,10 +339,10 @@ class SmallStepLoop:
         nj_loc, _, ni_loc = next(iter(arrays["t"].values())).shape
         n_loc = (nj_loc, ni_loc)
         with span("wrf.loop.pad", device=self.span_device) as sp:
-            local = pad_local(arrays, mesh, self._j_sh, self._i_sh)
-            if sp is not None:      # the new blocks (1-D fields pass as is)
-                sp.count = sum(x.nbytes for p in local.values()
-                               for x in p.values() if x.ndim > 1)
+            local, built = self.pad_memo.pad(
+                arrays, mesh, self._j_sh, self._i_sh, self._written)
+            if sp is not None:      # the blocks built (a reused one is free)
+                sp.count = built
         # every shard's padded-local row/column 0 in ring coordinates
         offs = {c: shard_offsets(c, nj_loc, ni_loc) for c in local}
         scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "epssm": epssm}

@@ -31,6 +31,9 @@ lateral-boundary data.  Arrays are zero-padded up to mesh-divisible sizes
 
 from __future__ import annotations
 
+import collections
+import weakref
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -178,6 +181,104 @@ def pad_local(arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool) -> dict:
             padded[n] = b
     return {c: {n: padded[n][c] for n in padded}
             for c in mesh.local_coords()}
+
+
+#: the blocks :class:`PadMemo` built and reused since import (a shard's
+#: 3-D or 2-D block each; 1-D fields pass as they are and count in
+#: neither): ``PADS["built"]``, ``PADS["reused"]``.  Read it as a
+#: difference around a call, as ``parallel/halo.py::SENT``.
+PADS: collections.Counter = collections.Counter()
+
+
+class _PadEntry:
+    """One field's padded blocks, with what they were built from: the
+    mesh's layout and its sharded axes, each source block by weak
+    reference with its ``_version``, and each padded block's ``_version``
+    when stored."""
+
+    __slots__ = ("setup", "srcs", "out", "out_versions")
+
+    def __init__(self, setup, blocks: dict, out: dict):
+        self.setup = setup
+        self.srcs = {c: (weakref.ref(x), x._version)
+                     for c, x in blocks.items()}
+        self.out = out
+        self.out_versions = {c: y._version for c, y in out.items()}
+
+    def holds(self, setup, blocks: dict) -> bool:
+        if self.setup != setup or self.srcs.keys() != blocks.keys():
+            return False
+        for c, x in blocks.items():
+            ref, version = self.srcs[c]
+            if ref() is not x or x._version != version:
+                return False
+        return all(y._version == self.out_versions[c]
+                   for c, y in self.out.items())
+
+
+class PadMemo:
+    """:func:`pad_local` memoised on its inputs: the loops' halo pad, done
+    once per distinct input and not once per call.  The three stages of
+    an RK3 step restart from one state, and a step's constants keep their
+    tensors from step to step, so most of what a stage pads was padded
+    before.
+
+    An entry is one field's padded blocks, keyed by the field's name, the
+    identity and ``_version`` of every block the pad reads and the mesh's
+    layout (shape and devices) with its sharded axes.  It holds the source
+    blocks by weak reference (an id is not reused while its entry can
+    match) and each padded block's ``_version`` as stored: an in-place
+    write to a source or to a padded block (``halo.refresh_axis`` on a
+    mesh) is a miss.  A write that no version sees, through a device
+    pointer, either writes what the pad wrote (K5's j refresh before the
+    first substep on a mesh in one process) or goes to a field the caller
+    names in ``written`` (K1 updates its carried state in place): such a
+    field is padded anew on every call and not kept.  One entry a name: a
+    new input replaces the old one, which is dropped before the new pad is
+    built.  A hit costs no device work and no host synchronisation.
+
+    ``keep=False`` keeps nothing: every call pads anew (a mesh whose
+    neighbours sit in other processes, whose blocks cannot be keyed here,
+    and a loop whose self-exchange writes other values into the halo)."""
+
+    def __init__(self, keep: bool = True):
+        self.keep = keep
+        self._entries: dict[str, _PadEntry] = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def pad(self, arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool,
+            written=()) -> tuple[dict, int]:
+        """``pad_local(arrays, mesh, j_sh, i_sh)`` in new per-shard dicts,
+        and the bytes of the blocks this call built.  ``written`` names the
+        fields whose padded blocks the caller will write unseen."""
+        # the mesh by its layout: a stage loop built without one makes its
+        # own 1x1 mesh, and the three stages of an RK3 step share a memo
+        setup = (mesh.shape, tuple(map(tuple, mesh.devices)), j_sh, i_sh)
+        got, miss = {}, {}
+        for n, b in arrays.items():
+            if next(iter(b.values())).ndim == 1:
+                got[n] = b
+                continue
+            e = self._entries.get(n)
+            if e is not None and n not in written and e.holds(setup, b):
+                got[n] = e.out
+                PADS["reused"] += len(e.out)
+            else:
+                self._entries.pop(n, None)
+                miss[n] = b
+        built = 0
+        if miss:
+            new = pad_local(miss, mesh, j_sh, i_sh)
+            for n in miss:
+                got[n] = {c: p[n] for c, p in new.items()}
+                if self.keep and n not in written:
+                    self._entries[n] = _PadEntry(setup, miss[n], got[n])
+            built = sum(x.nbytes for p in new.values() for x in p.values())
+            PADS["built"] += sum(len(p) for p in new.values())
+        return ({c: {n: got[n][c] for n in arrays}
+                 for c in mesh.local_coords()}, built)
 
 
 def strip_local(outs: dict, names, domain, mesh: Mesh) -> dict:
