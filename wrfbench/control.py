@@ -7,7 +7,11 @@ bfloat16 control and the faults, at the cell's own size, in one process.
 Each run is a whole run of the cell (:func:`wrfbench.run.run_cell`) with a
 short window at the cell's load, the program replaced by the control
 (:class:`wrfbench.check.Control`) or broken underneath
-(:class:`wrfbench.check.Fault`).  One JSON line per run on standard output:
+(:class:`wrfbench.check.Fault`: every fault a closed step can have, and
+on a cell whose traffic names a mesh, those of a mesh too).  It runs on
+the cell's ``chips`` cards, or with ``--device`` on that one device alone
+(which then holds every shard of a mesh).  One JSON line per run on
+standard output:
 what ran, the seed, the two compared numbers and ``correct``.  A run that
 raises is reported with its error and no numbers.  The benchmark's own
 runs never run this.
@@ -21,8 +25,8 @@ import json
 import sys
 import time
 
-from .check import FAULTS, Control, Fault
-from .run import ROOT, _START, cache_dirs, run_cell
+from .check import FAULTS, MESH_FAULTS, Control, Fault
+from .run import ROOT, _START, Spec, cache_dirs, run_cell
 
 
 def main(argv=None) -> int:
@@ -33,15 +37,24 @@ def main(argv=None) -> int:
     p.add_argument("--faults", type=int, default=3)
     p.add_argument("--seconds", type=float, default=2.0)
     p.add_argument("--base-seed", type=int, default=2**31 + 1000)
-    p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device", default=None)
     args = p.parse_args(argv)
     cache_dirs(ROOT)
     import torch
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        print("wrfbench.control: no CUDA device", file=sys.stderr)
+    spec = Spec(ROOT)
+    cell = spec.cell(args.workload)
+    devices = ([args.device] if args.device else
+               [f"cuda:{i}" for i in range(cell["chips"])])
+    if torch.device(devices[0]).type == "cuda" and (
+            not torch.cuda.is_available()
+            or torch.cuda.device_count() < len(devices)):
+        print(f"wrfbench.control: needs {len(devices)} CUDA device(s)",
+              file=sys.stderr)
         return 2
     from .program import ClosedStep
+
+    faults = FAULTS + (MESH_FAULTS if "mesh" in spec.traffic(cell) else ())
 
     def fault(kind):
         return lambda *a: Fault(ClosedStep(*a), kind)
@@ -49,14 +62,14 @@ def main(argv=None) -> int:
     plan = [("program", None, i) for i in range(args.seeds)]
     plan += [("control bf16", Control, 100 + i) for i in range(args.control)]
     plan += [(f"fault {k}", fault(k), 200 + 10 * j + i)
-             for j, k in enumerate(FAULTS) for i in range(args.faults)]
+             for j, k in enumerate(faults) for i in range(args.faults)]
     for what, make, offset in plan:
         seed = args.base_seed + offset
         t0 = time.perf_counter()
         row = {"run": what, "workload": args.workload, "seed": seed}
         try:
             res = run_cell(ROOT, args.workload, seed, args.seconds, False,
-                           args.device, _START, make_program=make,
+                           devices, _START, make_program=make,
                            log=io.StringIO())
             row.update({k: c["value"] for k, c in res["compared"].items()},
                        correct=res["correct"], calls=res["attempted"])

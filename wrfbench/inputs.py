@@ -6,7 +6,10 @@ amplitude=...)``, rewritten to draw every field on ``device`` from one
 grid and dx, and to return the ring-shaped arrays (the staggered extents
 plus a 1-cell boundary ring, ``(ny+2, nz, nx+2)``) that the program's
 ``prepare`` and the reference both take.  It is ``make_case(halo=1)`` with
-its memory window as the ring, so no extraction step is needed.
+its memory window as the ring, so no extraction step is needed.  A run
+takes them with :func:`make_host`: drawn one field at a time on the card
+and each moved to the host before the next, so no domain larger than a
+card's share ever sits whole on it.
 
 What the fields are (magnitudes modelled on WRF, as in the fixture):
 column dry mass ``mut`` ~ 5e4 Pa, mass-coupled winds ``u, v`` ~ 1e6 x
@@ -117,37 +120,38 @@ def _smooth2(gen, shape2, amp: float, base: float = 0.0) -> torch.Tensor:
     return _smooth3(gen, (J, 1, I), amp, base)[:, 0, :].contiguous()
 
 
-def make_domain(cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:
+def fields(cfg: dict, seed: int, device):
     """Every ring-shaped field of a cell, float32 on ``device``, from
-    ``seed`` (any whole number; taken modulo 2**64)."""
+    ``seed`` (any whole number; taken modulo 2**64), one ``(name, tensor)``
+    at a time: a field is drawn only once the one before has been handed
+    out, so a caller that moves each to the host never holds the domain on
+    the card (the four 2-D fields the base winds need stay, and the
+    streamfunction's float64 block while the winds are made)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed) % 2**64)
     amp = float(cfg["amplitude"])
     J, K, I = s3 = ring_shape(cfg)
     s2 = (J, I)
-    f = {n: torch.from_numpy(v).to(dev) for n, v in vertical(K).items()}
-    f.update({
-        "msfuy": _smooth2(gen, s2, 0.05, 1.0),
-        "msfvx_inv": _smooth2(gen, s2, 0.05, 1.0),
-        "msftx": _smooth2(gen, s2, 0.05, 1.0),
-        "msfty": _smooth2(gen, s2, 0.05, 1.0),
-        "mut": _smooth2(gen, s2, 2e3, 5e4),
-        "muu": _smooth2(gen, s2, 2e3, 5e4),
-        "muv": _smooth2(gen, s2, 2e3, 5e4),
-        "mu": _smooth2(gen, s2, 1e2),
-        "mu_tend": _smooth2(gen, s2, 1e-1),
-        "u": _smooth3(gen, s3, 1e6 * amp),
-        "v": _smooth3(gen, s3, 1e6 * amp),
-        "t_1": _smooth3(gen, s3, 1e1 * amp),
-        "t": _smooth3(gen, s3, 1e4 * amp),
-        "ft": _smooth3(gen, s3, 1e0 * amp),
-        "t_ave": _smooth3(gen, s3, 1e4 * amp),
-        "ww": _smooth3(gen, s3, 1e-1 * amp),
-        "ww_1": _smooth3(gen, s3, 1e-3 * amp),
-        "w": _smooth3(gen, s3, 1e0),
-        "pp": _smooth3(gen, s3, 1e2),
-    })
+    for n, v in vertical(K).items():
+        yield n, torch.from_numpy(v).to(dev)
+    kept = {}
+    for n, shape, a, base in (
+            ("msfuy", s2, 0.05, 1.0), ("msfvx_inv", s2, 0.05, 1.0),
+            ("msftx", s2, 0.05, 1.0), ("msfty", s2, 0.05, 1.0),
+            ("mut", s2, 2e3, 5e4), ("muu", s2, 2e3, 5e4),
+            ("muv", s2, 2e3, 5e4), ("mu", s2, 1e2, 0.0),
+            ("mu_tend", s2, 1e-1, 0.0),
+            ("u", s3, 1e6 * amp, 0.0), ("v", s3, 1e6 * amp, 0.0),
+            ("t_1", s3, 1e1 * amp, 0.0), ("t", s3, 1e4 * amp, 0.0),
+            ("ft", s3, 1e0 * amp, 0.0), ("t_ave", s3, 1e4 * amp, 0.0),
+            ("ww", s3, 1e-1 * amp, 0.0), ("ww_1", s3, 1e-3 * amp, 0.0),
+            ("w", s3, 1e0, 0.0), ("pp", s3, 1e2, 0.0)):
+        x = (_smooth2 if len(shape) == 2 else _smooth3)(gen, shape, a, base)
+        if n in ("msfuy", "msfvx_inv", "muu", "muv"):
+            kept[n] = x
+        yield n, x
+        del x
     # balanced base winds: U = rdy*d_j(psi), V = -rdx*d_i(psi) as coupled
     # fluxes have rdx*d_i(U) + rdy*d_j(V) = 0 cell by cell; uncoupled
     # through the mass and map-factor fields into the *_1 slots
@@ -162,11 +166,25 @@ def make_domain(cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:
                 * torch.sin(2 * math.pi * m[w, 2] * ii + m[w, 5])[None, None, :])
     psi *= 1e4 / (3 * max(rdx, rdy))
     cflux_u = (psi[1:, :, :I] - psi[:J, :, :I]) * rdy
-    f["u_1"] = (cflux_u * f["msfuy"].double()[:, None, :]
-                / f["muu"].double()[:, None, :]).float()
+    u_1 = (cflux_u * kept["msfuy"].double()[:, None, :]
+           / kept["muu"].double()[:, None, :]).float()
     del cflux_u
+    yield "u_1", u_1
+    del u_1
     cflux_v = -(psi[:J, :, 1:] - psi[:J, :, :I]) * rdx
     del psi
-    f["v_1"] = (cflux_v / (f["muv"].double()[:, None, :]
-                           * f["msfvx_inv"].double()[:, None, :])).float()
-    return f
+    yield "v_1", (cflux_v / (kept["muv"].double()[:, None, :]
+                             * kept["msfvx_inv"].double()[:, None, :])).float()
+
+
+def make_domain(cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """Every ring-shaped field of a cell at once, float32 on ``device``
+    (:func:`fields` gathered)."""
+    return dict(fields(cfg, seed, device))
+
+
+def make_host(cfg: dict, seed: int, device) -> dict[str, np.ndarray]:
+    """The same fields, drawn on ``device`` one at a time and each moved to
+    the host before the next is drawn: equal to :func:`make_domain`'s bit
+    for bit, with at most one 3-D field of them on ``device`` at a time."""
+    return {n: x.cpu().numpy() for n, x in fields(cfg, seed, device)}

@@ -1,6 +1,6 @@
 """peak_mem_gib: ``torch.cuda.max_memory_allocated()`` over the program's
 set-up and warm-up steps (read before the harness holds any state of its
-own for the check), in GiB."""
+own for the check), in GiB: the fullest of the run's cards."""
 
 
 def read(run):

@@ -13,5 +13,7 @@ class RunRecord:
     window_s: float
     steps: int                  # large steps completed in the window
     step_s: list                # seconds of each large step in the window
-    program_peak_bytes: int | None   # set-up and warm-up; None off the card
+    #: the fullest card's peak over set-up and warm-up; None off the card
+    program_peak_bytes: int | None
+    chips: int = 1              # the cards the run's program uses
     trace: object = None        # wrfbench.trace.Trace of a --trace 1 run

@@ -23,9 +23,20 @@ coefficients and the closure's rates are worked out here again from the
 configuration and the seeded inputs.  ``dtype`` is the precision the
 arithmetic runs in: float32, as the configuration states, or bfloat16 for
 the control that must come out as not correct.
+
+A domain too large for one card is stepped in blocks of rows
+(:func:`blocks`): a :class:`Reference` built on one block's span of the
+inputs (``span``) steps those rows with the window shifted to its place,
+and its rows more than :func:`halo_width` from the span's cut edges are
+the whole domain's, bit for bit (every operation is elementwise, a roll or
+a reduction along k; what a roll wraps round a cut edge travels one row a
+substep).  A domain of at most :data:`BLOCK_CELLS` ring cells is
+one block, the whole domain.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -51,6 +62,56 @@ def rk3_stages(ns: int) -> tuple[tuple[float, int], ...]:
     """(stage dt fraction, substeps) of WRF's three RK3 stages."""
     ns = max(2, ns)
     return ((1.0 / 3.0, 1), (0.5, max(1, ns // 2)), (1.0, ns))
+
+
+#: the most ring cells (J*K*I) one block of the reference spans: a bound
+#: on its working set on a card, which holds about 40 float32 arrays of
+#: the block's size at once
+BLOCK_CELLS = 2**27
+
+
+def halo_width(cfg: dict, steps: int) -> int:
+    """Rows of halo a block needs for ``steps`` large steps.
+
+    A substep's new values at a cell read the old ones at most one row and
+    one column away: the wind update's backward differences of mu and
+    mudf (v at j from j-1, u at i from i-1), the mass-flux divergence's
+    forward ones (j+1, i+1, which also carry the damping's mudf) and
+    theta's centred fluxes (j-1..j+1, i-1..i+1); the ww scan, the w/pp
+    solve and the closure stay in their column.  So a substep carries what
+    a cut edge spoils one row in.  The stages of a large step
+    restart from its start state, so the longest stage bounds a step's
+    reach; this counts every stage's substeps, which also holds were the
+    stages to follow one another."""
+    return steps * sum(n for _, n in rk3_stages(cfg["time_step_sound"]))
+
+
+def block_count(shape, halo: int) -> int:
+    """The fewest j blocks whose spans hold at most :data:`BLOCK_CELLS`
+    ring cells each (one where the whole domain does)."""
+    J, K, I = shape
+    nj = 1
+    while nj < J and (math.ceil(J / nj) + 2 * halo * (nj > 1)) * K * I \
+            > BLOCK_CELLS:
+        nj += 1
+    return nj
+
+
+def blocks(shape, nj: int, halo: int) -> list[tuple[tuple, tuple]]:
+    """The blocks of a ring-shaped ``(J, K, I)`` domain cut ``nj`` ways in
+    j, whole rows each: ``(own, span)``, ``own`` the rows it answers for
+    and ``span`` those with ``halo`` more on each side, clipped at the
+    domain's edges; each ``(j0, j1, 0, I)``, half-open.  (Rows only: cut
+    in i as well, torch's CPU sum over k takes another order at another
+    row width, and the blocks would differ from the whole in the last
+    place.)"""
+    J, _, I = shape
+    out = []
+    for b in range(nj):
+        j0, j1 = J * b // nj, J * (b + 1) // nj
+        out.append(((j0, j1, 0, I),
+                    (max(0, j0 - halo), min(J, j1 + halo), 0, I)))
+    return out
 
 
 def _masks(shape, win, dev):
@@ -209,15 +270,21 @@ class Reference:
     Built from the configuration and the seeded inputs (host or device
     arrays, ring-shaped); holds the constant fields and the closure's
     reference ``t`` and ``mu`` (the inputs') on ``device``.  ``step(state)``
-    takes and returns a dict of the :data:`EVOLVED` fields."""
+    takes and returns a dict of the :data:`EVOLVED` fields.  ``span``
+    ``(j0, j1, i0, i1)`` (a block's, :func:`blocks`) restricts it to those
+    rows and columns of the domain: its fields and states are the span's."""
 
-    def __init__(self, cfg: dict, inputs: dict, device, dtype=torch.float32):
+    def __init__(self, cfg: dict, inputs: dict, device, dtype=torch.float32,
+                 span=None):
         from .inputs import grid, scalars
 
         self.dtype = dtype
         self.sc = scalars(cfg)
         nx, ny, nz = grid(cfg)
-        self.win = window(nx, ny, nz)
+        i0, i1, j0, j1, k0, k1 = window(nx, ny, nz)
+        self.span = span
+        oj, oi = (span[0], span[2]) if span else (0, 0)
+        self.win = (i0 - oi, i1 - oi, j0 - oj, j1 - oj, k0, k1)
         self.stages = rk3_stages(cfg["time_step_sound"])
         self.cs2, self.cw, self.gw = cfg["cs2"], cfg["cw"], cfg["gw"]
         clo = cfg["closure"]
@@ -234,6 +301,9 @@ class Reference:
     def _dev(self, x, device):
         x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                             else x)
+        if self.span and x.ndim > 1:
+            j0, j1, i0, i1 = self.span
+            x = x[j0:j1, ..., i0:i1]
         return x.to(device=device, dtype=self.dtype)
 
     def initial(self, inputs: dict) -> dict:
@@ -241,7 +311,8 @@ class Reference:
         return {n: self._dev(inputs[n], self.ref_t.device) for n in EVOLVED}
 
     def state(self, fields: dict) -> dict:
-        """A step-start state from the evolved fields a run produced."""
+        """A step-start state from the evolved fields a run produced (the
+        span's rows and columns of them, where the reference has a span)."""
         return {n: fields[n].to(device=self.ref_t.device, dtype=self.dtype)
                 for n in EVOLVED}
 

@@ -9,13 +9,18 @@ its traffic mix (``wrfbench/traffic/<traffic>.json``), its limits
 (``wrfbench/limits/<cell>.json``) and one reader per metric
 (``wrfbench/metrics/<metric>.py``).
 
-A run: the seeded inputs on the card (:mod:`wrfbench.inputs`), the
-program's ``prepare`` and closed large steps (:mod:`wrfbench.program`),
+A cell runs on as many cards as its ``chips`` (the program's mesh, if its
+traffic names one, takes them in turn).  A run: the seeded inputs, made
+field by field on the first card and moved to the host
+(:mod:`wrfbench.inputs`), the program's ``prepare`` and closed large
+steps (:mod:`wrfbench.program`),
 the warm-up, then a closed loop of calls for ``--seconds``, each waiting
 for the one before; with ``--trace 1`` a ``torch.profiler`` window of
 steady calls after it (:mod:`wrfbench.trace`).  Then the check
 (:mod:`wrfbench.check`): the first step and a seeded sample of the window's
-calls against the plain reference, once the program's state is freed.
+calls against the plain reference, once the program's state is freed,
+block by block on the run's cards.  Memory readings are the fullest
+card's; standard error gives every card's.
 
 It prints the compared numbers beside their limits as the last lines of
 standard error, and one JSON object as the last line of standard output:
@@ -123,17 +128,18 @@ class Spec:
 
 def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
              device, start: float, make_program=None, log=sys.stderr) -> dict:
-    """One run of cell ``name``; returns the result object.  ``start`` is
-    the process start on the ``perf_counter`` clock.  ``make_program``
-    builds the system under test from ``(cfg, traffic, host_inputs,
-    device)`` (default: the program's closed step)."""
+    """One run of cell ``name``; returns the result object.  ``device`` is
+    the run's device or list of devices (the program's mesh takes them in
+    turn, so one device may hold every shard).  ``start`` is the process
+    start on the ``perf_counter`` clock.  ``make_program`` builds the
+    system under test from ``(cfg, traffic, host_inputs, devices)``
+    (default: the program's closed step)."""
     import numpy as np
     import torch
 
     from . import check, inputs
     from . import trace as tracing
     from .record import RunRecord
-    from .reference import Reference
 
     def say(msg):
         print(f"[wrfbench] {msg}", file=log, flush=True)
@@ -141,19 +147,22 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
     spec = Spec(root)
     cell = spec.cell(name)
     cfg, mix, limits = spec.config(cell), spec.traffic(cell), spec.limits(cell)
-    device = torch.device(device)
-    on_card = device.type == "cuda"
+    devices = [torch.device(d) for d in
+               ([device] if isinstance(device, (str, torch.device))
+                else device)]
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     if make_program is None:
         from .program import ClosedStep as make_program
     marks = [("imports", time.perf_counter())]
 
-    dev_inputs = inputs.make_domain(cfg, seed, device)
-    host = {n: x.cpu().numpy() for n, x in dev_inputs.items()}
-    del dev_inputs
+    def peaks():
+        return [torch.cuda.max_memory_allocated(d) for d in cards]
+
+    host = inputs.make_host(cfg, seed, devices[0])
     marks.append(("inputs", time.perf_counter()))
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
-    prog = make_program(cfg, mix, host, device)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    prog = make_program(cfg, mix, host, devices)
     state = prog.state
     marks.append(("prepare", time.perf_counter()))
 
@@ -163,7 +172,7 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
     first = state
     marks.append(("first call", time.perf_counter()))
     state, _ = prog.step(state)
-    program_peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    program_peaks = peaks()
     for _ in range(mix["warmup_calls"] - 2):
         state, _ = prog.step(state)
     # rehearse what the window holds for the check (two disjoint pairs of
@@ -205,43 +214,43 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
         cfg=cfg, traffic=mix, setup_s=setup_s, window_s=window_s,
         steps=len(times) * per_call,
         step_s=[t / per_call for t in times for _ in range(per_call)],
-        program_peak_bytes=program_peak)
+        program_peak_bytes=max(program_peaks) if cards else None,
+        chips=max(1, len(cards)))
     if trace:
         state, record.trace = tracing.profile(prog, state, mix["trace_calls"],
-                                              device)
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+                                              cards)
+    run_peaks = peaks()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
 
     # the check, once the program's state is freed: the reference in
-    # blocks of one large step
-    first = prog.evolved(first)
-    sample = [(prog.evolved(a), prog.evolved(b)) for a, b in sample]
+    # blocks, on the run's devices in turn, reading the program's evolved
+    # states where they lie
+    calls = [(None, prog.evolved(first))]
+    calls += [(prog.evolved(a), prog.evolved(b)) for a, b in sample]
     prog.close()
-    del prog, state
+    del prog, state, first, sample
     t_check = time.perf_counter()
-    ref = Reference(cfg, host, device)
-
-    def follow(s):          # one call of the program: per_call steps
-        for _ in range(per_call):
-            s = ref.step(s)
-        return s
-
-    err_first = check.scaled_error(first, follow(ref.initial(host)))
-    del first
-    err_window = {}
-    for a, b in sample:
-        for f, e in check.scaled_error(b, follow(ref.state(a))).items():
-            err_window[f] = max(err_window.get(f, 0.0), e)
-    del sample, ref
+    errs = check.call_errors(cfg, host, calls, per_call,
+                             list(dict.fromkeys(devices)))
+    del calls
     check_s = time.perf_counter() - t_check
+    check_peaks = peaks()
+    err_first, err_window = errs[0], {}
+    for e in errs[1:]:
+        for f, v in e.items():
+            err_window[f] = max(err_window.get(f, 0.0), v)
 
     metrics = {}
     for m in spec.metrics(cell, trace):
         value = spec.reader(m["name"])(record)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    if on_card:
-        dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-               "count": cell["chips"], "memory_peak_bytes": int(peak)}
+    if cards:
+        dev = {"platform": "gpu",
+               "kind": torch.cuda.get_device_name(cards[0]),
+               "count": cell["chips"],
+               "memory_peak_bytes": int(max(run_peaks))}
     else:
         dev = {"platform": "cpu", "kind": "cpu", "count": 1,
                "memory_peak_bytes": 0}
@@ -261,8 +270,17 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
         f"{1e3 * float(np.mean(times[i:i + tenth])):.3f}"
         for i in range(0, len(times) - tenth + 1, tenth)))
     say(f"window: {len(times)} calls of {per_call} large step(s) in "
-        f"{window_s:.3f} s; program peak {program_peak} B, run peak {peak} B;"
-        f" the check took {check_s:.3f} s")
+        f"{window_s:.3f} s; the check took {check_s:.3f} s")
+    for i, d in enumerate(cards):
+        say(f"{d}: program peak {program_peaks[i]} B, run peak "
+            f"{run_peaks[i]} B, check peak {check_peaks[i]} B")
+    if trace and cards:
+        step_s = window_s / record.steps
+        for d, us in tr.busy_by_card.items():
+            busy_s = us / 1e6 / tr.steps
+            say(f"card {d}: busy {1e3 * busy_s:.3f} ms a large step in the "
+                f"trace, idle {100 * (1 - busy_s / step_s):.3f} % of the "
+                "untraced step")
     for label, errs in (("step 1", err_first), ("window", err_window)):
         say(f"{label} scaled errors: " + ", ".join(
             f"{f} {e:.3e}" for f, e in errs.items()))
@@ -305,7 +323,8 @@ def main(argv=None) -> int:
         return 2
     torch.set_num_threads(1)
     result = run_cell(ROOT, args.workload, args.seed, args.seconds,
-                      bool(args.trace), "cuda:0", _START)
+                      bool(args.trace), [f"cuda:{i}" for i in range(chips)],
+                      _START)
     found = banned_modules()
     if found:
         print(f"wrfbench: the process holds {found} after the window "

@@ -34,8 +34,8 @@ def test_control_is_not_correct(tmp_path):
 
 @pytest.mark.parametrize("kind", FAULTS)
 def test_fault_is_not_correct(tmp_path, kind):
-    def make(cfg, mix, host, device):
-        return Fault(ClosedStep(cfg, mix, host, device), kind)
+    def make(cfg, mix, host, devices):
+        return Fault(ClosedStep(cfg, mix, host, devices), kind)
 
     res = _run(tiny_checkout(tmp_path), make)
     assert res["correct"] is False, res["compared"]

@@ -42,3 +42,16 @@ def test_base_flux_is_non_divergent():
            + sc["rdy"] * (V[1:, :, :-1] - V[:-1, :, :-1]))
     scale = sc["rdx"] * U.abs().max()
     assert (div.abs().max() / scale) < 1e-5
+
+
+def test_field_by_field_equals_make_domain():
+    """The host inputs a run makes, one field at a time, are the fields
+    ``make_domain`` draws all at once, bit for bit and in its order."""
+    for name, seed in (("conus2p5km", 2**40 + 3), ("conus12km", 11)):
+        cfg = cfg_of(name, e_we=22, e_sn=18, e_vert=7)
+        whole = inputs.make_domain(cfg, seed, "cpu")
+        host = inputs.make_host(cfg, seed, "cpu")
+        assert list(host) == list(whole)
+        for n, x in whole.items():
+            assert host[n].dtype == x.numpy().dtype
+            assert (host[n] == x.numpy()).all(), n

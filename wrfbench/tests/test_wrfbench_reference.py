@@ -21,7 +21,7 @@ def test_reference_follows_the_program(name):
     cfg = cfg_of(name, e_we=26, e_sn=22, e_vert=12)
     host = {n: x.numpy() for n, x in
             inputs.make_domain(cfg, 77, "cpu").items()}
-    prog = ClosedStep(cfg, mix_of(), host, "cpu")
+    prog = ClosedStep(cfg, mix_of(), host, ["cpu"])
     ref = Reference(cfg, host, "cpu")
     state, want = prog.state, ref.initial(host)
     start = {n: x.clone() for n, x in prog.evolved(state).items()}
@@ -40,7 +40,7 @@ def test_control_is_far():
     cfg = cfg_of("conus12km", e_we=26, e_sn=22, e_vert=12)
     host = {n: x.numpy() for n, x in
             inputs.make_domain(cfg, 78, "cpu").items()}
-    ctl = Control(cfg, mix_of(), host, "cpu")
+    ctl = Control(cfg, mix_of(), host, ["cpu"])
     ref = Reference(cfg, host, "cpu")
     got, _ = ctl.step(ctl.state)
     errs = scaled_error(got, ref.step(ref.initial(host)))

@@ -1,9 +1,11 @@
 """A checkout copy with a tiny cell, for the CPU tests of the harness.
 
 :func:`tiny_checkout` copies ``BENCHMARK.json`` and ``wrfbench/`` into a
-directory and adds, as data alone (a configuration file, a limits file
-and the entries naming them), the cell ``tiny.step``: ``conus12km``'s
-dynamics on a 24x20x10 slice, under the ``step`` traffic mix.
+directory and adds, as data alone (a configuration file, limits files
+and the entries naming them), the cells ``tiny.step``: ``conus12km``'s
+dynamics on a 24x20x10 slice, under the ``step`` traffic mix, and
+``tiny.mesh2x2``, the same under ``mesh2x2`` (four cards; a run given one
+device puts every shard on it).
 """
 
 import json
@@ -26,16 +28,19 @@ def tiny_checkout(dest: Path, grid=GRID, limits=None) -> Path:
     cfg.update(name="tiny", **grid)
     (dest / "wrfbench/configs/tiny.json").write_text(json.dumps(cfg))
     lim = json.loads((REPO / "wrfbench/limits/conus12km.step.json").read_text())
-    (dest / "wrfbench/limits/tiny.step.json").write_text(
-        json.dumps(limits or lim))
+    for cell in ("tiny.step", "tiny.mesh2x2"):
+        (dest / f"wrfbench/limits/{cell}.json").write_text(
+            json.dumps(limits or lim))
     bench = json.loads((dest / "BENCHMARK.json").read_text())
     bench["configs"].append({"name": "tiny", "source": "test",
                              "file": "wrfbench/configs/tiny.json",
                              "reduced": ["e_we", "e_sn", "e_vert"],
                              "why": "CPU tests"})
-    bench["workloads"].append({"name": "tiny.step", "config": "tiny",
-                               "traffic": "step", "chips": 1,
-                               "why": "CPU tests"})
+    bench["workloads"] += [
+        {"name": "tiny.step", "config": "tiny", "traffic": "step",
+         "chips": 1, "why": "CPU tests"},
+        {"name": "tiny.mesh2x2", "config": "tiny", "traffic": "mesh2x2",
+         "chips": 4, "why": "CPU tests"}]
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     return dest
 
