@@ -116,6 +116,14 @@ not 0 and no result line is printed):
    (1x1 with w and damping, blocked S=2, bf16 constants; (2,2) and (2,1)
    under ``rdma``, (2,2) under ``rdma_overlap``), and the blocks built
    and reused at 1x1 (31/32 on the first step, 20/43 on each later one);
+7d. the loops' lean cache: 3 closed RK3 steps at 301x251x35 (acoustic
+   steps 4, with w and damping) with one integrator bit-equal to fresh
+   integrators that keep nothing, the cached ``tconst``, ``dvdxi_const``
+   and ``ww1_k0`` after them bit-equal to a fresh ``lean_kwargs`` of the
+   memo's padded blocks, and ``sharded.LEAN`` per step: every part built
+   once on step 1, then one ``tconst`` built and every other block reused;
+   the last step traced, its ``wrf.loop.inputs`` counts 0, one
+   ``tconst``'s bytes, 0;
 7. the reference's golden-file check: 5 plain-call steps at 74x61x32
    through the kernel against the C++ oracle's golden outputs
    (rtol 5e-5, atol_scale 2e-6);
@@ -2597,6 +2605,105 @@ def phase_pad_memo():
     return counts
 
 
+LEAN_GRID = (301, 251, 35)   # the lean cache's phase
+
+
+def phase_lean_cache():
+    """The loops' lean cache on the card: 3 closed RK3 steps at 301x251x35
+    (acoustic steps 4, as the benchmark's cell: stage 1 has no scan
+    substep, stages 2 and 3 share dts; with w and damping) with one
+    integrator must equal, bit for bit, fresh integrators whose pad memo
+    keeps nothing (so no lean constant is kept); after them the cached
+    ``tconst``, ``dvdxi_const`` and ``ww1_k0`` must equal a fresh
+    ``lean_kwargs`` of the memo's padded blocks bit for bit;
+    ``sharded.LEAN`` must read every part built once and reused once on
+    step 1, then one ``tconst`` built and ``dvdxi_const``, ``ww1_k0`` and
+    ``vert`` reused twice and ``tconst`` once on each later step; and the
+    last step, traced, must give ``wrf.loop.inputs`` the counts 0, one
+    ``tconst`` block's bytes, 0.  Returns the per-step counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.models.tendencies import NudgingTendencies
+    from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
+    from wrf_tpu_torch.parallel.sharded import (
+        LEAN, PadMemo, case_to_domain,
+    )
+    from wrf_tpu_torch.utils import timing
+
+    case = case_at(LEAN_GRID, balanced=True)
+    b = case.bounds
+    ns = 4
+    dt = case.dts * ns
+
+    def integrator(keep):
+        rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
+                            acoustic_steps=ns, kernel="cuda",
+                            snapshot="base", device="cuda", with_w=True,
+                            smdiv=SMDIV)
+        if not keep:
+            memo = PadMemo(keep=False)
+            for loop in rk3.loops:
+                loop.pad_memo = memo
+        return rk3
+
+    def closed(keep, steps=3):
+        rk3 = integrator(keep)
+        arrays = rk3.prepare(case_to_domain(case, with_w=True))
+        fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
+        outs, counts, made = [], [], []
+        for step in range(steps):
+            before = dict(LEAN)
+            timing.SPANS.clear()
+            with (profile(activities=[ProfilerActivity.CPU])
+                  if step == steps - 1 else contextlib.nullcontext()):
+                out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
+                               tendency_fn=fn)
+            made = [s.count for s in timing.SPANS
+                    if s.name == "wrf.loop.inputs"]
+            timing.SPANS.clear()
+            counts.append({f"{w} {p}": n - before.get((w, p), 0)
+                           for (w, p), n in sorted(LEAN.items())
+                           if n != before.get((w, p), 0)})
+            arrays = rk3.merge_evolved(arrays, out)
+            fn.damp_winds(arrays)
+            outs.append(out)
+            if not keep:
+                thomas, rk3 = rk3.loops[0].thomas, integrator(keep)
+                for loop in rk3.loops:
+                    loop.thomas = thomas
+        torch.cuda.synchronize()
+        return outs, counts, made, rk3
+
+    got, counts, made, rk3 = closed(True)
+    want, _, _, _ = closed(False)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_bits(f"lean cache step {i + 1}", g, w)
+    del got, want
+    loop = rk3.loops[-1]
+    padded = {n: e.out[0, 0] for n, e in loop.pad_memo._entries.items()}
+    for n, x in rk3.prepare(case_to_domain(case, with_w=True)).items():
+        padded.setdefault(n, x)             # the 1-D vectors pass as they are
+    cached = {n: loop.lean_cache._entries[n].out[0, 0]
+              for n in ("tconst", "dvdxi_const", "ww1_k0")}
+    fresh = lean_kwargs(padded, case.rdx, case.rdy, dt / ns, *loop.window[4:])
+    check_bits("lean cache cached vs fresh lean_kwargs", cached, fresh)
+    block = cached["tconst"].nbytes
+    for i, c in enumerate(counts):
+        print(f"[lean cache] step {i + 1}: {c}")
+    print(f"[lean cache] step 3 wrf.loop.inputs counts: {made} (one tconst "
+          f"block: {block} B)")
+    first = {f"{w} {p}": 1 for w in ("built", "reused")
+             for p in ("dvdxi_const", "tconst", "vert", "ww1_k0")}
+    warm = {"built tconst": 1, "reused dvdxi_const": 2, "reused tconst": 1,
+            "reused vert": 2, "reused ww1_k0": 2}
+    if counts != [first, warm, warm] or made != [0, block, 0]:
+        raise AssertionError(f"lean cache: counts {counts}, inputs counts "
+                             f"{made}; expected {first}, then {warm}, and "
+                             f"[0, {block}, 0]")
+    return counts
+
+
 def phase_golden_file(tmp: Path):
     import torch
     from wrf_tpu_torch.compare import compare
@@ -4480,6 +4587,7 @@ def main() -> int:
     ipc = timed("ipc kernels vs plain", phase_ipc_vs_plain, card=smi)
     k5_loop_launches, ov_launches = timed("mesh loops", phase_mesh_loops)
     timed("pad memo", phase_pad_memo)
+    timed("lean cache", phase_lean_cache)
     _, k1_shard = timed("k1 at a 2x2 shard's block", phase_kernel_vs_plain,
                         cases=((SHARD_GRID, "specified"),),
                         time_grids=(SHARD_GRID,), card=smi)

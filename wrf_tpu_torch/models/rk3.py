@@ -27,7 +27,9 @@ width-S ppermute refresh, loudly (there is no width-S exchange kernel).
 ``const_dtype`` (bf16 constant streams) passes to every stage's loop.
 The three loops share one pad memo (``parallel/sharded.py::PadMemo``): a
 stage pads only the inputs no stage has padded since they last changed,
-and the state K1 updates in place.
+and the state K1 updates in place.  They share one lean cache too
+(``parallel/sharded.py::LeanCache``): a stage builds only the parts of the
+lean constants whose inputs changed since a stage last built them.
 
 ``step(..., tendency_fn)`` takes the slow-tendency hook: before each stage
 ``tendency_fn(stage, prev_stage_out, stage_arrays)`` returns replacement
@@ -125,11 +127,13 @@ class RK3Integrator:
             for (_, n_sub) in self.stages
         ]
         # one cache of the w/pp Thomas vectors for the three stages (the
-        # host copies prepare takes serve every stage's dts) and one pad
-        # memo (every stage restarts from the same tensors)
+        # host copies prepare takes serve every stage's dts), one pad memo
+        # (every stage restarts from the same tensors) and one cache of
+        # the lean constants (stages 2 and 3 share their dts)
         for loop in self.loops[1:]:
             loop.thomas = self.loops[0].thomas
             loop.pad_memo = self.loops[0].pad_memo
+            loop.lean_cache = self.loops[0].lean_cache
         self.prepare = self.loops[0].prepare
         self.unprepare = self.loops[0].unprepare
 

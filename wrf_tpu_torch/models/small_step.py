@@ -9,8 +9,10 @@ elsewhere) once per distinct input (``pad_memo``,
 ``parallel/sharded.py::PadMemo``: an input the loop padded before, and
 that nothing wrote since, gives back its padded blocks; the three stages
 of an RK3 step share one memo; the state K1 updates in place is padded
-anew), computes the lean constants once, runs ``n_steps-1`` lean "lite"
-substeps that carry only ww's scan-seed row, then one final substep
+anew), takes the lean constants from its lean cache (``lean_cache``,
+``parallel/sharded.py::LeanCache``: each part built once per distinct
+input; the stages share it like the memo), runs ``n_steps-1`` lean
+"lite" substeps that carry only ww's scan-seed row, then one final substep
 that re-materializes ww and writes t_ave, and trims the halo and the
 boundary ring.  The substeps are a Python loop over "for each shard".  With
 ``with_w`` every substep also runs the vertically-implicit w/pp substep
@@ -44,8 +46,10 @@ While a ``torch.profiler`` records, a call is three spans
 loop's pad memo; its count is the bytes of the blocks the call built),
 ``wrf.loop.inputs`` (from after the pad to
 the first launch: the carried state's start, the lean constants, the
-blocked path's widened inputs, the bf16 casts) and ``wrf.loop.substeps``
-(every launch with its halo refreshes, the final one included).
+blocked path's widened inputs, the bf16 casts; on the fused path its
+count is the bytes of the 3-D lean-constant blocks the call built) and
+``wrf.loop.substeps`` (every launch with its halo refreshes, the final one
+included).
 
 ``const_dtype=torch.bfloat16`` narrows the never-written 3-D bases (u_1,
 v_1, ww_1, ft, t_1 and the 3-D lean constants; on the blocked path t_1,
@@ -84,8 +88,9 @@ from ..ops.halo_rdma_cuda import (
 from ..parallel import halo
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import (
-    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, PadMemo, as_blocks, domain_window,
-    gather, local_mesh, prepare_arrays, shard_offsets, strip_local,
+    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, LeanCache, PadMemo, as_blocks,
+    domain_window, gather, local_mesh, prepare_arrays, shard_offsets,
+    strip_local,
 )
 from ..utils.timing import span
 
@@ -299,6 +304,9 @@ class SmallStepLoop:
         #: self-exchange writes the halo
         self.pad_memo = PadMemo(keep=not (force_exchange
                                           or self.mesh.spans_processes))
+        #: the lean constants of the padded inputs this loop met last
+        #: (nothing kept where the pad memo keeps nothing)
+        self.lean_cache = LeanCache()
         #: the inputs whose padded blocks the fused kernels update in place
         #: (through device pointers: no ``_version`` sees it): K1's last
         #: launch writes ww and t_ave, every K1 launch the carried t, w and
@@ -497,13 +505,16 @@ class SmallStepLoop:
         n_blocks = (self.n_steps - 1) // S if S > 1 else 0
         rem = self.n_steps - 1 - n_blocks * S
 
-        with span("wrf.loop.inputs", device=self.span_device):
+        with span("wrf.loop.inputs", device=self.span_device) as sp:
             common, state = self._fused_inputs(local, scalars, offs)
             if n_blocks:
                 blocked = self._block_inputs(local, state, common, n_loc)
+            built = 0
             if rem:
-                lean_kw = {c: lean_kwargs(p, rdx, rdy, dts, k0, k1)
-                           for c, p in local.items()}
+                lean_kw, built = self.lean_cache.kwargs(
+                    local, rdx, rdy, dts, k0, k1, keep=self.pad_memo.keep)
+            if sp is not None:      # the constants built (reuse is free)
+                sp.count = built
             if self.const_dtype is not None:
                 # reduced-precision constant streams: cast ONCE per call,
                 # outside the substeps, after every constant was computed

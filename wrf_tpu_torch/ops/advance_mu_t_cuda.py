@@ -566,26 +566,53 @@ def lean_constants(*, ww_1, u_1, v_1, ft, t_1, fnm, fnp, rdnw,
     ``dvdxi_const`` is the u_1/v_1 static part of the mass-flux divergence;
     ``tconst`` folds the slow theta tendency (ft) together with the ww_1
     part of the vertical theta flux; ``ww1_k0`` is the seed-row recurrence
-    term (``advance_mu_t_pallas.lean_constants``, same arithmetic)."""
-    rdx, rdy, dts = _f32(rdx), _f32(rdy), _f32(dts)
+    term (``advance_mu_t_pallas.lean_constants``, same arithmetic).  Each
+    is built by one of the parts below, which a cache may call alone."""
+    vert = lean_vert_flux(ww_1=ww_1, t_1=t_1, fnm=fnm, fnp=fnp, rdnw=rdnw,
+                          msfty=msfty, dts=dts, k0=k0, k1=k1)
+    tconst = lean_tconst(ft=ft, msfty=msfty, dts=dts, vert=vert)
+    dvdxi_const = lean_dvdxi_const(u_1=u_1, v_1=v_1, muu=muu, muv=muv,
+                                   msfuy=msfuy, msfvx_inv=msfvx_inv,
+                                   msftx=msftx, msfty=msfty, rdx=rdx, rdy=rdy)
+    return tconst, dvdxi_const, lean_ww1_k0(ww_1=ww_1, k0=k0)
+
+
+def lean_vert_flux(*, ww_1, t_1, fnm, fnp, rdnw, msfty, dts, k0: int,
+                   k1: int):
+    """``tconst``'s ww_1 term, ``(dts * msfty) * vert1``: the vertical
+    theta flux of ww_1 on its interior interfaces."""
+    dts = _f32(dts)
     K = t_1.shape[1]
     kv = torch.arange(K, device=t_1.device)
     kint = ((kv > k0) & (kv <= k1))[None, :, None]
     fnm3, fnp3, rdnw3 = (x.view(1, K, 1) for x in (fnm, fnp, rdnw))
-
     interp = fnm3 * t_1 + fnp3 * torch.roll(t_1, 1, 1)
     wdtn1 = torch.where(kint, ww_1 * interp, 0.0)
     vert1 = rdnw3 * (torch.roll(wdtn1, -1, 1) - wdtn1)
-    msfty3 = msfty[:, None, :]
-    tconst = (msfty3 * dts) * ft + (dts * msfty3) * vert1
+    return (dts * msfty[:, None, :]) * vert1
 
+
+def lean_tconst(*, ft, msfty, dts, vert):
+    """``tconst = (msfty * dts) * ft + vert``, ``vert`` being
+    :func:`lean_vert_flux` (two products and an add, no fused multiply-add:
+    the bits of the whole expression)."""
+    return (msfty[:, None, :] * _f32(dts)) * ft + vert
+
+
+def lean_dvdxi_const(*, u_1, v_1, muu, muv, msfuy, msfvx_inv, msftx, msfty,
+                     rdx, rdy):
+    """``dvdxi_const``: the u_1/v_1 part of the mass-flux divergence."""
+    rdx, rdy = _f32(rdx), _f32(rdy)
     c_u = (muu / msfuy)[:, None, :] * u_1
     c_v = (muv * msfvx_inv)[:, None, :] * v_1
     msft2 = (msftx * msfty)[:, None, :]
-    dvdxi_const = msft2 * (rdy * (torch.roll(c_v, -1, 0) - c_v)
-                           + rdx * (torch.roll(c_u, -1, 2) - c_u))
-    ww1_k0 = ww_1[:, k0, :].contiguous()
-    return tconst, dvdxi_const, ww1_k0
+    return msft2 * (rdy * (torch.roll(c_v, -1, 0) - c_v)
+                    + rdx * (torch.roll(c_u, -1, 2) - c_u))
+
+
+def lean_ww1_k0(*, ww_1, k0: int):
+    """``ww1_k0``: ww_1's seed level, a contiguous 2-D block."""
+    return ww_1[:, k0, :].contiguous()
 
 
 def lean_kwargs(padded: dict, rdx, rdy, dts, k0: int, k1: int) -> dict:

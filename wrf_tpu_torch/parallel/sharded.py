@@ -39,7 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from ..grid import ConfigFlags, GridBounds
-from ..ops.advance_mu_t_cuda import advance_mu_t_fused, lean_kwargs
+from ..ops.advance_mu_t_cuda import (
+    advance_mu_t_fused, lean_dvdxi_const, lean_kwargs, lean_tconst,
+    lean_vert_flux, lean_ww1_k0,
+)
 from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_mu_t_msteps_cuda import advance_mu_t_multistep, wind_ramp
 from . import distributed, halo
@@ -191,9 +194,10 @@ PADS: collections.Counter = collections.Counter()
 
 
 class _PadEntry:
-    """One field's padded blocks, with what they were built from: the
-    mesh's layout and its sharded axes, each source block by weak
-    reference with its ``_version``, and each padded block's ``_version``
+    """One field's padded blocks (or one part of the lean constants), with
+    what they were built from: a key of plain values (the mesh's layout
+    and its sharded axes; the scalars), each source block by weak
+    reference with its ``_version``, and each built block's ``_version``
     when stored."""
 
     __slots__ = ("setup", "srcs", "out", "out_versions")
@@ -279,6 +283,86 @@ class PadMemo:
             PADS["built"] += sum(len(p) for p in new.values())
         return ({c: {n: got[n][c] for n in arrays}
                  for c in mesh.local_coords()}, built)
+
+
+#: the lean-constant blocks :class:`LeanCache` built and reused since
+#: import, a shard's block each, per part: ``LEAN["built", "tconst"]``,
+#: ``LEAN["reused", "dvdxi_const"]``, ...  Read it as a difference around
+#: a call, as :data:`PADS`.
+LEAN: collections.Counter = collections.Counter()
+
+#: the parts of the lean constants, in the order they are built: each
+#: part's function, the padded fields it reads (``vert`` is the part of
+#: that name) and the scalars it takes
+LEAN_PARTS = (
+    ("dvdxi_const", lean_dvdxi_const,
+     ("u_1", "v_1", "muu", "muv", "msfuy", "msfvx_inv", "msftx", "msfty"),
+     ("rdx", "rdy")),
+    ("ww1_k0", lean_ww1_k0, ("ww_1",), ("k0",)),
+    ("vert", lean_vert_flux,
+     ("ww_1", "t_1", "fnm", "fnp", "rdnw", "msfty"), ("dts", "k0", "k1")),
+    ("tconst", lean_tconst, ("ft", "msfty", "vert"), ("dts",)),
+)
+
+
+class LeanCache:
+    """:func:`~wrf_tpu_torch.ops.advance_mu_t_cuda.lean_kwargs` memoised
+    on its inputs, part by part: the lean constants built once per
+    distinct input and not once per call.  The stages of an RK3 step that
+    have scan substeps read the same padded blocks (:class:`PadMemo`) at
+    the same dts, and from step to step only ``ft`` changes, so most
+    calls rebuild nothing and a later step rebuilds ``tconst`` alone.
+
+    Each part of :data:`LEAN_PARTS` is an entry, keyed by its scalars and
+    by the identity and ``_version`` of every block it reads (weak
+    references, as :class:`PadMemo` holds them; a block's identity fixes
+    its shard's device), each built block's ``_version`` checked too.
+    ``tconst`` reads ``vert``, ``(dts * msfty) * vert1``, so it misses
+    whenever ``vert`` was rebuilt.  The parts are the same torch ops, in
+    the same order, as ``lean_constants``: a hit is bit for bit what a
+    fresh build gives.  One entry a part: a new input drops the old entry
+    before the new blocks are built.  No kernel writes the constants (K1
+    only reads them, and the bf16 cast makes new tensors), so no write
+    goes unseen.
+
+    ``keep=False`` keeps nothing (the loops pass their pad memo's: where
+    the pads are new on every call, the constants are too)."""
+
+    def __init__(self):
+        self._entries: dict[str, _PadEntry] = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def kwargs(self, local: dict, rdx, rdy, dts, k0: int, k1: int,
+               keep: bool = True) -> tuple[dict, int]:
+        """``{shard: lean_kwargs(padded, rdx, rdy, dts, k0, k1)}`` for the
+        loop's padded per-shard dicts ``local``, and the bytes of the 3-D
+        blocks this call built (0 on a full hit)."""
+        scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "k0": k0, "k1": k1}
+        fields = {c: dict(p) for c, p in local.items()}
+        built = 0
+        for name, fn, reads, takes in LEAN_PARTS:
+            key = tuple(scalars[k] for k in takes)
+            srcs = {(c, n): f[n] for c, f in fields.items() for n in reads}
+            e = self._entries.get(name)
+            if e is not None and e.holds(key, srcs):
+                out = e.out
+                LEAN["reused", name] += len(out)
+            else:
+                e = None                    # the old blocks go first
+                self._entries.pop(name, None)
+                out = {c: fn(**{n: f[n] for n in reads},
+                             **{k: scalars[k] for k in takes})
+                       for c, f in fields.items()}
+                if keep:
+                    self._entries[name] = _PadEntry(key, srcs, out)
+                LEAN["built", name] += len(out)
+                built += sum(x.nbytes for x in out.values() if x.ndim == 3)
+            for c, f in fields.items():
+                f[name] = out[c]
+        return ({c: {n: f[n] for n in ("tconst", "dvdxi_const", "ww1_k0")}
+                 for c, f in fields.items()}, built)
 
 
 def strip_local(outs: dict, names, domain, mesh: Mesh) -> dict:
