@@ -111,16 +111,17 @@ not 0 and no result line is printed):
    with one K1 (K3) launch per shard per substep (block) and no K5
    launch; K1 against its plain version, and timed, at 259x50x259, one
    shard's block of the 2x2 mesh;
-7c. the loops' pad memo: 3 closed RK3 steps at 512x512x50 with one
-   integrator bit-equal to fresh integrators that pad every stage anew
-   (1x1 with w and damping, blocked S=2, bf16 constants; (2,2) and (2,1)
-   under ``rdma``, (2,2) under ``rdma_overlap``), and the blocks built
-   and reused at 1x1 (31/32 on the first step, 20/43 on each later one);
-7d. the loops' lean cache: 3 closed RK3 steps at 301x251x35 (acoustic
-   steps 4, with w and damping) with one integrator bit-equal to fresh
-   integrators that keep nothing, the cached ``tconst``, ``dvdxi_const``
-   and ``ww1_k0`` after them bit-equal to a fresh ``lean_kwargs`` of the
-   memo's padded blocks, and ``sharded.LEAN`` per step: every part built
+7c. the stage memo's pads (``models/stage_memo.py``): 3 closed RK3 steps
+   at 512x512x50 with one integrator bit-equal to a cold one
+   (``memo.keep = False``) that pads every stage anew (1x1 with w and
+   damping, blocked S=2, bf16 constants; (2,2) and (2,1) under ``rdma``,
+   (2,2) under ``rdma_overlap``), and the blocks built and reused at 1x1
+   (31/32 on the first step, 20/43 on each later one);
+7d. the stage memo's lean constants: 3 closed RK3 steps at 301x251x35
+   (acoustic steps 4, with w and damping) with one integrator bit-equal
+   to a cold one, the cached ``tconst``, ``dvdxi_const`` and ``ww1_k0``
+   after them bit-equal to a fresh ``lean_kwargs`` of the memo's padded
+   blocks, and ``stage_memo.LEAN`` per step: every part built
    once on step 1, then one ``tconst`` built and every other block reused;
    the last step traced, its ``wrf.loop.inputs`` counts 0, one
    ``tconst``'s bytes, 0;
@@ -2528,19 +2529,21 @@ def phase_mesh_loops():
 
 def phase_pad_memo():
     """The loops' pad memo on the card, where K1 updates its state and K5
-    the halos through device pointers (no ``_version`` sees those writes):
-    3 closed RK3 steps at 512x512x50 with one integrator, whose stages
-    reuse the pads of unchanged inputs, must equal bit for bit fresh
-    integrators that pad every stage anew, at 1x1 (with w and damping,
-    blocked S=2, bf16 constants) and on (2,2) and (2,1) meshes on the one
-    card under ``rdma`` and on (2,2) under ``rdma_overlap``; and
-    ``sharded.PADS`` must read 31 blocks built and 32 reused on the first
-    1x1 step with w, 20 and 43 on each later one.  Returns those counts."""
+    the halos through device pointers (K1's wrapper marks its writes; K5's
+    rewrite the rows the pad wrote): 3 closed RK3 steps at 512x512x50 with
+    one integrator, whose stages reuse the pads of unchanged inputs, must
+    equal bit for bit a cold one (``memo.keep = False``) that pads every
+    stage anew, at 1x1 (with w and damping, blocked S=2, bf16 constants)
+    and on (2,2) and (2,1) meshes on the one card under ``rdma`` and on
+    (2,2) under ``rdma_overlap``; and ``stage_memo.PADS`` must read 31
+    blocks built and 32 reused on the first 1x1 step with w, 20 and 43 on
+    each later one.  Returns those counts."""
     import torch
     from wrf_tpu_torch.models.rk3 import RK3Integrator
+    from wrf_tpu_torch.models.stage_memo import PADS
     from wrf_tpu_torch.models.tendencies import NudgingTendencies
     from wrf_tpu_torch.parallel.mesh import make_mesh
-    from wrf_tpu_torch.parallel.sharded import PADS, PadMemo, case_to_domain
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
 
     case = case_at(BIG_GRID, balanced=True)
     b = case.bounds
@@ -2553,10 +2556,7 @@ def phase_pad_memo():
                             acoustic_steps=6, kernel="cuda",
                             snapshot="base", device="cuda", mesh=mesh,
                             **dict(dict(with_w=True, smdiv=SMDIV), **kw))
-        if not keep:
-            memo = PadMemo(keep=False)
-            for loop in rk3.loops:
-                loop.pad_memo = memo
+        rk3.loops[0].memo.keep = keep
         return rk3
 
     def closed(shape, keep, steps=3, **kw):
@@ -2574,11 +2574,6 @@ def phase_pad_memo():
             arrays = rk3.merge_evolved(arrays, out)
             fn.damp_winds(arrays)
             outs.append(out)
-            if not keep:
-                thomas, rk3 = rk3.loops[0].thomas, integrator(shape, keep,
-                                                              **kw)
-                for loop in rk3.loops:
-                    loop.thomas = thomas
         torch.cuda.synchronize()
         return outs, counts
 
@@ -2612,11 +2607,10 @@ def phase_lean_cache():
     """The loops' lean cache on the card: 3 closed RK3 steps at 301x251x35
     (acoustic steps 4, as the benchmark's cell: stage 1 has no scan
     substep, stages 2 and 3 share dts; with w and damping) with one
-    integrator must equal, bit for bit, fresh integrators whose pad memo
-    keeps nothing (so no lean constant is kept); after them the cached
-    ``tconst``, ``dvdxi_const`` and ``ww1_k0`` must equal a fresh
-    ``lean_kwargs`` of the memo's padded blocks bit for bit;
-    ``sharded.LEAN`` must read every part built once and reused once on
+    integrator must equal, bit for bit, a cold one whose memo keeps
+    nothing (``memo.keep = False``); after them the cached ``tconst``,
+    ``dvdxi_const`` and ``ww1_k0`` must equal a fresh ``lean_kwargs`` of
+    the memo's padded blocks bit for bit; ``stage_memo.LEAN`` must read every part built once and reused once on
     step 1, then one ``tconst`` built and ``dvdxi_const``, ``ww1_k0`` and
     ``vert`` reused twice and ``tconst`` once on each later step; and the
     last step, traced, must give ``wrf.loop.inputs`` the counts 0, one
@@ -2625,10 +2619,9 @@ def phase_lean_cache():
     from torch.profiler import ProfilerActivity, profile
     from wrf_tpu_torch.models.rk3 import RK3Integrator
     from wrf_tpu_torch.models.tendencies import NudgingTendencies
+    from wrf_tpu_torch.models.stage_memo import LEAN
     from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
-    from wrf_tpu_torch.parallel.sharded import (
-        LEAN, PadMemo, case_to_domain,
-    )
+    from wrf_tpu_torch.parallel.sharded import case_to_domain
     from wrf_tpu_torch.utils import timing
 
     case = case_at(LEAN_GRID, balanced=True)
@@ -2641,10 +2634,7 @@ def phase_lean_cache():
                             acoustic_steps=ns, kernel="cuda",
                             snapshot="base", device="cuda", with_w=True,
                             smdiv=SMDIV)
-        if not keep:
-            memo = PadMemo(keep=False)
-            for loop in rk3.loops:
-                loop.pad_memo = memo
+        rk3.loops[0].memo.keep = keep
         return rk3
 
     def closed(keep, steps=3):
@@ -2668,10 +2658,6 @@ def phase_lean_cache():
             arrays = rk3.merge_evolved(arrays, out)
             fn.damp_winds(arrays)
             outs.append(out)
-            if not keep:
-                thomas, rk3 = rk3.loops[0].thomas, integrator(keep)
-                for loop in rk3.loops:
-                    loop.thomas = thomas
         torch.cuda.synchronize()
         return outs, counts, made, rk3
 
@@ -2681,11 +2667,11 @@ def phase_lean_cache():
         check_bits(f"lean cache step {i + 1}", g, w)
     del got, want
     loop = rk3.loops[-1]
-    padded = {n: e.out[0, 0] for n, e in loop.pad_memo._entries.items()}
+    padded = {n: b[0, 0] for n, b in loop.memo.held("pad").items()}
     for n, x in rk3.prepare(case_to_domain(case, with_w=True)).items():
         padded.setdefault(n, x)             # the 1-D vectors pass as they are
-    cached = {n: loop.lean_cache._entries[n].out[0, 0]
-              for n in ("tconst", "dvdxi_const", "ww1_k0")}
+    lean = loop.memo.held("lean")
+    cached = {n: lean[n][0, 0] for n in ("tconst", "dvdxi_const", "ww1_k0")}
     fresh = lean_kwargs(padded, case.rdx, case.rdy, dt / ns, *loop.window[4:])
     check_bits("lean cache cached vs fresh lean_kwargs", cached, fresh)
     block = cached["tconst"].nbytes

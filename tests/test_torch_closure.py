@@ -377,7 +377,8 @@ def test_thomas_bundles_built_once_from_host_copies(balanced_case,
     """With ``with_w`` the loops build each stage's Thomas K-vectors once,
     from the host copies prepare kept: two closed large steps read no
     vertical vector back from the device, the three stages share one
-    cache, and the bundles equal those built from the tensors."""
+    memo and so one cache, and the bundles equal those built from the
+    tensors."""
     from wrf_tpu_torch.ops import thomas
 
     case = balanced_case
@@ -385,7 +386,7 @@ def test_thomas_bundles_built_once_from_host_copies(balanced_case,
     rk3 = RK3Integrator(*_dims(case), case.flags, acoustic_steps=4,
                         kernel="plain", snapshot="base", device="cpu",
                         with_w=True)
-    assert all(loop.thomas is rk3.loops[0].thomas for loop in rk3.loops)
+    assert all(loop.memo is rk3.loops[0].memo for loop in rk3.loops)
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     readbacks = []
     host = thomas._host
@@ -396,7 +397,7 @@ def test_thomas_bundles_built_once_from_host_copies(balanced_case,
     arrays, _ = rk3.multi_step(arrays, 2, case.rdx, case.rdy, dt, case.epssm,
                                tendency_fn=fn)
     assert readbacks == []
-    bundles = rk3.loops[0].thomas._bundles
+    bundles = rk3.loops[0].memo.thomas._bundles
     # stage 1 takes dt/3 a substep, stages 2 and 3 both dt/4
     assert len(bundles) == 2
     for rdn, rdnw, got in bundles.values():

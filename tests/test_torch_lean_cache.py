@@ -1,11 +1,12 @@
-"""The loops' lean cache (``parallel/sharded.py::LeanCache``): an RK3
-integrator stepped three times equals, bit for bit, fresh integrators that
-build the lean constants on every call, on every fused path, with the
-kernels' in-place writes unseen by ``_version`` as on the card; each way an
-input or a cached block can change is a miss whose result equals a fresh
-``lean_kwargs``; a ``keep=False`` memo keeps nothing; the cache keeps one
-entry a part and no old state; and :data:`~wrf_tpu_torch.parallel.sharded.LEAN`
-and the ``wrf.loop.inputs`` count read what a warm step built."""
+"""The stage loops' lean constants (``models/stage_memo.py::StageMemo.lean``):
+an RK3 integrator stepped three times equals, bit for bit, one whose memo
+keeps nothing, on every fused path, with the kernels' in-place writes seen
+only through their wrappers' marks, as on the card; each way an input or
+a cached block can change is a miss whose result equals a fresh
+``lean_kwargs``; a ``keep=False`` memo keeps nothing; the memo keeps one
+entry a part and no old state; and
+:data:`~wrf_tpu_torch.models.stage_memo.LEAN` and the ``wrf.loop.inputs``
+count read what a warm step built."""
 
 import gc
 import weakref
@@ -14,16 +15,17 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from tests.test_torch_pad_memo import _unseen
+# K1, K2 and K3 write unseen but for their wrappers' marks (autouse)
+from tests.test_torch_pad_memo import _unseen, unseen_writes  # noqa: F401
 from wrf_tpu_torch.io import fixtures
 from wrf_tpu_torch.models.rk3 import RK3Integrator
 from wrf_tpu_torch.models.small_step import SmallStepLoop
+from wrf_tpu_torch.models.stage_memo import LEAN, StageMemo
 from wrf_tpu_torch.models.tendencies import NudgingTendencies
 from wrf_tpu_torch.ops.advance_mu_t_cuda import lean_kwargs
 from wrf_tpu_torch.parallel.mesh import Mesh, make_mesh
 from wrf_tpu_torch.parallel.sharded import (
-    LEAN, LeanCache, PadMemo, case_to_domain, domain_window, pad_local,
-    prepare_arrays,
+    case_to_domain, domain_window, pad_local, prepare_arrays,
 )
 from wrf_tpu_torch.utils import timing
 
@@ -52,21 +54,18 @@ def case():
 
 def _integrator(case, shape=None, keep=True, acoustic_steps=6,
                 snapshot="base", **kw):
-    """A closed-step integrator whose K1, K3 and K5 write in place where
-    no ``_version`` sees it, as the kernels do through device pointers;
-    ``keep=False``: a pad memo that keeps nothing, so no lean constant is
-    kept either."""
+    """A closed-step integrator on the CPU whose K5 writes unseen too;
+    ``keep=False``: a cold one, whose memo keeps no pad and no lean
+    constant."""
     b = case.bounds
     mesh = make_mesh(["cpu"] * (shape[0] * shape[1]), shape) if shape else None
     kw = dict(dict(kernel="cuda", with_w=True, smdiv=0.1), **kw)
     rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags,
                         acoustic_steps=acoustic_steps, snapshot=snapshot,
                         device="cpu", mesh=mesh, **kw)
-    memo = PadMemo(keep=keep)
+    rk3.loops[0].memo.keep = keep
     for loop in rk3.loops:
-        loop._step, loop._block, loop._rdma = (
-            _unseen(f) for f in (loop._step, loop._block, loop._rdma))
-        loop.pad_memo = memo
+        loop._rdma = _unseen(loop._rdma)
     return rk3
 
 
@@ -77,12 +76,10 @@ def _lean(counter):
             if n != counter.get(k, 0)}
 
 
-def _closed_steps(case, make, steps, per_stage=False, acoustic_steps=6):
-    """``steps`` closed steps (step, merge, wind damping); ``make()`` gives
-    the integrator of each step.  Returns every step's outputs, the
-    evolved state at the end, ring-shaped, and each step's ``LEAN``
-    delta."""
-    rk3 = make()
+def _closed_steps(case, rk3, steps, per_stage=False, acoustic_steps=6):
+    """``steps`` closed steps (step, merge, wind damping).  Returns every
+    step's outputs, the evolved state at the end, ring-shaped, and each
+    step's ``LEAN`` delta."""
     arrays = rk3.prepare(case_to_domain(case, with_w=rk3.loops[0].with_w))
     dt = case.dts * acoustic_steps
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1,
@@ -96,9 +93,6 @@ def _closed_steps(case, make, steps, per_stage=False, acoustic_steps=6):
         arrays = rk3.merge_evolved(arrays, out)
         fn.damp_winds(arrays)
         outs.append({k: v.clone() for k, v in out.items()})
-        thomas, rk3 = rk3.loops[0].thomas, make()
-        for loop in rk3.loops:
-            loop.thomas = thomas
     state = rk3.unprepare(arrays, [n for n in rk3._EVOLVED if n in arrays])
     return outs, state, counts
 
@@ -115,19 +109,18 @@ def _assert_bit_equal(got, want):
 
 
 def _cached_against_fresh(case, steps=3, **kw):
-    """``steps`` closed steps of one integrator with the cache, and of
-    fresh integrators that keep nothing; returns the first's ``LEAN``
-    deltas and its lean cache."""
+    """``steps`` closed steps of one integrator with the memo, and of a
+    cold one that keeps nothing; returns the first's ``LEAN`` deltas and
+    its memo."""
     per_stage = kw.pop("per_stage", False)
-    one = _integrator(case, **kw)
+    one, cold = _integrator(case, **kw), _integrator(case, keep=False, **kw)
     run = dict(per_stage=per_stage,
                acoustic_steps=kw.get("acoustic_steps", 6))
-    g_outs, g_state, counts = _closed_steps(case, lambda: one, steps, **run)
-    w_outs, w_state, fresh = _closed_steps(
-        case, lambda: _integrator(case, keep=False, **kw), steps, **run)
+    g_outs, g_state, counts = _closed_steps(case, one, steps, **run)
+    w_outs, w_state, fresh = _closed_steps(case, cold, steps, **run)
     _assert_bit_equal((g_outs, g_state), (w_outs, w_state))
     assert all(("reused", p) not in c for c in fresh for p in PARTS)
-    return counts, one.loops[0].lean_cache
+    return counts, one.loops[0].memo
 
 
 def _built(shards, **parts):
@@ -145,8 +138,8 @@ def test_three_steps_bit_equal_to_fresh_constants(case, path):
     ``tconst`` (the closure's ft is new every step)."""
     kw = dict(PATHS[path])
     shards = 4 if "shape" in kw else 1
-    counts, cache = _cached_against_fresh(case, **kw)
-    assert sorted(cache._entries) == sorted(PARTS)
+    counts, memo = _cached_against_fresh(case, **kw)
+    assert sorted(memo.held("lean")) == sorted(PARTS)
     first = {**_built(shards, dvdxi_const=1, ww1_k0=1, vert=1, tconst=1),
              **_reused(shards, dvdxi_const=1, ww1_k0=1, vert=1, tconst=1)}
     warm = {**_built(shards, tconst=1),
@@ -186,13 +179,13 @@ def _nbytes(got, names):
 
 def test_a_second_call_builds_nothing(padded):
     local, scalars = padded
-    cache = LeanCache()
+    memo = StageMemo()
     before = dict(LEAN)
-    first, built = cache.kwargs(local, *scalars)
-    again, nothing = cache.kwargs(local, *scalars)
+    first, built = memo.lean(local, *scalars)
+    again, nothing = memo.lean(local, *scalars)
     # the 3-D blocks: dvdxi_const, tconst and tconst's vert term
     assert built == 3 * _nbytes(first, ("tconst",))
-    assert nothing == 0 and len(cache) == len(PARTS)
+    assert nothing == 0 and len(memo) == len(PARTS)
     n = len(local)
     assert _lean(before) == {**_built(n, dvdxi_const=1, ww1_k0=1, vert=1,
                                       tconst=1),
@@ -207,12 +200,12 @@ def test_a_second_call_builds_nothing(padded):
 
 def test_a_new_tensor_under_the_same_name_is_a_miss(padded):
     local, scalars = padded
-    cache = LeanCache()
-    first, _ = cache.kwargs(local, *scalars)
+    memo = StageMemo()
+    first, _ = memo.lean(local, *scalars)
     old = weakref.ref(next(iter(first.values()))["dvdxi_const"])
     local = {c: dict(p, u_1=p["u_1"] * 2.0) for c, p in local.items()}
     before = dict(LEAN)
-    got, built = cache.kwargs(local, *scalars)
+    got, built = memo.lean(local, *scalars)
     n = len(local)
     assert _lean(before) == {**_built(n, dvdxi_const=1),
                              **_reused(n, ww1_k0=1, vert=1, tconst=1)}
@@ -226,11 +219,11 @@ def test_a_new_tensor_under_the_same_name_is_a_miss(padded):
 
 def test_an_in_place_write_to_a_source_is_a_miss(padded):
     local, scalars = padded
-    cache = LeanCache()
-    first, _ = cache.kwargs(local, *scalars)
+    memo = StageMemo()
+    first, _ = memo.lean(local, *scalars)
     next(iter(local.values()))["ww_1"].add_(1.0)    # one shard's block
     before = dict(LEAN)
-    got, built = cache.kwargs(local, *scalars)
+    got, built = memo.lean(local, *scalars)
     n = len(local)
     assert _lean(before) == {**_built(n, ww1_k0=1, vert=1, tconst=1),
                              **_reused(n, dvdxi_const=1)}
@@ -243,11 +236,11 @@ def test_an_in_place_write_to_a_source_is_a_miss(padded):
 @pytest.mark.parametrize("part", KWARGS)
 def test_an_in_place_write_to_a_cached_block_is_a_miss(padded, part):
     local, scalars = padded
-    cache = LeanCache()
-    first, _ = cache.kwargs(local, *scalars)
+    memo = StageMemo()
+    first, _ = memo.lean(local, *scalars)
     next(iter(first.values()))[part].zero_()
     before = dict(LEAN)
-    got, _ = cache.kwargs(local, *scalars)
+    got, _ = memo.lean(local, *scalars)
     assert _lean(before)["built", part] == len(local)
     assert ("built", "vert") not in _lean(before)
     _same_as_a_fresh_build(got, local, scalars)
@@ -255,10 +248,10 @@ def test_an_in_place_write_to_a_cached_block_is_a_miss(padded, part):
 
 def test_a_different_dts_rebuilds_only_what_reads_it(padded):
     local, (rdx, rdy, dts, k0, k1) = padded
-    cache = LeanCache()
-    cache.kwargs(local, rdx, rdy, dts, k0, k1)
+    memo = StageMemo()
+    memo.lean(local, rdx, rdy, dts, k0, k1)
     before = dict(LEAN)
-    got, _ = cache.kwargs(local, rdx, rdy, dts * 0.8, k0, k1)
+    got, _ = memo.lean(local, rdx, rdy, dts * 0.8, k0, k1)
     n = len(local)
     assert _lean(before) == {**_built(n, vert=1, tconst=1),
                              **_reused(n, dvdxi_const=1, ww1_k0=1)}
@@ -298,21 +291,21 @@ def test_a_per_stage_closure_rebuilds_tconst_alone(case):
 
 
 # ----------------------------------------------------------------------
-# what the cache holds, and the counters
+# what the memo holds, and the counters
 # ----------------------------------------------------------------------
 def test_keep_false_keeps_nothing(padded):
     local, scalars = padded
-    cache = LeanCache()
+    memo = StageMemo(keep=False)
     for _ in range(2):
-        got, built = cache.kwargs(local, *scalars, keep=False)
-        assert built == 3 * _nbytes(got, ("tconst",)) and len(cache) == 0
+        got, built = memo.lean(local, *scalars)
+        assert built == 3 * _nbytes(got, ("tconst",)) and len(memo) == 0
     _same_as_a_fresh_build(got, local, scalars)
 
 
 def test_a_pad_memo_that_keeps_nothing_turns_the_cache_off(case):
     rk3 = _integrator(case, keep=False)
-    _closed_steps(case, lambda: rk3, 2)
-    assert len(rk3.loops[0].lean_cache) == 0
+    _closed_steps(case, rk3, 2)
+    assert len(rk3.loops[0].memo) == 0
     b = case.bounds
     loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=2,
                          device="cpu", force_exchange=True)
@@ -320,14 +313,14 @@ def test_a_pad_memo_that_keeps_nothing_turns_the_cache_off(case):
     before = dict(LEAN)
     for _ in range(2):
         loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
-    assert len(loop.lean_cache) == 0
+    assert len(loop.memo) == 0
     assert _lean(before) == _built(2, dvdxi_const=1, ww1_k0=1, vert=1,
                                    tconst=1)
     mesh = Mesh(["cpu"] * 4, (2, 2), owners=[0, 0, 1, 1], rank=0,
                 backend="gloo")
     loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, device="cpu",
                          mesh=mesh)
-    assert loop.pad_memo.keep is False      # and so the lean cache keeps none
+    assert loop.memo.keep is False          # and so it keeps no constant
 
 
 def test_one_entry_per_part_and_no_old_state(case):
@@ -335,15 +328,15 @@ def test_one_entry_per_part_and_no_old_state(case):
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     dt = case.dts * 6
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
-    cache = rk3.loops[0].lean_cache
+    memo = rk3.loops[0].memo
     old = []
     for _ in range(6):
         out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
                        tendency_fn=fn)
         arrays = rk3.merge_evolved(arrays, out)
         fn.damp_winds(arrays)
-        assert sorted(cache._entries) == sorted(PARTS)
-        old.append(weakref.ref(cache._entries["tconst"].out[0, 0]))
+        assert sorted(memo.held("lean")) == sorted(PARTS)
+        old.append(weakref.ref(memo.held("lean")["tconst"][0, 0]))
     del out
     gc.collect()
     assert [r() is None for r in old] == [True] * 5 + [False]
@@ -368,7 +361,7 @@ def test_a_warm_step_builds_one_tconst_and_counts_its_bytes(case):
         timing.SPANS.clear()
         arrays = rk3.merge_evolved(arrays, out)
         fn.damp_winds(arrays)
-    tconst = rk3.loops[0].lean_cache._entries["tconst"].out[0, 0]
+    tconst = rk3.loops[0].memo.held("lean")["tconst"][0, 0]
     assert counts == {**_built(1, tconst=1),
                       **_reused(1, dvdxi_const=2, ww1_k0=2, vert=2,
                                 tconst=1)}

@@ -1,24 +1,33 @@
-"""The loops' pad memo (``parallel/sharded.py::PadMemo``): an RK3 integrator
-stepped three times equals, bit for bit, fresh integrators that pad every
-stage anew, on every path of the loop, with the kernels' in-place writes
-unseen by ``_version`` as on the card; each way an input or a stored pad
-can change is a miss; the memo keeps one entry a field and no old state;
-and :data:`~wrf_tpu_torch.parallel.sharded.PADS` counts the blocks built
-and reused."""
+"""The stage loops' pad memo (``models/stage_memo.py::StageMemo.pad``): an
+RK3 integrator stepped three times equals, bit for bit, one whose memo
+keeps nothing, on every path of the loop, with the kernels' in-place
+writes seen only through the marks their wrappers make, as on the card;
+the wrappers of K1, K2 and K3 mark exactly the operands they update in
+place; each way an input or a stored pad can change is a miss; the memo
+keeps one entry a field and no old state; and
+:data:`~wrf_tpu_torch.models.stage_memo.PADS` counts the blocks built and
+reused."""
 
 import gc
 import weakref
 
+import numpy as np
 import pytest
 import torch
 
 from wrf_tpu_torch.io import fixtures
 from wrf_tpu_torch.models.rk3 import RK3Integrator
 from wrf_tpu_torch.models.small_step import SmallStepLoop
+from wrf_tpu_torch.models.stage_memo import PADS, StageMemo
 from wrf_tpu_torch.models.tendencies import NudgingTendencies
+from wrf_tpu_torch.ops import advance_mu_t_coupled_cuda as k3
+from wrf_tpu_torch.ops import advance_mu_t_cuda as k1
+from wrf_tpu_torch.ops import advance_mu_t_msteps_cuda as k2
+from wrf_tpu_torch.ops.advance_uv import DEFAULT_CS2
+from wrf_tpu_torch.parallel import sharded
 from wrf_tpu_torch.parallel.mesh import Mesh, make_mesh
 from wrf_tpu_torch.parallel.sharded import (
-    PADS, PadMemo, case_to_domain, pad_local, prepare_arrays,
+    case_to_domain, pad_local, prepare_arrays,
 )
 
 torch.set_num_threads(1)
@@ -42,8 +51,6 @@ PATHS = {
 #: the inputs a closed step gives new tensors: the evolved state and the
 #: closure's tendencies
 CHANGED = ("ww", "u", "v", "t", "t_ave", "w", "pp", "ft", "mu", "mu_tend")
-#: the state K1 updates in place, padded again by every stage
-K1_STATE = ("ww", "t_ave", "t", "w", "pp")
 
 
 @pytest.fixture(scope="module")
@@ -70,28 +77,35 @@ def _unseen(fn):
     return call
 
 
+@pytest.fixture(autouse=True)
+def unseen_writes(monkeypatch):
+    """The plain versions of K1, K2 and K3 write through ``.data`` aliases,
+    as the kernels write through device pointers: only the dispatchers'
+    marks raise a ``_version``, as on the card."""
+    for mod, name in ((k1, "advance_mu_t_fused_plain"),
+                      (k2, "advance_mu_t_multistep_plain"),
+                      (k3, "coupled_multistep_plain")):
+        monkeypatch.setattr(mod, name, _unseen(getattr(mod, name)))
+
+
 def _integrator(case, shape=None, keep=True, **kw):
-    """A closed-step integrator whose K1, K3 and K5 write in place where
-    no ``_version`` sees it, as the kernels do through device pointers;
-    ``keep=False``: its stages pad every call anew."""
+    """A closed-step integrator on the CPU whose K5 writes unseen too (the
+    one unmarked writer); ``keep=False``: a cold one, whose stages pad
+    every call anew."""
     b = case.bounds
     mesh = make_mesh(["cpu"] * (shape[0] * shape[1]), shape) if shape else None
     kw = dict(dict(kernel="cuda", with_w=True, smdiv=0.1), **kw)
     rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags, acoustic_steps=6,
                         snapshot="base", device="cpu", mesh=mesh, **kw)
-    memo = PadMemo(keep=keep)
+    rk3.loops[0].memo.keep = keep
     for loop in rk3.loops:
-        loop._step, loop._block, loop._rdma = (
-            _unseen(f) for f in (loop._step, loop._block, loop._rdma))
-        loop.pad_memo = memo
+        loop._rdma = _unseen(loop._rdma)
     return rk3
 
 
-def _closed_steps(case, make, steps):
-    """``steps`` closed steps (step, merge, wind damping); ``make()`` gives
-    the integrator of each step.  Returns every step's outputs and the
-    evolved state at the end, ring-shaped."""
-    rk3 = make()
+def _closed_steps(case, rk3, steps):
+    """``steps`` closed steps (step, merge, wind damping).  Returns every
+    step's outputs and the evolved state at the end, ring-shaped."""
     arrays = rk3.prepare(case_to_domain(case, with_w=rk3.loops[0].with_w))
     dt = case.dts * 6
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
@@ -102,9 +116,6 @@ def _closed_steps(case, make, steps):
         arrays = rk3.merge_evolved(arrays, out)
         fn.damp_winds(arrays)
         outs.append({k: v.clone() for k, v in out.items()})
-        thomas, rk3 = rk3.loops[0].thomas, make()
-        for loop in rk3.loops:
-            loop.thomas = thomas
     return outs, rk3.unprepare(arrays, [n for n in rk3._EVOLVED
                                         if n in arrays])
 
@@ -112,17 +123,90 @@ def _closed_steps(case, make, steps):
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_three_steps_bit_equal_to_fresh_pads(case, path):
     kw = dict(PATHS[path])
-    one = _integrator(case, **kw)
-    got, got_state = _closed_steps(case, lambda: one, 3)
-    want, want_state = _closed_steps(
-        case, lambda: _integrator(case, keep=False, **kw), 3)
-    assert len(one.loops[0].pad_memo) > 0
+    one, cold = _integrator(case, **kw), _integrator(case, keep=False, **kw)
+    got, got_state = _closed_steps(case, one, 3)
+    want, want_state = _closed_steps(case, cold, 3)
+    assert len(one.loops[0].memo) > 0 and len(cold.loops[0].memo) == 0
     for step, (g, w) in enumerate(zip(got, want)):
         assert g.keys() == w.keys()
         for n in g:
             assert torch.equal(g[n], w[n]), (step, n)
     for n in want_state:
         assert torch.equal(got_state[n], want_state[n]), n
+
+
+# ----------------------------------------------------------------------
+# the marks of the kernel wrappers
+# ----------------------------------------------------------------------
+def _marks(fn, calls):
+    """``fn`` recording, per call, each tensor operand's rise in
+    ``_version`` (the ones that rose)."""
+    def call(**kw):
+        tensors = {n: x for n, x in kw.items() if isinstance(x, torch.Tensor)}
+        before = {n: x._version for n, x in tensors.items()}
+        out = fn(**kw)
+        calls.append({n: x._version - before[n] for n, x in tensors.items()
+                      if x._version != before[n]})
+        return out
+    return call
+
+
+@pytest.mark.parametrize("fuse_w", [False, True])
+@pytest.mark.parametrize("ww_mode", ["full", "lite", "final"])
+def test_k1_marks_exactly_what_it_updates_in_place(case, ww_mode, fuse_w):
+    kw = case.kernel_kwargs()
+    ops = {n: torch.tensor(np.asarray(x, np.float32)) for n, x in kw.items()
+           if hasattr(x, "ndim")}
+    sc = {n: kw[n] for n in ("rdx", "rdy", "dts", "epssm")}
+    b = case.bounds
+    i0, i1, j0, j1, k0, kk1 = b.loop_bounds(case.flags)
+    lite = ww_mode == "lite"
+    if ww_mode != "full":
+        ops["ww_row"] = ops["ww"][:, k0, :] + 0.01
+    if lite:
+        ops.update(k1.lean_kwargs(ops, sc["rdx"], sc["rdy"], sc["dts"], k0,
+                                  kk1))
+    if fuse_w:
+        ops.update({n: torch.tensor(np.asarray(case.fields["grid_" + n],
+                                               np.float32))
+                    for n in ("w", "pp", "rdn")})
+    before = {n: x.clone() for n, x in ops.items()}
+    calls = []
+    _marks(k1.advance_mu_t_fused, calls)(
+        **ops, **sc, window=(i0, i1, j0, j1), k0=k0, k1=kk1,
+        kde=b.mem(b.kde, "k"), fuse_uv=True, cs2=DEFAULT_CS2,
+        ww_mode=ww_mode, with_tave=not lite, lean=lite, fuse_w=fuse_w)
+    want = {"t", "ww_row" if lite else "ww"}
+    want |= (set() if lite else {"t_ave"}) | ({"w", "pp"} if fuse_w else set())
+    assert calls == [dict.fromkeys(want, 1)]
+    changed = {n for n, x in ops.items() if not torch.equal(x, before[n])}
+    assert "t" in changed and changed <= want
+
+
+def test_k3_marks_exactly_what_it_updates_in_place(case):
+    """The blocked loop's K3 launch: t, ww_row, w and pp of its ring-S
+    copies."""
+    b = case.bounds
+    loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, n_steps=3,
+                         inner_steps=2, with_w=True, device="cpu")
+    calls = []
+    loop._block = _marks(loop._block, calls)
+    loop(loop.prepare(case_to_domain(case, with_w=True)), case.rdx, case.rdy,
+         case.dts, case.epssm)
+    assert calls == [dict.fromkeys(("t", "ww_row", "w", "pp"), 1)]
+
+
+def test_k2_marks_exactly_what_it_updates_in_place(case, monkeypatch):
+    """The mu/t loop's blocked K2 launch: t, mu and ww_row."""
+    b = case.bounds
+    calls = []
+    monkeypatch.setattr(sharded, "advance_mu_t_multistep",
+                        _marks(k2.advance_mu_t_multistep, calls))
+    loop = sharded.ShardedAdvanceMuT(b.ide, b.jde, b.kdim, case.flags,
+                                     n_steps=3, inner_steps=2, device="cpu")
+    loop(loop.prepare(case_to_domain(case)), case.rdx, case.rdy, case.dts,
+         case.epssm)
+    assert calls == [dict.fromkeys(("t", "mu", "ww_row"), 1)]
 
 
 # ----------------------------------------------------------------------
@@ -154,7 +238,7 @@ def _padded(arrays):
 
 def test_a_second_pad_of_the_same_inputs_builds_nothing(prepared):
     arrays, mesh, sh = prepared
-    memo = PadMemo()
+    memo = StageMemo()
     first, built = memo.pad(arrays, mesh, *sh)
     again, nothing = memo.pad(arrays, mesh, *sh)
     assert built == _bytes(first, _padded(arrays)) > 0 and nothing == 0
@@ -168,7 +252,7 @@ def test_a_second_pad_of_the_same_inputs_builds_nothing(prepared):
 
 def test_an_in_place_write_to_a_source_is_a_miss(prepared):
     arrays, mesh, sh = prepared
-    memo = PadMemo()
+    memo = StageMemo()
     first, _ = memo.pad(arrays, mesh, *sh)
     next(iter(arrays["t"].values())).add_(1.0)
     got, built = memo.pad(arrays, mesh, *sh)
@@ -180,7 +264,7 @@ def test_an_in_place_write_to_a_source_is_a_miss(prepared):
 
 def test_a_new_tensor_under_the_same_name_is_a_miss(prepared):
     arrays, mesh, sh = prepared
-    memo = PadMemo()
+    memo = StageMemo()
     first, _ = memo.pad(arrays, mesh, *sh)
     old = weakref.ref(next(iter(first.values()))["mu"])
     arrays = dict(arrays, mu={c: x * 2.0 for c, x in arrays["mu"].items()})
@@ -194,7 +278,7 @@ def test_a_new_tensor_under_the_same_name_is_a_miss(prepared):
 
 def test_an_in_place_write_to_a_stored_pad_is_a_miss(prepared):
     arrays, mesh, sh = prepared
-    memo = PadMemo()
+    memo = StageMemo()
     first, _ = memo.pad(arrays, mesh, *sh)
     next(iter(first.values()))["v"].zero_()
     got, built = memo.pad(arrays, mesh, *sh)
@@ -202,14 +286,23 @@ def test_an_in_place_write_to_a_stored_pad_is_a_miss(prepared):
     _same_as_a_fresh_pad(got, arrays, mesh, sh)
 
 
-def test_written_fields_are_padded_on_every_call(prepared):
+def test_a_marked_write_to_a_stored_pad_is_a_miss(prepared):
+    """A write through the pointer is unseen until the wrapper marks it:
+    unmarked, the stale block would come back."""
     arrays, mesh, sh = prepared
-    memo = PadMemo()
-    first, _ = memo.pad(arrays, mesh, *sh, written=K1_STATE)
-    got, built = memo.pad(arrays, mesh, *sh, written=K1_STATE)
-    assert built == _bytes(first, K1_STATE)
-    assert len(memo) == len(_padded(arrays)) - len(K1_STATE)
+    memo = StageMemo()
+    first, _ = memo.pad(arrays, mesh, *sh)
+    blocks = [p["t"] for p in first.values()]
+    for x in blocks:
+        x.data.add_(1.0)
+    stale, nothing = memo.pad(arrays, mesh, *sh)
+    assert nothing == 0
+    assert all(stale[c]["t"] is first[c]["t"] for c in stale)
+    k1.mark_in_place(blocks)
+    got, built = memo.pad(arrays, mesh, *sh)
+    assert built == _bytes(first, ["t"])
     assert all(got[c]["t"] is not first[c]["t"] for c in got)
+    _same_as_a_fresh_pad(got, arrays, mesh, sh)
 
 
 def test_force_exchange_never_uses_the_memo(case):
@@ -220,7 +313,7 @@ def test_force_exchange_never_uses_the_memo(case):
     before = dict(PADS)
     for _ in range(2):
         loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
-    assert loop.pad_memo.keep is False and len(loop.pad_memo) == 0
+    assert loop.memo.keep is False and len(loop.memo) == 0
     assert PADS["reused"] == before.get("reused", 0)
     assert PADS["built"] - before.get("built", 0) == 2 * 19
 
@@ -231,30 +324,32 @@ def test_a_mesh_over_processes_keeps_no_pad(case):
                 backend="gloo")
     loop = SmallStepLoop(b.ide, b.jde, b.kdim, case.flags, device="cpu",
                          mesh=mesh)
-    assert loop.pad_memo.keep is False
+    assert loop.memo.keep is False
     rk3 = RK3Integrator(b.ide, b.jde, b.kdim, case.flags, kernel="plain",
                         device="cpu")
-    assert rk3.loops[0].pad_memo.keep is True
-    assert all(loop.pad_memo is rk3.loops[0].pad_memo for loop in rk3.loops)
+    assert rk3.loops[0].memo.keep is True
+    assert all(loop.memo is rk3.loops[0].memo for loop in rk3.loops)
 
 
 # ----------------------------------------------------------------------
 # what the memo holds, and the counter
 # ----------------------------------------------------------------------
 def test_one_entry_per_field_and_no_old_state(case):
+    """Every padded field has its entry after a step, K1's five too (stale
+    until the next stage 1 drops them), and no input is held."""
     rk3 = _integrator(case)
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     dt = case.dts * 6
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
     first_u = weakref.ref(arrays["u"])
-    memo = rk3.loops[0].pad_memo
+    memo = rk3.loops[0].memo
     names = set(rk3.loops[0]._names) - {"dnw", "fnm", "fnp", "rdnw", "rdn"}
     for _ in range(6):
         out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,
                        tendency_fn=fn)
         arrays = rk3.merge_evolved(arrays, out)
         fn.damp_winds(arrays)
-        assert set(memo._entries) == names - set(K1_STATE)
+        assert set(memo.held("pad")) == names
     del out
     gc.collect()
     assert first_u() is None        # held by weak reference only

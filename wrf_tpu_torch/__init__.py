@@ -18,6 +18,8 @@ wrf_tpu_torch.driver``):
   models.rk3  RK3Integrator: three stage loops per large step
   models.small_step  SmallStepLoop: the coupled acoustic substep loop
               (``with_w``: plus the vertically-implicit w/pp substep)
+  models.stage_memo  StageMemo: the pads, lean constants and Thomas
+              K-vectors the three stage loops share
   parallel.sharded   ShardedAdvanceMuT: the mu/t loop; ring-shaped glue
   ops.advance_mu_t_cuda  K1, the fused substep (csrc/advance_mu_t_kernel.cuh)
   ops.advance_mu_t_msteps_cuda  K2, S mu/t substeps per pass

@@ -25,11 +25,9 @@ them), except that a
 stage whose blocked path engages under plain ``rdma`` downgrades to the
 width-S ppermute refresh, loudly (there is no width-S exchange kernel).
 ``const_dtype`` (bf16 constant streams) passes to every stage's loop.
-The three loops share one pad memo (``parallel/sharded.py::PadMemo``): a
-stage pads only the inputs no stage has padded since they last changed,
-and the state K1 updates in place.  They share one lean cache too
-(``parallel/sharded.py::LeanCache``): a stage builds only the parts of the
-lean constants whose inputs changed since a stage last built them.
+The three loops share loop 0's memo (``models/stage_memo.py``): a stage
+pads, and builds lean constants and Thomas K-vectors, only for inputs no
+stage has met since they last changed.
 
 ``step(..., tendency_fn)`` takes the slow-tendency hook: before each stage
 ``tendency_fn(stage, prev_stage_out, stage_arrays)`` returns replacement
@@ -118,22 +116,17 @@ class RK3Integrator:
                 return "ppermute"
             return halo_backend
 
-        self.loops = [
-            SmallStepLoop(nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
-                          device=device, inner_steps=inner_steps, fast=fast,
-                          with_w=with_w, smdiv=smdiv, mesh=mesh,
-                          halo_backend=stage_backend(n_sub),
-                          const_dtype=const_dtype)
-            for (_, n_sub) in self.stages
-        ]
-        # one cache of the w/pp Thomas vectors for the three stages (the
-        # host copies prepare takes serve every stage's dts), one pad memo
-        # (every stage restarts from the same tensors) and one cache of
-        # the lean constants (stages 2 and 3 share their dts)
-        for loop in self.loops[1:]:
-            loop.thomas = self.loops[0].thomas
-            loop.pad_memo = self.loops[0].pad_memo
-            loop.lean_cache = self.loops[0].lean_cache
+        def stage_loop(n_sub: int, memo=None) -> SmallStepLoop:
+            return SmallStepLoop(
+                nx, ny, nz, flags, n_steps=n_sub, kernel=kernel,
+                device=device, inner_steps=inner_steps, fast=fast,
+                with_w=with_w, smdiv=smdiv, mesh=mesh,
+                halo_backend=stage_backend(n_sub), const_dtype=const_dtype,
+                memo=memo)
+
+        first = stage_loop(self.stages[0][1])
+        self.loops = [first] + [stage_loop(n_sub, first.memo)
+                                for _, n_sub in self.stages[1:]]
         self.prepare = self.loops[0].prepare
         self.unprepare = self.loops[0].unprepare
 

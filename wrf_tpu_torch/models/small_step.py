@@ -5,16 +5,12 @@ is ONE launch per shard of the fused K1 kernel
 (``advance_mu_t_fused(fuse_uv=True)``): the wind update runs inside it from
 mu's neighbours, so u and v stream once per substep.  The loop pads every
 block by a 1-cell halo (the neighbours' edge cells on sharded axes, zeros
-elsewhere) once per distinct input (``pad_memo``,
-``parallel/sharded.py::PadMemo``: an input the loop padded before, and
-that nothing wrote since, gives back its padded blocks; the three stages
-of an RK3 step share one memo; the state K1 updates in place is padded
-anew), takes the lean constants from its lean cache (``lean_cache``,
-``parallel/sharded.py::LeanCache``: each part built once per distinct
-input; the stages share it like the memo), runs ``n_steps-1`` lean
-"lite" substeps that carry only ww's scan-seed row, then one final substep
-that re-materializes ww and writes t_ave, and trims the halo and the
-boundary ring.  The substeps are a Python loop over "for each shard".  With
+elsewhere) and takes the lean constants and the Thomas K-vectors through
+its memo (``models/stage_memo.py``, shared by the three stages of an RK3
+step: each built once per distinct input), runs ``n_steps-1`` lean "lite"
+substeps that carry only ww's scan-seed row, then one final substep that
+re-materializes ww and writes t_ave, and trims the halo and the boundary
+ring.  The substeps are a Python loop over "for each shard".  With
 ``with_w`` every substep also runs the vertically-implicit w/pp substep
 inside the kernel (``fuse_w``), and w and pp join the carried state.
 
@@ -43,13 +39,12 @@ refreshed with one width-S exchange per block of S substeps; under
 
 While a ``torch.profiler`` records, a call is three spans
 (``utils/timing.py::span``): ``wrf.loop.pad`` (``pad_local`` through the
-loop's pad memo; its count is the bytes of the blocks the call built),
-``wrf.loop.inputs`` (from after the pad to
-the first launch: the carried state's start, the lean constants, the
-blocked path's widened inputs, the bf16 casts; on the fused path its
-count is the bytes of the 3-D lean-constant blocks the call built) and
-``wrf.loop.substeps`` (every launch with its halo refreshes, the final one
-included).
+memo; its count is the bytes of the blocks the call built),
+``wrf.loop.inputs`` (from after the pad to the first launch: the carried
+state's start, the lean constants, the blocked path's widened inputs, the
+bf16 casts; on the fused path its count is the bytes of the 3-D
+lean-constant blocks the call built) and ``wrf.loop.substeps`` (every
+launch with its halo refreshes, the final one included).
 
 ``const_dtype=torch.bfloat16`` narrows the never-written 3-D bases (u_1,
 v_1, ww_1, ft, t_1 and the 3-D lean constants; on the blocked path t_1,
@@ -81,18 +76,17 @@ from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_uv import DEFAULT_CS2, advance_uv, advance_uv_numpy
 from ..ops.advance_w import DEFAULT_CW, DEFAULT_GW, advance_w, advance_w_numpy
 from ..ops.reference_numpy import advance_mu_t_numpy
-from ..ops.thomas import ThomasCache
 from ..ops.halo_rdma_cuda import (
     Mailbox, remote_refresh_multi, remote_refresh_multi_plain,
 )
 from ..parallel import halo
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import (
-    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, LeanCache, PadMemo, as_blocks,
-    domain_window, gather, local_mesh, prepare_arrays, shard_offsets,
-    strip_local,
+    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, as_blocks, domain_window, gather,
+    local_mesh, prepare_arrays, shard_offsets, strip_local,
 )
 from ..utils.timing import span
+from .stage_memo import StageMemo
 
 #: what the scan substeps carry: ww only as its 2-D scan-seed row
 CARRY_KEYS = ("ww_row", "mu", "t", "u", "v")
@@ -213,6 +207,11 @@ class SmallStepLoop:
     rows, so it is NOT for production — it exists so a single shard can
     execute the exact in-loop exchange code path of a multi-shard run and
     the backends can be diffed on one card.
+
+    ``memo``: the :class:`~wrf_tpu_torch.models.stage_memo.StageMemo` to
+    keep the loop's pads, lean constants and Thomas K-vectors in (an RK3
+    integrator's stages share one); None builds one that keeps nothing
+    under ``force_exchange`` or on a mesh over processes.
     """
 
     def __init__(self, nx: int, ny: int, nz: int, flags: ConfigFlags,
@@ -222,7 +221,8 @@ class SmallStepLoop:
                  with_w: bool = False,
                  cw: float = DEFAULT_CW, gw: float = DEFAULT_GW, *,
                  mesh: Mesh | None = None, halo_backend: str = "ppermute",
-                 force_exchange: bool = False, const_dtype=None):
+                 force_exchange: bool = False, const_dtype=None,
+                 memo: StageMemo | None = None):
         if kernel not in ("cuda", "plain", "eager"):
             raise ValueError(f"bad kernel {kernel!r}")
         if halo_backend not in HALO_BACKENDS:
@@ -297,29 +297,13 @@ class SmallStepLoop:
         self.carry_keys = (CARRY_KEYS + (W_STATE if with_w else ())
                            + self._damp)
         self.out_names = OUT_NAMES + (W_STATE if with_w else ())
-        #: the w/pp Thomas K-vectors of every (vector, dts) this loop met
-        self.thomas = ThomasCache()
-        #: the halo pads of the inputs this loop met last: none kept where
-        #: a neighbour's block lies in another process or the
-        #: self-exchange writes the halo
-        self.pad_memo = PadMemo(keep=not (force_exchange
-                                          or self.mesh.spans_processes))
-        #: the lean constants of the padded inputs this loop met last
-        #: (nothing kept where the pad memo keeps nothing)
-        self.lean_cache = LeanCache()
-        #: the inputs whose padded blocks the fused kernels update in place
-        #: (through device pointers: no ``_version`` sees it): K1's last
-        #: launch writes ww and t_ave, every K1 launch the carried t, w and
-        #: pp unless K3's blocks ran first on copies of them
-        n_blocks = (n_steps - 1) // inner_steps if inner_steps > 1 else 0
-        self._written = () if kernel == "eager" else (
-            ("ww", "t_ave")
-            + (() if n_blocks else ("t",) + (W_STATE if with_w else ())))
+        self.memo = memo if memo is not None else StageMemo(
+            keep=not (force_exchange or self.mesh.spans_processes))
 
     def prepare(self, arrays) -> dict:
         """Ring-shaped arrays (numpy) -> float32 tensors on the device(s),
         padded to the mesh.  With ``with_w`` the host copies of ``rdn`` and
-        ``rdnw`` are kept beside their tensors (``self.thomas``), so no
+        ``rdnw`` are kept beside their tensors (``self.memo.thomas``), so no
         call reads them back from the card."""
         out = prepare_arrays(arrays, self.mesh, extra=self._extra,
                              blocks=self._blocks)
@@ -327,7 +311,7 @@ class SmallStepLoop:
             blocks = as_blocks(out, self.mesh, self._blocks)
             for n in W_FIELDS_1D + ("rdnw",):
                 for t in blocks[n].values():
-                    self.thomas.register(t, arrays[n])
+                    self.memo.thomas.register(t, arrays[n])
         return out
 
     def unprepare(self, arrays, names) -> dict[str, torch.Tensor]:
@@ -347,8 +331,8 @@ class SmallStepLoop:
         nj_loc, _, ni_loc = next(iter(arrays["t"].values())).shape
         n_loc = (nj_loc, ni_loc)
         with span("wrf.loop.pad", device=self.span_device) as sp:
-            local, built = self.pad_memo.pad(
-                arrays, mesh, self._j_sh, self._i_sh, self._written)
+            local, built = self.memo.pad(arrays, mesh, self._j_sh,
+                                         self._i_sh)
             if sp is not None:      # the blocks built (a reused one is free)
                 sp.count = built
         # every shard's padded-local row/column 0 in ring coordinates
@@ -484,7 +468,7 @@ class SmallStepLoop:
             if self.with_w:
                 dev = padded["rdn"].device
                 if dev not in thomas:
-                    thomas[dev] = self.thomas.get(
+                    thomas[dev] = self.memo.thomas.get(
                         rdn=padded["rdn"], rdnw=padded["rdnw"],
                         dts=scalars["dts"], epssm=scalars["epssm"],
                         cw=self.cw, gw=self.gw, k0=k0, k1=k1, fast=self.fast)
@@ -511,8 +495,8 @@ class SmallStepLoop:
                 blocked = self._block_inputs(local, state, common, n_loc)
             built = 0
             if rem:
-                lean_kw, built = self.lean_cache.kwargs(
-                    local, rdx, rdy, dts, k0, k1, keep=self.pad_memo.keep)
+                lean_kw, built = self.memo.lean(local, rdx, rdy, dts, k0,
+                                                k1)
             if sp is not None:      # the constants built (reuse is free)
                 sp.count = built
             if self.const_dtype is not None:

@@ -21,9 +21,10 @@ from :func:`coupled_lean_kwargs`, ``tconst``, ``dvdxi_const`` and
 ``ww1_k0`` from :func:`~wrf_tpu_torch.ops.advance_mu_t_cuda.lean_kwargs`,
 both computed on the widened inputs.  Returns ``{"t", "mu", "ww_row",
 "u", "v"}`` (+ ``w``/``pp`` under ``fuse_w``): t, ww_row, w and pp are read
-only at their own column and are updated IN PLACE; u, v and mu are read at
-neighbour rows while other blocks update them, so they come back in fresh
-tensors whose S ring rows pass through from the inputs.
+only at their own column and are updated IN PLACE (the dispatchers raise
+their ``_version`` after the launch, as K1's does); u, v and mu are read
+at neighbour rows while other blocks update them, so they come back in
+fresh tensors whose S ring rows pass through from the inputs.
 
 ``overlap`` is the j leg of the width-S ring exchange inside the kernel:
 the S ring rows on either side of ``mu``, ``u`` and ``v`` in memory are
@@ -68,7 +69,7 @@ import torch
 from .. import _build
 from .advance_mu_t_cuda import (
     _f32, check_const_streams, check_overlap_rows, checked_pointers,
-    narrow_streams, overlap_pointers, w_step_plain, widen,
+    mark_in_place, narrow_streams, overlap_pointers, w_step_plain, widen,
 )
 from .thomas import ThomasVectors, thomas_vectors
 
@@ -105,9 +106,10 @@ OVERLAP_ROWS = ("mu_lo", "mu_hi", "u_lo", "u_hi", "v_lo", "v_hi")
 _kernel_fn = None
 
 
-def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
+def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2,
+           written):
     """The Pallas wrapper's argument checks (``tensors``: the 3-D operands
-    by name), and the port's own on the buffers updated in place."""
+    by name), and the port's own on ``written``, updated in place."""
     if n_inner < 2:
         raise ValueError("n_inner must be >= 2 (use the single-step kernel "
                          "for S=1)")
@@ -122,9 +124,8 @@ def _check(*, tensors, n_inner, fuse_w, w, pp, rdn, ti, overlap, J2):
     if J2 - 2 * n_inner < 1:
         raise ValueError(f"J2={J2}: no row inside the ring-{n_inner} rows")
     if overlap is not None:
-        check_overlap_rows(overlap, OVERLAP_ROWS, OVERLAP_ROWS, in_place={
-            "t": tensors["t"], "w": w if fuse_w else None,
-            "pp": pp if fuse_w else None})
+        check_overlap_rows(overlap, OVERLAP_ROWS, OVERLAP_ROWS,
+                           in_place=written)
 
 
 def coupled_lean_kwargs(padded: dict, rdx, rdy, dts) -> dict:
@@ -164,10 +165,11 @@ def coupled_multistep(
     :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle of a loop."""
     global LAUNCHES
     del kde   # API parity
+    written = dict(t=t, ww_row=ww_row, **(dict(w=w, pp=pp) if fuse_w else {}))
     _check(tensors=dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst,
                         dvdxi_const=dvdxi_const), n_inner=n_inner,
            fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=ti, overlap=overlap,
-           J2=t.shape[0])
+           J2=t.shape[0], written=written)
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
               ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
               msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
@@ -177,12 +179,14 @@ def coupled_multistep(
               **_w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1,
                           fast and t.device.type == "cpu", thomas))
     if t.device.type == "cpu":
-        return coupled_multistep_plain(**kw, fast=fast)
-    if t.device.type == "cuda":
+        out = coupled_multistep_plain(**kw, fast=fast)
+    elif t.device.type == "cuda":
         out = _launch(**kw)
         LAUNCHES += 1
-        return out
-    raise ValueError(f"coupled_multistep: unsupported device {t.device}")
+    else:
+        raise ValueError(f"coupled_multistep: unsupported device {t.device}")
+    mark_in_place(written.values())
+    return out
 
 
 def _w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1, fast,
@@ -221,10 +225,11 @@ def coupled_two_step(
     in-kernel exchange goes through :func:`coupled_multistep`."""
     global PAIR_LAUNCHES
     del kde   # API parity
+    written = dict(t=t, ww_row=ww_row, **(dict(w=w, pp=pp) if fuse_w else {}))
     _check(tensors=dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst,
                         dvdxi_const=dvdxi_const), n_inner=2,
            fuse_w=fuse_w, w=w, pp=pp, rdn=rdn, ti=None, overlap=None,
-           J2=t.shape[0])
+           J2=t.shape[0], written=written)
     kw = dict(u=u, v=v, t=t, t_1=t_1, tconst=tconst, dvdxi_const=dvdxi_const,
               ww1_k0=ww1_k0, ww_row=ww_row, mu=mu, mu_tend=mu_tend,
               msftx=msftx, msfty=msfty, cu=cu, cv=cv, msft2=msft2, rdx=rdx,
@@ -234,12 +239,14 @@ def coupled_two_step(
               **_w_kwargs(fuse_w, w, pp, rdn, rdnw, dts, epssm, cw, gw, k0, k1,
                           fast and t.device.type == "cpu", thomas))
     if t.device.type == "cpu":
-        return coupled_multistep_plain(**kw, fast=fast)
-    if t.device.type == "cuda":
+        out = coupled_multistep_plain(**kw, fast=fast)
+    elif t.device.type == "cuda":
         out = _launch(**kw)
         PAIR_LAUNCHES += 1
-        return out
-    raise ValueError(f"coupled_two_step: unsupported device {t.device}")
+    else:
+        raise ValueError(f"coupled_two_step: unsupported device {t.device}")
+    mark_in_place(written.values())
+    return out
 
 
 def coupled_multistep_plain(

@@ -54,15 +54,16 @@ hand-written kernel (``csrc/advance_mu_t_kernel.cuh``) and count one in
 whole-array transcription of the same arithmetic.  There is no fallback
 from one to the other.
 
-Buffers: ``t``, ``t_ave`` (with_tave), ``ww`` (full/final), ``ww_row``
-(lite) and ``w``/``pp`` (fuse_w) are updated IN PLACE and returned — the
-TPU kernel donates them the same way — on both devices.  ``mu``, ``u`` and
-``v`` are read at neighbour cells while they are updated, so their results
-are fresh tensors; a loop passes them back as the next substep's inputs,
-and PyTorch's caching allocator hands the freed buffers out again, so
-nothing is copied.  A buffer updated in place may not overlap one that is
-only read (:func:`check_no_alias` raises): the kernel loads levels ahead
-of its stores.
+Buffers: the operands :func:`in_place` names are updated IN PLACE and
+returned — the TPU kernel donates them the same way — on both devices,
+and the dispatcher raises their ``_version`` (:func:`mark_in_place`): the
+kernel writes through their pointers, which no version counter sees.
+``mu``, ``u`` and ``v`` are read at neighbour cells while they are
+updated, so their results are fresh tensors; a loop passes them back as
+the next substep's inputs, and PyTorch's caching allocator hands the freed
+buffers out again, so nothing is copied.  A buffer updated in place may
+not overlap one that is only read (:func:`check_no_alias` raises): the
+kernel loads levels ahead of its stores.
 """
 
 from __future__ import annotations
@@ -96,6 +97,9 @@ def _f32(x) -> float:
 #: the 3-D operands that may arrive as bf16 (plus u and v without fuse_uv)
 CONST_STREAMS = ("t_1", "tconst", "dvdxi_const", "ww_1", "u_1", "v_1", "ft")
 
+#: the operands a launch may update in place (:func:`in_place` says which)
+IN_PLACE = ("t", "ww", "ww_row", "t_ave", "w", "pp")
+
 #: the neighbour rows ``overlap`` names (the mudf rows only under damping)
 OVERLAP_ROWS = ("mu_lo", "mu_hi", "v_hi", "mudf_lo", "mudf_hi")
 
@@ -122,6 +126,22 @@ CAPTURE_NAMES = ("muave_before_theta", "mu_before_theta",
                  "mudf_before_theta", "muts_before_theta", "ww_before_theta")
 
 
+def in_place(operands: dict, *, ww_mode, with_tave, fuse_w) -> dict:
+    """The operands of :data:`IN_PLACE` a launch in these modes updates, by
+    name: ``t`` always, ``ww`` under full/final, ``ww_row`` under lite,
+    ``t_ave`` under with_tave, ``w`` and ``pp`` under fuse_w."""
+    on = dict(t=True, ww=ww_mode != "lite", ww_row=ww_mode == "lite",
+              t_ave=with_tave, w=fuse_w, pp=fuse_w)
+    return {n: operands[n] for n in IN_PLACE if on[n]}
+
+
+def mark_in_place(tensors) -> None:
+    """Raise the ``_version`` of every tensor a launch wrote through its
+    pointer, as a torch op writing in place does, for what keys on
+    versions (``models/stage_memo.py``)."""
+    torch.autograd.graph.increment_version(list(tensors))
+
+
 def check_no_alias(written: dict, read: dict) -> None:
     """No buffer a launch updates in place (``written``: name -> tensor or
     None) overlaps one it only reads (``read``, likewise).  The kernel
@@ -145,20 +165,20 @@ def check_no_alias(written: dict, read: dict) -> None:
 
 def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                  fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
-                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0, reads):
+                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0, written,
+                 reads):
     """The TPU wrapper's argument checks (``tensors``: the 3-D operands by
     name), and the port's own on the buffers a launch updates in place
-    (``reads``: the 2-D and vertical operands it only reads)."""
+    (``written``; ``reads``: the 2-D and vertical operands it only reads)."""
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
     if capture and (ww_mode != "full" or lean):
         raise ValueError("capture requires the plain full-ww path "
                          "(ww_mode='full', lean=False)")
+    # the final substep's seed row is held to the same rule
+    guarded = {**written, "ww_row": ww_row if ww_mode != "full" else None}
     check_no_alias(
-        written=dict(t=tensors["t"], t_ave=t_ave if with_tave else None,
-                     ww=ww if ww_mode != "lite" else None,
-                     ww_row=ww_row if ww_mode != "full" else None,
-                     w=w if fuse_w else None, pp=pp if fuse_w else None),
+        written=guarded,
         read={**{n: x for n, x in tensors.items()
                  if n not in ("t", "t_ave", "ww")},
               **reads})
@@ -169,11 +189,7 @@ def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                              "substep exchange to hide)")
         want = OVERLAP_ROWS[:3] + (OVERLAP_ROWS[3:] if mudf_in is not None
                                    else ())
-        check_overlap_rows(overlap, want, OVERLAP_ROWS, in_place=dict(
-            t=tensors["t"], t_ave=t_ave if with_tave else None,
-            ww=ww if ww_mode != "lite" else None,
-            ww_row=ww_row if ww_mode != "full" else None,
-            w=w if fuse_w else None, pp=pp if fuse_w else None))
+        check_overlap_rows(overlap, want, OVERLAP_ROWS, in_place=guarded)
     if fuse_uv and wind_scale != 1.0:
         # both model the wind->mass coupling; combined, the scaled winds
         # would be written back out and the scale compound every substep
@@ -281,6 +297,9 @@ def advance_mu_t_fused(
     once; without it the wrapper computes the bundle from ``rdn``.
     """
     del kde   # API parity
+    written = in_place(dict(t=t, ww=ww, ww_row=ww_row, t_ave=t_ave, w=w,
+                            pp=pp), ww_mode=ww_mode, with_tave=with_tave,
+                       fuse_w=fuse_w)
     _check_modes(tensors=dict(u=u, v=v, t=t, t_1=t_1, ww_1=ww_1, u_1=u_1,
                               v_1=v_1, ft=ft, tconst=tconst,
                               dvdxi_const=dvdxi_const, ww=ww, t_ave=t_ave),
@@ -289,7 +308,7 @@ def advance_mu_t_fused(
                  rdn=rdn, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
-                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0,
+                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0, written=written,
                  reads=dict(mu=mu, mudf_in=mudf_in, mut=mut, muu=muu,
                             muv=muv, mu_tend=mu_tend, msfuy=msfuy,
                             msfvx_inv=msfvx_inv, msftx=msftx, msfty=msfty,
@@ -311,10 +330,13 @@ def advance_mu_t_fused(
                                     cw=cw, gw=gw, k0=k0, k1=k1)
         kw.update(fuse_w=True, w=w, pp=pp, thomas=thomas)
     if t.device.type == "cpu":
-        return advance_mu_t_fused_plain(**kw)
-    if t.device.type == "cuda":
-        return _launch(**kw)
-    raise ValueError(f"advance_mu_t_fused: unsupported device {t.device}")
+        res = advance_mu_t_fused_plain(**kw)
+    elif t.device.type == "cuda":
+        res = _launch(**kw)
+    else:
+        raise ValueError(f"advance_mu_t_fused: unsupported device {t.device}")
+    mark_in_place(written.values())
+    return res
 
 
 def advance_mu_t_fused_plain(

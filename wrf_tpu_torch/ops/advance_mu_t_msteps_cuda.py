@@ -26,7 +26,8 @@ them narrow; a mixed set is widened before the launch (exact).
 
 Buffers: ``t``, ``mu`` and ``ww_row`` are read only at their own column,
 so both versions update them IN PLACE and return them (the TPU kernel
-aliases the same three).  None of the three may overlap an operand the
+aliases the same three); the dispatcher raises their ``_version`` after
+the launch, as K1's does.  None of the three may overlap an operand the
 launch only reads (the wrapper raises, on either device, before any
 launch): the kernel loads a level's operands before it stores t at the
 levels below, and reads the neighbour columns of the read-only fields.
@@ -42,7 +43,7 @@ import torch
 from .. import _build
 from .advance_mu_t_cuda import (
     _f32, check_const_streams, check_no_alias, checked_pointers,
-    narrow_streams, widen,
+    mark_in_place, narrow_streams, widen,
 )
 
 #: CUDA kernel launches since import (one per launch, and only there)
@@ -106,10 +107,14 @@ def advance_mu_t_multistep(
                    read={n: x for n, x in kw.items()
                          if isinstance(x, torch.Tensor) and n not in WRITTEN})
     if t.device.type == "cpu":
-        return advance_mu_t_multistep_plain(**kw)
-    if t.device.type == "cuda":
-        return _launch(**kw)
-    raise ValueError(f"advance_mu_t_multistep: unsupported device {t.device}")
+        res = advance_mu_t_multistep_plain(**kw)
+    elif t.device.type == "cuda":
+        res = _launch(**kw)
+    else:
+        raise ValueError(f"advance_mu_t_multistep: unsupported device "
+                         f"{t.device}")
+    mark_in_place(kw[n] for n in WRITTEN)
+    return res
 
 
 def advance_mu_t_multistep_plain(

@@ -16,10 +16,11 @@ against their plain versions, and those against the numpy golden path):
 ``den = d + a*cp_prev; cp = -b/den`` run sequentially, one level at a time.
 
 :func:`thomas_vectors` bundles them for a wrapper, and a loop passes the
-bundle to every substep (``thomas=``).  A loop keeps its bundles in a
-:class:`ThomasCache` across calls: its ``prepare`` registers host copies
-of ``rdn``/``rdnw`` beside the tensors it made, so no call reads them back
-from the card, and each stage's ``dts`` uploads its K-vectors once.
+bundle to every substep (``thomas=``).  A loop keeps its bundles in its
+memo's :class:`ThomasCache` across calls: its ``prepare`` registers host
+copies of ``rdn``/``rdnw`` beside the tensors it made, so no call reads
+them back from the card, and each stage's ``dts`` uploads its K-vectors
+once.
 """
 
 from __future__ import annotations

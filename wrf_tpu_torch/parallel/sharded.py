@@ -1,10 +1,10 @@
 """The mu/t small-step loop over a mesh of shards, and the ring-shaped array glue.
 
 Port of ``wrf_tpu/parallel/sharded.py``: ``ShardedAdvanceMuT``, the
-multi-substep advance_mu_t loop over a 2-D ``(j, i)`` mesh, plus the numpy
-glue (field lists, compute window, fixture interop).  Where the reference
-synthesizes per-GPU j-slab bounds on the host and stages 3-row halos
-through ``cudaMemcpy``, here
+multi-substep advance_mu_t loop over a 2-D ``(j, i)`` mesh, plus the glue
+(field lists, compute window, halo pad, fixture interop).  Where the
+reference synthesizes per-GPU j-slab bounds on the host and stages 3-row
+halos through ``cudaMemcpy``, here
 
 * a field on a mesh is a dict of local blocks keyed by the shard's
   ``(jj, ii)``, each on its shard's device (:func:`scatter`,
@@ -31,18 +31,12 @@ lateral-boundary data.  Arrays are zero-padded up to mesh-divisible sizes
 
 from __future__ import annotations
 
-import collections
-import weakref
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..grid import ConfigFlags, GridBounds
-from ..ops.advance_mu_t_cuda import (
-    advance_mu_t_fused, lean_dvdxi_const, lean_kwargs, lean_tconst,
-    lean_vert_flux, lean_ww1_k0,
-)
+from ..ops.advance_mu_t_cuda import advance_mu_t_fused, lean_kwargs
 from ..ops.advance_mu_t_eager import advance_mu_t_impl
 from ..ops.advance_mu_t_msteps_cuda import advance_mu_t_multistep, wind_ramp
 from . import distributed, halo
@@ -184,185 +178,6 @@ def pad_local(arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool) -> dict:
             padded[n] = b
     return {c: {n: padded[n][c] for n in padded}
             for c in mesh.local_coords()}
-
-
-#: the blocks :class:`PadMemo` built and reused since import (a shard's
-#: 3-D or 2-D block each; 1-D fields pass as they are and count in
-#: neither): ``PADS["built"]``, ``PADS["reused"]``.  Read it as a
-#: difference around a call, as ``parallel/halo.py::SENT``.
-PADS: collections.Counter = collections.Counter()
-
-
-class _PadEntry:
-    """One field's padded blocks (or one part of the lean constants), with
-    what they were built from: a key of plain values (the mesh's layout
-    and its sharded axes; the scalars), each source block by weak
-    reference with its ``_version``, and each built block's ``_version``
-    when stored."""
-
-    __slots__ = ("setup", "srcs", "out", "out_versions")
-
-    def __init__(self, setup, blocks: dict, out: dict):
-        self.setup = setup
-        self.srcs = {c: (weakref.ref(x), x._version)
-                     for c, x in blocks.items()}
-        self.out = out
-        self.out_versions = {c: y._version for c, y in out.items()}
-
-    def holds(self, setup, blocks: dict) -> bool:
-        if self.setup != setup or self.srcs.keys() != blocks.keys():
-            return False
-        for c, x in blocks.items():
-            ref, version = self.srcs[c]
-            if ref() is not x or x._version != version:
-                return False
-        return all(y._version == self.out_versions[c]
-                   for c, y in self.out.items())
-
-
-class PadMemo:
-    """:func:`pad_local` memoised on its inputs: the loops' halo pad, done
-    once per distinct input and not once per call.  The three stages of
-    an RK3 step restart from one state, and a step's constants keep their
-    tensors from step to step, so most of what a stage pads was padded
-    before.
-
-    An entry is one field's padded blocks, keyed by the field's name, the
-    identity and ``_version`` of every block the pad reads and the mesh's
-    layout (shape and devices) with its sharded axes.  It holds the source
-    blocks by weak reference (an id is not reused while its entry can
-    match) and each padded block's ``_version`` as stored: an in-place
-    write to a source or to a padded block (``halo.refresh_axis`` on a
-    mesh) is a miss.  A write that no version sees, through a device
-    pointer, either writes what the pad wrote (K5's j refresh before the
-    first substep on a mesh in one process) or goes to a field the caller
-    names in ``written`` (K1 updates its carried state in place): such a
-    field is padded anew on every call and not kept.  One entry a name: a
-    new input replaces the old one, which is dropped before the new pad is
-    built.  A hit costs no device work and no host synchronisation.
-
-    ``keep=False`` keeps nothing: every call pads anew (a mesh whose
-    neighbours sit in other processes, whose blocks cannot be keyed here,
-    and a loop whose self-exchange writes other values into the halo)."""
-
-    def __init__(self, keep: bool = True):
-        self.keep = keep
-        self._entries: dict[str, _PadEntry] = {}
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def pad(self, arrays: dict, mesh: Mesh, j_sh: bool, i_sh: bool,
-            written=()) -> tuple[dict, int]:
-        """``pad_local(arrays, mesh, j_sh, i_sh)`` in new per-shard dicts,
-        and the bytes of the blocks this call built.  ``written`` names the
-        fields whose padded blocks the caller will write unseen."""
-        # the mesh by its layout: a stage loop built without one makes its
-        # own 1x1 mesh, and the three stages of an RK3 step share a memo
-        setup = (mesh.shape, tuple(map(tuple, mesh.devices)), j_sh, i_sh)
-        got, miss = {}, {}
-        for n, b in arrays.items():
-            if next(iter(b.values())).ndim == 1:
-                got[n] = b
-                continue
-            e = self._entries.get(n)
-            if e is not None and n not in written and e.holds(setup, b):
-                got[n] = e.out
-                PADS["reused"] += len(e.out)
-            else:
-                self._entries.pop(n, None)
-                miss[n] = b
-        built = 0
-        if miss:
-            new = pad_local(miss, mesh, j_sh, i_sh)
-            for n in miss:
-                got[n] = {c: p[n] for c, p in new.items()}
-                if self.keep and n not in written:
-                    self._entries[n] = _PadEntry(setup, miss[n], got[n])
-            built = sum(x.nbytes for p in new.values() for x in p.values())
-            PADS["built"] += sum(len(p) for p in new.values())
-        return ({c: {n: got[n][c] for n in arrays}
-                 for c in mesh.local_coords()}, built)
-
-
-#: the lean-constant blocks :class:`LeanCache` built and reused since
-#: import, a shard's block each, per part: ``LEAN["built", "tconst"]``,
-#: ``LEAN["reused", "dvdxi_const"]``, ...  Read it as a difference around
-#: a call, as :data:`PADS`.
-LEAN: collections.Counter = collections.Counter()
-
-#: the parts of the lean constants, in the order they are built: each
-#: part's function, the padded fields it reads (``vert`` is the part of
-#: that name) and the scalars it takes
-LEAN_PARTS = (
-    ("dvdxi_const", lean_dvdxi_const,
-     ("u_1", "v_1", "muu", "muv", "msfuy", "msfvx_inv", "msftx", "msfty"),
-     ("rdx", "rdy")),
-    ("ww1_k0", lean_ww1_k0, ("ww_1",), ("k0",)),
-    ("vert", lean_vert_flux,
-     ("ww_1", "t_1", "fnm", "fnp", "rdnw", "msfty"), ("dts", "k0", "k1")),
-    ("tconst", lean_tconst, ("ft", "msfty", "vert"), ("dts",)),
-)
-
-
-class LeanCache:
-    """:func:`~wrf_tpu_torch.ops.advance_mu_t_cuda.lean_kwargs` memoised
-    on its inputs, part by part: the lean constants built once per
-    distinct input and not once per call.  The stages of an RK3 step that
-    have scan substeps read the same padded blocks (:class:`PadMemo`) at
-    the same dts, and from step to step only ``ft`` changes, so most
-    calls rebuild nothing and a later step rebuilds ``tconst`` alone.
-
-    Each part of :data:`LEAN_PARTS` is an entry, keyed by its scalars and
-    by the identity and ``_version`` of every block it reads (weak
-    references, as :class:`PadMemo` holds them; a block's identity fixes
-    its shard's device), each built block's ``_version`` checked too.
-    ``tconst`` reads ``vert``, ``(dts * msfty) * vert1``, so it misses
-    whenever ``vert`` was rebuilt.  The parts are the same torch ops, in
-    the same order, as ``lean_constants``: a hit is bit for bit what a
-    fresh build gives.  One entry a part: a new input drops the old entry
-    before the new blocks are built.  No kernel writes the constants (K1
-    only reads them, and the bf16 cast makes new tensors), so no write
-    goes unseen.
-
-    ``keep=False`` keeps nothing (the loops pass their pad memo's: where
-    the pads are new on every call, the constants are too)."""
-
-    def __init__(self):
-        self._entries: dict[str, _PadEntry] = {}
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def kwargs(self, local: dict, rdx, rdy, dts, k0: int, k1: int,
-               keep: bool = True) -> tuple[dict, int]:
-        """``{shard: lean_kwargs(padded, rdx, rdy, dts, k0, k1)}`` for the
-        loop's padded per-shard dicts ``local``, and the bytes of the 3-D
-        blocks this call built (0 on a full hit)."""
-        scalars = {"rdx": rdx, "rdy": rdy, "dts": dts, "k0": k0, "k1": k1}
-        fields = {c: dict(p) for c, p in local.items()}
-        built = 0
-        for name, fn, reads, takes in LEAN_PARTS:
-            key = tuple(scalars[k] for k in takes)
-            srcs = {(c, n): f[n] for c, f in fields.items() for n in reads}
-            e = self._entries.get(name)
-            if e is not None and e.holds(key, srcs):
-                out = e.out
-                LEAN["reused", name] += len(out)
-            else:
-                e = None                    # the old blocks go first
-                self._entries.pop(name, None)
-                out = {c: fn(**{n: f[n] for n in reads},
-                             **{k: scalars[k] for k in takes})
-                       for c, f in fields.items()}
-                if keep:
-                    self._entries[name] = _PadEntry(key, srcs, out)
-                LEAN["built", name] += len(out)
-                built += sum(x.nbytes for x in out.values() if x.ndim == 3)
-            for c, f in fields.items():
-                f[name] = out[c]
-        return ({c: {n: f[n] for n in ("tconst", "dvdxi_const", "ww1_k0")}
-                 for c, f in fields.items()}, built)
 
 
 def strip_local(outs: dict, names, domain, mesh: Mesh) -> dict:
