@@ -539,17 +539,22 @@ def mode_kwargs(mode, arr, static):
     return kw
 
 
-def fresh(arr, mkw):
-    """Copies of what a call updates in place (t, t_ave, ww, ww_row, and
-    w and pp where present)."""
-    arr = dict(arr)
-    for n in ("t", "t_ave", "ww", "w", "pp"):
-        if n in arr:
-            arr[n] = arr[n].clone()
-    mkw = dict(mkw)
-    if "ww_row" in mkw:
-        mkw["ww_row"] = mkw["ww_row"].clone()
-    return arr, mkw
+def snapshot(*dicts):
+    """Every tensor operand of ``dicts`` by name, with a copy of it: what
+    :func:`check_kept` holds a K1 launch's operands to."""
+    return {n: (x, x.clone()) for d in dicts for n, x in d.items()
+            if hasattr(x, "is_cuda")}
+
+
+def check_kept(tag, snap):
+    """K1 writes none of its operands: each tensor of ``snap``
+    (:func:`snapshot`) still holds its copy's bits, counted on the card.
+    Prints one line and raises on a change."""
+    changed = [n for n, (x, copy) in snap.items() if count_different(x, copy)]
+    print(f"[{tag}] operands unchanged: {len(snap) - len(changed)} of "
+          f"{len(snap)}")
+    if changed:
+        raise AssertionError(f"{tag}: the launch wrote {changed}")
 
 
 #: GPU clock cycles the stream spins before a timed chain (about 10 ms):
@@ -585,14 +590,11 @@ def time_pair(arr, static, mkw):
         advance_mu_t_fused, advance_mu_t_fused_plain,
     )
 
-    a_k, m_k = fresh(arr, mkw)
-    a_p, m_p = fresh(arr, mkw)
-
     def kern():
-        advance_mu_t_fused(**a_k, **static, **m_k)
+        advance_mu_t_fused(**arr, **static, **mkw)
 
     def plain():
-        advance_mu_t_fused_plain(**a_p, **static, **m_p)
+        advance_mu_t_fused_plain(**arr, **static, **mkw)
 
     out = {"cuda": [], "plain": []}
     for name, fn, reps in (("plain", plain, 3), ("cuda", kern, 20),
@@ -607,7 +609,8 @@ def phase_kernel_vs_plain(
         time_grids=(REF_GRID, BIG_GRID), card="", with_w=False):
     """K1 against its plain version in every mode of MODES, bit for bit,
     timed beside it; ``with_w``: in the three modes of W_MODES with
-    ``fuse_w`` (w and pp included)."""
+    ``fuse_w`` (w and pp included).  Every operand is unchanged after both
+    calls."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
         advance_mu_t_fused, advance_mu_t_fused_plain,
@@ -621,12 +624,13 @@ def phase_kernel_vs_plain(
         J, K, I = arr["t"].shape
         for mode in (W_MODES if with_w else MODES):
             mkw = mode_kwargs(mode, arr, static)
-            a_k, m_k = fresh(arr, mkw)
-            a_p, m_p = fresh(arr, mkw)
-            got = advance_mu_t_fused(**a_k, **static, **m_k)
-            want = advance_mu_t_fused_plain(**a_p, **static, **m_p)
+            snap = snapshot(arr, mkw, static)
+            got = advance_mu_t_fused(**arr, **static, **mkw)
+            want = advance_mu_t_fused_plain(**arr, **static, **mkw)
             torch.cuda.synchronize()
             tag = f"{grid[0]}x{grid[1]}x{grid[2]} {bc} {mode}"
+            check_kept(f"{name} {tag}", snap)
+            del snap
             if sorted(got) != sorted(want) or (
                     with_w and not {"w", "pp"} <= set(got)):
                 raise AssertionError(f"{name} {tag}: outputs {sorted(got)}, "
@@ -687,21 +691,20 @@ def phase_k1_damping(
             arr, static = padded_inputs(case_at(grid, bc), "cuda",
                                         with_w=with_w)
             scan = mode_kwargs("scan", arr, static)
-            a0, m0 = fresh(arr, scan)
-            mudf = advance_mu_t_fused_plain(**a0, **static, **m0)["mudf"]
+            mudf = advance_mu_t_fused_plain(**arr, **static, **scan)["mudf"]
             if not float(mudf.abs().max()) > 0:
                 raise AssertionError(f"{name} {gtag}: mudf is all zero")
             damp = dict(mudf_in=mudf, smdiv=SMDIV)
             for mode in ("scan", "final"):
                 mkw = dict(mode_kwargs(mode, arr, static), **damp)
-                a_k, m_k = fresh(arr, mkw)
-                a_p, m_p = fresh(arr, mkw)
-                got = advance_mu_t_fused(**a_k, **static, **m_k)
-                want = advance_mu_t_fused_plain(**a_p, **static, **m_p)
-                a_o, m_o = fresh(arr, mkw)
-                off = advance_mu_t_fused(**a_o, **static,
-                                         **dict(m_o, smdiv=0.0))
+                snap = snapshot(arr, mkw)
+                got = advance_mu_t_fused(**arr, **static, **mkw)
+                want = advance_mu_t_fused_plain(**arr, **static, **mkw)
+                off = advance_mu_t_fused(**arr, **static,
+                                         **dict(mkw, smdiv=0.0))
                 torch.cuda.synchronize()
+                check_kept(f"{name} {gtag} {mode}", snap)
+                del snap
                 check_bits(f"{name} {gtag} {mode}", got, want)
                 if not count_different(got["u"], off["u"]):
                     raise AssertionError(f"{name} {gtag} {mode}: damping "
@@ -713,11 +716,11 @@ def phase_k1_damping(
             ends = {}
             for which, fn in (("kernel", advance_mu_t_fused),
                               ("plain", advance_mu_t_fused_plain)):
-                a, m = fresh(arr, scan)
-                state = {k: (m if k == "ww_row" else a)[k] for k in carry}
-                const = {k: v for k, v in a.items() if k not in carry}
-                lean = {k: v for k, v in m.items() if k != "ww_row"}
-                prev = torch.zeros_like(a["mu"])
+                state = {k: (scan if k == "ww_row" else arr)[k]
+                         for k in carry}
+                const = {k: v for k, v in arr.items() if k not in carry}
+                lean = {k: v for k, v in scan.items() if k != "ww_row"}
+                prev = torch.zeros_like(arr["mu"])
                 for _ in range(5):
                     out = fn(**const, **state, **static, **lean,
                              mudf_in=prev, smdiv=SMDIV)
@@ -731,16 +734,13 @@ def phase_k1_damping(
                        ends["plain"])
             if grid == BIG_GRID and not with_w:
                 mkw = dict(scan, **damp)
-                a_u, m_u = fresh(arr, scan)
-                a_d, m_d = fresh(arr, mkw)
-                a_p, m_p = fresh(arr, mkw)
                 t = abba_ms({
                     "undamped": lambda: advance_mu_t_fused(
-                        **a_u, **static, **m_u),
+                        **arr, **static, **scan),
                     "damped": lambda: advance_mu_t_fused(
-                        **a_d, **static, **m_d)})
+                        **arr, **static, **mkw)})
                 t["plain"] = [cuda_ms(lambda: advance_mu_t_fused_plain(
-                    **a_p, **static, **m_p), 3)]
+                    **arr, **static, **mkw), 3)]
                 timings["scan"] = t
                 J, K, I = arr["t"].shape
                 print(f"[k1 smdiv time {J}x{K}x{I} scan] kernel undamped "
@@ -760,9 +760,9 @@ def phase_k1_capture(
     ``*_before_theta`` outputs) against its plain version, bit for bit on
     every output; then what the capture exists to show: each capture equals
     the output it is named after (rows 0 and J-1, zero in the captures,
-    left out).  At the big grid the call is timed with and without
-    ``capture`` (order without, with, with, without), and its plain
-    version.  Returns the timings."""
+    left out); every operand is unchanged after the calls.  At the big
+    grid the call is timed with and without ``capture`` (order without,
+    with, with, without), and its plain version.  Returns the timings."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
         CAPTURE_NAMES, advance_mu_t_fused, advance_mu_t_fused_plain,
@@ -772,10 +772,12 @@ def phase_k1_capture(
     for grid, bc in cases:
         tag = f"k1 capture {grid[0]}x{grid[1]}x{grid[2]} {bc}"
         arr, static = padded_inputs(case_at(grid, bc), "cuda")
-        got = advance_mu_t_fused(**fresh(arr, {})[0], **static, capture=True)
-        want = advance_mu_t_fused_plain(**fresh(arr, {})[0], **static,
-                                        capture=True)
+        snap = snapshot(arr)
+        got = advance_mu_t_fused(**arr, **static, capture=True)
+        want = advance_mu_t_fused_plain(**arr, **static, capture=True)
         torch.cuda.synchronize()
+        check_kept(tag, snap)
+        del snap
         if not set(CAPTURE_NAMES) <= set(got):
             raise AssertionError(f"{tag}: outputs {sorted(got)}")
         check_bits(tag, got, want)
@@ -789,13 +791,12 @@ def phase_k1_capture(
             if n or edge:
                 raise AssertionError(f"{tag}: {cap} is not the {out} output")
         if grid == BIG_GRID:
-            a_n, a_c, a_p = (fresh(arr, {})[0] for _ in range(3))
             t = abba_ms({
-                "without": lambda: advance_mu_t_fused(**a_n, **static),
-                "with": lambda: advance_mu_t_fused(**a_c, **static,
+                "without": lambda: advance_mu_t_fused(**arr, **static),
+                "with": lambda: advance_mu_t_fused(**arr, **static,
                                                    capture=True)})
             t["plain"] = [cuda_ms(lambda: advance_mu_t_fused_plain(
-                **a_p, **static, capture=True), 3)]
+                **arr, **static, capture=True), 3)]
             timings["full"] = t
             J, K, I = arr["t"].shape
             print(f"[k1 capture time {J}x{K}x{I} full] kernel without "
@@ -1288,8 +1289,8 @@ def phase_k1_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
     (2,2) mesh at the reference grid under the three BCs, and on (2,2) at
     512x512x50 (a shard's block: 259x50x259), where the fused scan substep
     is also timed with and without, beside the plain version (CUDA events,
-    order plain, without, with, with, without, plain; the scan substep
-    updates t and ww_row in place, so the launches of a chain run on).
+    order plain, without, with, with, without, plain; every launch of a
+    chain starts from the same state, which K1 does not write).
     Returns the timings."""
     import torch
     from wrf_tpu_torch.ops.advance_mu_t_cuda import (
@@ -1316,17 +1317,13 @@ def phase_k1_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                 const = {c: {k: v for k, v in p.items() if k not in carry}
                          for c, p in local.items()}
 
-                def launch(fn, st, mode, ov, keep=True):
+                def launch(fn, st, mode, ov):
                     out = {}
                     for c in st:
                         ins = dict(st[c])
                         if damp:
                             ins.update(mudf_in=ins.pop("mudf"), smdiv=SMDIV)
-                        cst = dict(const[c])
-                        if keep:   # final updates ww and t_ave in place
-                            for n in ("ww", "t_ave"):
-                                cst[n] = cst[n].clone()
-                        out[c] = fn(**cst, **ins, **common[c], **ov[c],
+                        out[c] = fn(**const[c], **ins, **common[c], **ov[c],
                                     **K1_LOOP_MODES[mode],
                                     **(lean[c] if mode == "scan" else {}))
                     return out
@@ -1363,11 +1360,11 @@ def phase_k1_overlap(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                     one = {c: st[c]}
                     t = abba_ms({
                         "plain": lambda: launch(advance_mu_t_fused_plain,
-                                                one, "scan", ov, keep=False),
+                                                one, "scan", ov),
                         "without": lambda: launch(advance_mu_t_fused, one,
-                                                  "scan", none, keep=False),
+                                                  "scan", none),
                         "with": lambda: launch(advance_mu_t_fused, one,
-                                               "scan", ov, keep=False)},
+                                               "scan", ov)},
                         reps=10)
                     timings["smdiv" if damp else "scan"] = t
                     J, K, I = st[c]["t"].shape
@@ -1594,9 +1591,7 @@ def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                 tag = f"k1{'+w' if with_w else ''} bf16 {gtag} {mode}"
 
                 def call(fn, src):
-                    a, m = fresh({k: src[k] for k in arr},
-                                 {k: src[k] for k in mkw})
-                    return fn(**a, **static, **m)
+                    return fn(**src, **static)
 
                 got = call(advance_mu_t_fused, narrowed(both, names))
                 want = call(advance_mu_t_fused_plain, narrowed(both, names))
@@ -1613,19 +1608,13 @@ def phase_bf16(cases=((REF_GRID, "specified"), (REF_GRID, "periodic"),
                 if not count_different(got["t"], f32["t"]):
                     raise AssertionError(f"{tag}: bf16 changed nothing")
                 if not with_w:
-                    a, m = fresh(arr, mkw)
                     expect_bf16_state_refused(
-                        tag, advance_mu_t_fused, {**a, **static, **m}, "t")
+                        tag, advance_mu_t_fused, {**both, **static}, "t")
                 if big and mode in ("scan", "lite_ws", "final"):
-                    a_f, m_f = fresh(arr, mkw)
                     nb = narrowed(both, names)
-                    a_b, m_b = fresh({k: nb[k] for k in arr},
-                                     {k: nb[k] for k in mkw})
                     pair_ms(f"k1{'+w' if with_w else ''} {mode}",
-                            lambda: advance_mu_t_fused(**a_f, **static,
-                                                       **m_f),
-                            lambda: advance_mu_t_fused(**a_b, **static,
-                                                       **m_b))
+                            lambda: advance_mu_t_fused(**both, **static),
+                            lambda: advance_mu_t_fused(**nb, **static))
             if not with_w:
                 ins = k2_inputs(arr, static)
                 names = ("u", "v", "t_1", "tconst", "dvdxi_const")
@@ -2528,16 +2517,17 @@ def phase_mesh_loops():
 
 
 def phase_pad_memo():
-    """The loops' pad memo on the card, where K1 updates its state and K5
-    the halos through device pointers (K1's wrapper marks its writes; K5's
-    rewrite the rows the pad wrote): 3 closed RK3 steps at 512x512x50 with
-    one integrator, whose stages reuse the pads of unchanged inputs, must
-    equal bit for bit a cold one (``memo.keep = False``) that pads every
-    stage anew, at 1x1 (with w and damping, blocked S=2, bf16 constants)
-    and on (2,2) and (2,1) meshes on the one card under ``rdma`` and on
-    (2,2) under ``rdma_overlap``; and ``stage_memo.PADS`` must read 31
-    blocks built and 32 reused on the first 1x1 step with w, 20 and 43 on
-    each later one.  Returns those counts."""
+    """The loops' pad memo on the card, where K3 updates its state and K5
+    the halos through device pointers (K3's wrapper marks its writes; K5's
+    rewrite the rows the pad wrote) and K1 writes fresh buffers: 3 closed
+    RK3 steps at 512x512x50 with one integrator, whose stages reuse the
+    pads of unchanged inputs, must equal bit for bit a cold one
+    (``memo.keep = False``) that pads every stage anew, at 1x1 (with w and
+    damping, blocked S=2, bf16 constants) and on (2,2) and (2,1) meshes on
+    the one card under ``rdma`` and on (2,2) under ``rdma_overlap``; and
+    ``stage_memo.PADS`` must read 21 blocks built and 42 reused on the
+    first 1x1 step with w, 10 and 53 on each later one (stages 2 and 3
+    build nothing).  Returns those counts."""
     import torch
     from wrf_tpu_torch.models.rk3 import RK3Integrator
     from wrf_tpu_torch.models.stage_memo import PADS
@@ -2594,9 +2584,9 @@ def phase_pad_memo():
         del got, want
     print(f"[pad memo] blocks built/reused at 1x1 with w, steps 1-3: "
           f"{counts}")
-    if counts != [(31, 32), (20, 43), (20, 43)]:
+    if counts != [(21, 42), (10, 53), (10, 53)]:
         raise AssertionError(f"pad memo: built/reused {counts}, expected "
-                             "(31, 32) then (20, 43)")
+                             "(21, 42) then (10, 53)")
     return counts
 
 

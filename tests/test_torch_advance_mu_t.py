@@ -123,19 +123,47 @@ def test_edge_rows_never_computed(small_case, mode):
         assert (got["muave"][edge] == 0).all()
 
 
-def test_in_place_contract(small_case):
-    """t, t_ave and ww are updated in place and returned; mu is fresh and
-    the caller's numpy arrays are never written through."""
+#: the buffer contract's cases: (mode of MODES, fuse_w, extra keywords),
+#: MODES' three (full, the lite scan, final) with and without fuse_w, then
+#: the capture and divergence damping
+CONTRACT = {f"{m}-{w}": (m, w, {}) for m in MODES for w in (False, True)}
+CONTRACT.update(capture=("full", False, dict(capture=True)),
+                damping=("final", True, dict(smdiv=0.1)))
+
+
+@pytest.mark.parametrize("case", list(CONTRACT))
+def test_in_place_contract(small_case, case):
+    """K1 writes no operand: every input keeps its contents and its
+    ``_version``, and every output is a tensor of its own, sharing no
+    storage with any input, whatever the mode."""
     arr, sc, static = _inputs(small_case)
-    before = {k: v.copy() for k, v in arr.items()}
+    mode, fuse_w, extra = CONTRACT[case]
+    mkw = {**_mode_kwargs(mode, arr, sc, static), **extra}
+    if fuse_w:
+        f = small_case.fields
+        mkw.update(fuse_w=True, **{n: np.asarray(f["grid_" + n], np.float32)
+                                   for n in ("w", "pp", "rdn")})
+    if mkw.get("smdiv"):
+        mkw["mudf_in"] = _mudf_in(arr, sc, static)
     tarr = {k: torch.tensor(v) for k, v in arr.items()}
-    out = k1.advance_mu_t_fused(**tarr, **sc, **static)
-    assert out["t"] is tarr["t"] and out["ww"] is tarr["ww"]
-    assert out["t_ave"] is tarr["t_ave"]
-    assert out["mu"] is not tarr["mu"]
-    assert (tarr["mu"].numpy() == before["mu"]).all()
-    assert all((arr[k] == before[k]).all() for k in arr)
-    assert not (tarr["t"].numpy() == before["t"]).all()
+    tarr.update({k: torch.tensor(v) for k, v in mkw.items()
+                 if isinstance(v, np.ndarray)})
+    flags = {k: v for k, v in mkw.items() if not isinstance(v, np.ndarray)}
+    if flags.get("lean"):
+        tarr.update(k1.lean_kwargs(tarr, sc["rdx"], sc["rdy"], sc["dts"],
+                                   static["k0"], static["k1"]))
+    before = {k: (x.clone(), x._version) for k, x in tarr.items()}
+    out = k1.advance_mu_t_fused(**tarr, **sc, **static, **flags)
+    for k, (x, version) in before.items():
+        assert torch.equal(tarr[k].nan_to_num(), x.nan_to_num()), k
+        assert tarr[k]._version == version, k
+    inputs = {x.untyped_storage().data_ptr() for x in tarr.values()}
+    for k, x in out.items():
+        assert x.untyped_storage().data_ptr() not in inputs, k
+    carried = {"t"} | ({"ww_row"} if flags.get("ww_mode") == "lite"
+                       else {"ww"}) | ({"w", "pp"} if fuse_w else set())
+    assert carried <= set(out)
+    assert not torch.equal(out["t"], tarr["t"])
 
 
 @pytest.mark.parametrize("mode", ["overlap"])
@@ -287,49 +315,6 @@ def test_damping_is_off_without_fuse_uv(small_case):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     ref = _run_jax(arr, sc, static, damp)
     outputs_allclose(got, ref)
-
-
-def test_mudf_in_must_not_alias_ww_row(small_case):
-    arr, sc, static = _inputs(small_case)
-    tarr = {k: torch.tensor(v) for k, v in arr.items()}
-    mkw = _mode_kwargs("final", arr, sc, static)
-    row = torch.tensor(mkw.pop("ww_row"))
-    with pytest.raises(ValueError, match="mudf_in must not alias ww_row"):
-        k1.advance_mu_t_fused(**tarr, **sc, **static, **mkw, ww_row=row,
-                              mudf_in=row, smdiv=0.1)
-
-
-@pytest.mark.parametrize("written,read,mode", [
-    ("t", "t_1", "full"), ("t", "t_1", "scan"), ("t_ave", "ft", "full"),
-    ("ww", "ww_1", "final"), ("t", "u", "full"), ("t", "mu", "final"),
-])
-def test_in_place_operand_must_not_alias_a_read_one(small_case, written,
-                                                    read, mode):
-    """K1 loads a level's operands before it stores the levels below it
-    (and other threads read the neighbour columns of every read-only
-    field), so a buffer it updates in place may not overlap one it only
-    reads: the wrapper raises, on either device, before any launch."""
-    arr, sc, static = _inputs(small_case)
-    tarr = {k: torch.tensor(v) for k, v in arr.items()}
-    mkw = _mode_kwargs(mode, arr, sc, static)
-    mkw = {k: (torch.tensor(v) if isinstance(v, np.ndarray) else v)
-           for k, v in mkw.items()}
-    if mkw.get("lean"):
-        mkw.update(k1.lean_kwargs(tarr, sc["rdx"], sc["rdy"], sc["dts"],
-                                  static["k0"], static["k1"]))
-    fields = {**tarr, **mkw}
-    if fields[read].shape == fields[written].shape:
-        fields[read] = fields[written]           # the same buffer
-    else:   # a 2-D read field inside the 3-D written one
-        fields[read] = fields[written][:, 0, :]
-    with pytest.raises(ValueError,
-                       match=f"{read} must not alias {written}"):
-        k1.advance_mu_t_fused(**fields, **sc, **static)
-    # a view of a different part of one storage is no overlap
-    big = torch.zeros((2,) + tarr["t"].shape)
-    big[0], big[1] = tarr["t"], tarr["t_1"]
-    ok = dict(tarr, t=big[0], t_1=big[1])
-    k1.advance_mu_t_fused(**ok, **sc, **static)
 
 
 # --------------------------------------------- the phase-A capture --------

@@ -248,15 +248,17 @@ def test_plain_k1_fuse_w_is_k1_then_advance_w(case_name, mode, request):
 
 
 def test_k1_fuse_w_contract(small_case):
-    """w and pp are updated in place and returned; a passed ``thomas``
-    bundle gives the bits of the one the wrapper computes from rdn; the
-    TPU wrapper's argument check."""
+    """w and pp come back in fresh tensors and the inputs keep theirs; a
+    passed ``thomas`` bundle gives the bits of the one the wrapper computes
+    from rdn; the TPU wrapper's argument check."""
     arr, sc, static = _inputs(small_case)
     wkw = _w_kwargs(small_case)
     t1 = _tensors({**arr, **wkw})
     out = k1.advance_mu_t_fused(**t1, **sc, **static)
-    assert out["w"] is t1["w"] and out["pp"] is t1["pp"]
+    assert out["w"] is not t1["w"] and out["pp"] is not t1["pp"]
     assert not np.array_equal(out["w"].numpy(), wkw["w"])
+    assert np.array_equal(t1["w"].numpy(), wkw["w"])
+    assert np.array_equal(t1["pp"].numpy(), wkw["pp"])
     th = thomas.thomas_vectors(
         rdn=torch.tensor(wkw["rdn"]), rdnw=torch.tensor(arr["rdnw"]),
         dts=sc["dts"], epssm=sc["epssm"], cw=wkw["cw"], gw=wkw["gw"],

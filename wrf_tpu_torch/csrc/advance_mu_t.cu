@@ -17,7 +17,10 @@ cudaError_t launch_f32(const Args& a, int fuse_uv, int lean, int ww_mode,
 
 }  // namespace k1
 
-// Plain C entry for ctypes.  Pointers the mode does not use may be NULL.
+// Plain C entry for ctypes.  Pointers the mode does not use may be NULL;
+// the outputs the mode writes may not (t_out always, ww_out under full /
+// final, ww_row_out under lite, t_ave_out with t_ave, w_out and pp_out
+// with fuse_w).  The kernel writes no input.
 // ``const_bf16``: the constant streams (ww_1, u_1, v_1, t_1, ft, tconst,
 // dvdxi_const, and u and v without fuse_uv) point at bf16 elements.  A
 // non-null mu_lo turns on the in-kernel exchange (mu_hi and v_hi then too,
@@ -26,20 +29,21 @@ cudaError_t launch_f32(const Args& a, int fuse_uv, int lean, int ww_mode,
 // synchronises.  ``rows``: the rows of a block along j (1 to kMaxRows; the
 // block is kLanes columns wide along i).
 extern "C" int wrf_tpu_torch_advance_mu_t(
-    float* ww, const void* ww_1, const void* u, const void* u_1,
-    const void* v, const void* v_1, float* t, const void* t_1,
-    float* t_ave, const void* ft, const void* tconst,
+    const float* ww, const void* ww_1, const void* u, const void* u_1,
+    const void* v, const void* v_1, const float* t, const void* t_1,
+    const float* t_ave, const void* ft, const void* tconst,
     const void* dvdxi_const,
     const float* mu, const float* mudf_in, const float* mut,
     const float* muu, const float* muv,
     const float* mu_tend, const float* msfuy, const float* msfvx_inv,
-    const float* msftx, const float* msfty, float* ww_row,
+    const float* msftx, const float* msfty, const float* ww_row,
     const float* ww1_k0,
     const float* dnw, const float* fnm, const float* fnp, const float* rdnw,
-    float* w, float* pp, const float* aw, const float* cpv,
+    const float* w, const float* pp, const float* aw, const float* cpv,
     const float* denv, const float* crdn, const float* erdn,
     float* mu_out, float* muave, float* muts, float* mudf, float* u_out,
-    float* v_out,
+    float* v_out, float* t_out, float* ww_out, float* t_ave_out,
+    float* ww_row_out, float* w_out, float* pp_out,
     float* cap_muave, float* cap_mu, float* cap_mudf, float* cap_muts,
     float* cap_ww,
     const float* mu_lo, const float* mu_hi, const float* v_hi,
@@ -59,6 +63,9 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
   // columns while mudf is written
   if ((mudf_in && !fuse_uv) || (mudf_in && mudf_in == mudf))
     return cudaErrorInvalidValue;
+  if (!t_out || (ww_mode == kLite ? !ww_row_out : !ww_out) ||
+      (with_tave && !t_ave_out) || (fuse_w && (!w_out || !pp_out)))
+    return cudaErrorInvalidValue;
   const int n_cap = (cap_muave != nullptr) + (cap_mu != nullptr) +
                     (cap_mudf != nullptr) + (cap_muts != nullptr) +
                     (cap_ww != nullptr);
@@ -76,6 +83,7 @@ extern "C" int wrf_tpu_torch_advance_mu_t(
                msftx, msfty, ww_row, ww1_k0, dnw, fnm, fnp, rdnw,
                w, pp, aw, cpv, denv, crdn, erdn,
                mu_out, muave, muts, mudf, u_out, v_out,
+               t_out, ww_out, t_ave_out, ww_row_out, w_out, pp_out,
                cap_muave, cap_mu, cap_mudf, cap_muts, cap_ww,
                mu_lo, mu_hi, v_hi, mudf_lo, mudf_hi,
                rdx, rdy, dts, epssm, cs2, dampc, wind_scale, c_w, g_t, beta,

@@ -49,8 +49,10 @@
 // level k are 32 neighbouring floats) by R rows along j (R = 1-4, chosen by
 // the wrapper); the grid covers the block, so the ragged i edge wastes at
 // most one warp per row and a row's north and south neighbours sit in the
-// same block's L1.  No barrier: each thread runs its column's k loops
-// itself (the reference CUDA kernel's geometry).  Two k passes per column:
+// same block's L1, plus one more column of blocks for the pass-through of
+// the columns outside the window (Edges).  No barrier: each thread runs
+// its column's k loops itself (the reference CUDA kernel's geometry).  Two
+// k passes per column:
 //   pass 1 forms dvdxi(k) for k0..k1, sums dmdt in k order (the oracle's
 //          order) and writes the updated winds;
 //   pass 2 runs the ww scan from the seed and the theta update, with one
@@ -64,9 +66,9 @@
 // k + kAhead (1 or 2) are loaded into registers before level k's stores,
 // because the compiler cannot move a load above a store it cannot prove
 // distinct, and every store here goes through an Args member (see
-// Buffers).  The operands that no thread writes (every input but t, ww,
-// ww_row, w and pp) are read with ldr (const_stream.cuh) and kept in their
-// stored type until they are used.
+// Buffers).  The constant streams and the 2-D operands are read with ldr /
+// __ldg (const_stream.cuh) and the streams kept in their stored type until
+// they are used; t, ww, w and pp with plain loads.
 // The solve's K-long sweep state dpw lives in shared memory, a K-long slice
 // per thread laid out [k][thread] so a warp hits 32 banks: FUSE_W instances
 // launch with K * 4 bytes a thread of dynamic shared memory, the others with
@@ -74,24 +76,32 @@
 // costs in device memory is w and pp read twice and written once (6 field
 // passes, 4 of them compulsory: csrc/w_solve.cuh).
 //
-// Buffers, and the contract that makes loading ahead of stores safe: u, v
-// and mu are read at neighbour columns and rows, and GPU blocks run in no
-// fixed order, so their updates go to fresh output buffers (u_out, v_out,
-// mu_out; also muave, muts and the captures); the caller hands those back as
-// the next substep's inputs (nothing is copied).  The same holds for mudf
-// under damping: mudf_in is read at neighbour columns and rows while mudf is
-// written, so the two are different buffers, and a loop hands each
-// substep's mudf back as the next one's mudf_in.  t, t_ave, ww and ww_row
-// are read only at the thread's own column and level, so they are updated
-// in place; so are w and pp.  No buffer the launch writes may overlap one it
-// only reads (the wrapper raises otherwise), so every load of a level may be
-// issued before the stores of an earlier one.
+// Buffers, and the contract that makes loading ahead of stores safe: the
+// kernel writes no operand.  Every field it updates goes to a fresh output
+// buffer: u_out, v_out and mu_out (u, v and mu are read at neighbour
+// columns and rows, and GPU blocks run in no fixed order), t_out, ww_out
+// (full / final), ww_row_out (lite), t_ave_out (WITH_TAVE), w_out and pp_out
+// (FUSE_W); also muave, muts, mudf and the captures.  The caller hands the
+// outputs back as the next substep's inputs (nothing is copied), so the
+// blocks a substep started from stay as they were: a memo keyed on them
+// (models/stage_memo.py) outlives the launch.  Under damping mudf_in is the
+// previous substep's mudf.  Which outputs a launch writes follows from the
+// template flags (WW_MODE, WITH_TAVE, FUSE_W), never from a pointer.  The
+// wrapper allocates the outputs, so none overlaps an input, and every load
+// of a level may be issued before the stores of an earlier one.
 //
 // Edges: rows 0 and J-1 are never computed.  There, and in every column
 // outside the compute window, the state passes through and muave, muts
-// and mudf are zero — the TPU kernel's contract.  The captures follow
-// their outputs (ww and mu pass through outside the window and the k
-// range), except that rows 0 and J-1 of all five are zero.  The i-1 / i+1
+// and mudf are zero — the TPU kernel's contract.  In a computed column the
+// levels the k loops leave (t, t_ave, ww and pp outside k0..k1, w outside
+// k0+1..k1) pass through too, into the fresh outputs.  In the rows that
+// are computed, the columns outside the window are passed by the lanes of
+// the grid's last column of blocks, not by their own: a lane of a warp that
+// computes would hold the warp for its pass-through of every level of
+// every field (on an H100 that made the final substep with fuse_w 17 %
+// slower at 1205x35x1505, PERF.md).  The captures follow their outputs (ww
+// and mu pass through outside the window and the k range), except that
+// rows 0 and J-1 of all five are zero.  The i-1 / i+1
 // neighbours wrap around the row as the TPU kernel's lane rolls do; the
 // window masks make the wrapped values unused.
 //
@@ -122,20 +132,19 @@ enum WwMode { kFull = 0, kLite = 1, kFinal = 2 };
 
 constexpr int kLanes = 32;       // threads of a block along i
 constexpr int kMaxRows = 4;      // rows of a block along j, at most
-constexpr int kEdgeChunk = 8;    // levels a pass-through column moves at once
 
 struct Args {
   // 3-D fields (J, K, I); the void pointers are the constant streams, of
   // the kernel's CT (u and v: float under FUSE_UV)
-  float* ww;
+  const float* ww;
   const void* ww_1;
   const void* u;
   const void* u_1;
   const void* v;
   const void* v_1;
-  float* t;
+  const float* t;
   const void* t_1;
-  float* t_ave;
+  const float* t_ave;
   const void* ft;
   const void* tconst;
   const void* dvdxi_const;
@@ -150,16 +159,16 @@ struct Args {
   const float* msfvx_inv;
   const float* msftx;
   const float* msfty;
-  float* ww_row;
+  const float* ww_row;
   const float* ww1_k0;
   // vertical vectors (K)
   const float* dnw;
   const float* fnm;
   const float* fnp;
   const float* rdnw;
-  // the w/pp solve (FUSE_W): state, updated in place, and K-vectors
-  float* w;
-  float* pp;
+  // the w/pp solve (FUSE_W): state and K-vectors
+  const float* w;
+  const float* pp;
   const float* aw;
   const float* cpv;
   const float* denv;
@@ -172,6 +181,12 @@ struct Args {
   float* mudf;
   float* u_out;
   float* v_out;
+  float* t_out;
+  float* ww_out;      // WW_MODE full / final
+  float* t_ave_out;   // WITH_TAVE
+  float* ww_row_out;  // WW_MODE lite
+  float* w_out;       // FUSE_W
+  float* pp_out;      // FUSE_W
   // phase-A captures (WW_MODE full), all five or none; NULL: off
   float* cap_muave;
   float* cap_mu;
@@ -219,59 +234,107 @@ advance_mu_t_kernel(const Args a) {
   const CT* const a_ft = static_cast<const CT*>(a.ft);
   const CT* const a_tconst = static_cast<const CT*>(a.tconst);
   const CT* const a_dvdxi_const = static_cast<const CT*>(a.dvdxi_const);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int I = a.I, K = a.K;
-  if (i >= I || j >= a.J) return;  // no block-wide barrier below
-
-  const size_t row = (size_t)K * I;            // one j row of a 3-D field
-  const size_t col = (size_t)j * row + i;      // (j, k=0, i); level k adds k*I
-  const int c = j * I + i;                     // (j, i) of a 2-D field
-  const int ig = i + a.i_off, jg = j + a.j_off;
-  const bool i_in = ig >= a.i0 && ig <= a.i1;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= a.J) return;  // no block-wide barrier below
+  const size_t row = (size_t)K * I;  // one j row of a 3-D field
+  const int jg = j + a.j_off;
   const bool j_in = jg >= a.j0 && jg <= a.j1;
+  // a row whose columns in the window are computed
+  const bool row_in = j >= 1 && j <= a.J - 2 && j_in;
+  // the columns outside the window: local 0..lo-1 and hi..I-1
+  const int lo = min(max(a.i0 - a.i_off, 0), I);
+  const int hi = max(lo, min(a.i1 - a.i_off + 1, I));
 
-  if (!(j >= 1 && j <= a.J - 2 && i_in && j_in)) {
-    // edge row or outside the window: pass-through / zero
+  // The state's pass-through: levels kb..ke-1 of the column at col (its
+  // level 0) of every field the launch carries (t; ww under full / final;
+  // t_ave; w and pp under FUSE_W) and, with winds, of u and v under
+  // FUSE_UV, into the outputs; with cap also into the capture of ww
+  // (zero_cap: zero there).  kEdgeChunk levels of all of them are loaded
+  // before any is stored: 4, measured on an H100 (more raise the
+  // registers of every instance, fewer add round trips), and 2 in the
+  // bf16 instances, at which ptxas spills none of them.
+  constexpr int kEdgeChunk = std::is_same<CT, float>::value ? 4 : 2;
+  auto pass = [&](size_t col, int kb, int ke, bool winds, bool cap,
+                  bool zero_cap) {
+    for (; kb < ke; kb += kEdgeChunk) {
+      float uu[kEdgeChunk], vv[kEdgeChunk], tt[kEdgeChunk], ww[kEdgeChunk],
+          ta[kEdgeChunk], w[kEdgeChunk], pp[kEdgeChunk];
+#pragma unroll
+      for (int q = 0; q < kEdgeChunk; ++q) {
+        const size_t x = col + (size_t)(kb + q) * I;
+        if (kb + q < ke) {
+          if (FUSE_UV && winds) {
+            uu[q] = f32(ldr(a_u, x));
+            vv[q] = f32(ldr(a_v, x));
+          }
+          tt[q] = a.t[x];
+          if (WW_MODE != kLite) ww[q] = a.ww[x];
+          if (WITH_TAVE) ta[q] = a.t_ave[x];
+          if (FUSE_W) {
+            w[q] = a.w[x];
+            pp[q] = a.pp[x];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kEdgeChunk; ++q) {
+        const size_t x = col + (size_t)(kb + q) * I;
+        if (kb + q < ke) {
+          if (FUSE_UV && winds) {
+            a.u_out[x] = uu[q];
+            a.v_out[x] = vv[q];
+          }
+          a.t_out[x] = tt[q];
+          if (WW_MODE != kLite) a.ww_out[x] = ww[q];
+          if (WITH_TAVE) a.t_ave_out[x] = ta[q];
+          if (FUSE_W) {
+            a.w_out[x] = w[q];
+            a.pp_out[x] = pp[q];
+          }
+          if (CAPTURE && cap) a.cap_ww[x] = zero_cap ? 0.f : ww[q];
+        }
+      }
+    }
+  };
+  // a column never computed (rows 0 and J-1, and outside the window): the
+  // state passes through, muave, muts and mudf are zero
+  auto pass_column = [&](int i) {
+    const int c = j * I + i;
     a.mu_out[c] = __ldg(a.mu + c);
+    if (WW_MODE == kLite) a.ww_row_out[c] = a.ww_row[c];
     a.muave[c] = 0.f;
     a.muts[c] = 0.f;
     a.mudf[c] = 0.f;
     const bool edge = j < 1 || j > a.J - 2;
-    // the 3-D pass-throughs, kEdgeChunk levels loaded before their stores
-    for (int kb = 0; kb < K; kb += kEdgeChunk) {
-      float uu[kEdgeChunk], vv[kEdgeChunk], ww[kEdgeChunk];
-#pragma unroll
-      for (int q = 0; q < kEdgeChunk; ++q) {
-        const size_t x = col + (size_t)(kb + q) * I;
-        if (kb + q < K) {
-          if (FUSE_UV) {
-            uu[q] = f32(ldr(a_u, x));
-            vv[q] = f32(ldr(a_v, x));
-          }
-          if (CAPTURE) ww[q] = edge ? 0.f : a.ww[x];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kEdgeChunk; ++q) {
-        const size_t x = col + (size_t)(kb + q) * I;
-        if (kb + q < K) {
-          if (FUSE_UV) {
-            a.u_out[x] = uu[q];
-            a.v_out[x] = vv[q];
-          }
-          if (CAPTURE) a.cap_ww[x] = ww[q];
-        }
-      }
-    }
+    pass((size_t)j * row + i, 0, K, true, true, edge);
     if (CAPTURE) {  // the outputs' values; all zero on rows 0 and J-1
       a.cap_muave[c] = 0.f;
       a.cap_mu[c] = edge ? 0.f : __ldg(a.mu + c);
       a.cap_mudf[c] = 0.f;
       a.cap_muts[c] = 0.f;
     }
+  };
+
+  if (blockIdx.x == gridDim.x - 1) {
+    // The last column of blocks takes the columns outside the window of
+    // the rows that are computed, its lanes in turn, so that the warps that
+    // compute never wait on a lane's pass-through.
+    if (row_in)
+      for (int e = threadIdx.x; e < lo + I - hi; e += blockDim.x)
+        pass_column(e < lo ? e : hi + e - lo);
     return;
   }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= I) return;
+  if (!row_in) {
+    pass_column(i);
+    return;
+  }
+  if (i < lo || i >= hi) return;  // the last column of blocks passes it
+  const size_t col = (size_t)j * row + i;  // (j, k=0, i); level k adds k*I
+  const int c = j * I + i;                 // (j, i) of a 2-D field
+  const int ig = i + a.i_off;
 
   const int ip = (i + 1 == I) ? 0 : i + 1;  // east neighbour, wrapping
   const int im = (i == 0) ? I - 1 : i - 1;  // west neighbour, wrapping
@@ -397,6 +460,10 @@ advance_mu_t_kernel(const Args a) {
 
   // ---- pass 1: winds out, dmdt -----------------------------------------
   const int k0 = a.k0, k1 = a.k1;
+  // the levels the k loops leave pass through, w's level k0 too
+  pass(col, 0, k0, false, false, false);
+  pass(col, k1 + 1, K, false, false, false);
+  if (FUSE_W) a.w_out[col + (size_t)k0 * I] = a.w[col + (size_t)k0 * I];
   struct L1 {
     RawWind w;
     Flux f;
@@ -521,7 +588,7 @@ advance_mu_t_kernel(const Args a) {
   if (WW_MODE == kLite) {
     // the next substep's seed; in lean mode ww_1 lives in tconst and
     // the scan below carries the raw value
-    a.ww_row[c] = seed - (LEAN ? __ldg(a.ww1_k0 + c) : ww1_k);
+    a.ww_row_out[c] = seed - (LEAN ? __ldg(a.ww1_k0 + c) : ww1_k);
   }
   float scan = seed;       // raw scan value at level k
   float wdtn = 0.f;        // wdtn(k0): no flux through the surface
@@ -548,7 +615,7 @@ advance_mu_t_kernel(const Args a) {
     const size_t x = col + (size_t)k * I;
     if (WW_MODE != kLite) {
       const float ww_new = scan - ww1_k;
-      a.ww[x] = ww_new;
+      a.ww_out[x] = ww_new;
       if (CAPTURE) a.cap_ww[x] = ww_new;  // beside theta, to its own buffer
     }
     const Wind w = winds(l.w);
@@ -563,7 +630,7 @@ advance_mu_t_kernel(const Args a) {
     const float vert = l.rdnw * (wdtn_up - wdtn);
 
     const float t_c = l.t;
-    if (WITH_TAVE) a.t_ave[x] = t_c;
+    if (WITH_TAVE) a.t_ave_out[x] = t_c;
     const float th = f32(l.th);
     const float t_half = LEAN ? t_c + th : t_c + dts_msfty * th;
     const float fy =
@@ -572,7 +639,7 @@ advance_mu_t_kernel(const Args a) {
         w.u_e * (f32(l.t1e) + t1_k) - w.u_c * (t1_k + f32(l.t1w));
     const float horiz = msftx_c * (hrdy * fy + hrdx * fx);
     const float t_new = t_half - dts_msfty * (horiz + vert);
-    a.t[x] = t_new;
+    a.t_out[x] = t_new;
     if (FUSE_W)
       wsolve::w_forward_step(wc, wf, k, k0, t_new, l.w_up, l.pp, s, nthreads);
 
@@ -582,7 +649,8 @@ advance_mu_t_kernel(const Args a) {
     ww1_k = f32(u.ww1);
   }
   if (FUSE_W)
-    wsolve::w_backward(wc, a.w + col, a.pp + col, I, k0, k1, s, nthreads);
+    wsolve::w_backward(wc, a.w + col, a.pp + col, a.w_out + col,
+                       a.pp_out + col, I, k0, k1, s, nthreads);
 }
 
 // The launch: blocks of kLanes x rows threads over the (J, I) columns, and
@@ -592,7 +660,8 @@ template <bool FUSE_UV, bool LEAN, int WW_MODE, bool WITH_TAVE, bool FUSE_W,
           bool DAMP, bool OVERLAP, typename CT, bool CAPTURE = false>
 cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
   const dim3 block(kLanes, rows);
-  const dim3 grid((a.I + kLanes - 1) / kLanes, (a.J + rows - 1) / rows);
+  // one more column of blocks for the columns outside the window
+  const dim3 grid((a.I + kLanes - 1) / kLanes + 1, (a.J + rows - 1) / rows);
   const size_t smem = FUSE_W ? (size_t)a.K * kLanes * rows * sizeof(float) : 0;
   advance_mu_t_kernel<FUSE_UV, LEAN, WW_MODE, WITH_TAVE, FUSE_W, DAMP,
                       CAPTURE, OVERLAP, CT><<<grid, block, smem, stream>>>(a);

@@ -14,7 +14,8 @@
 // elimination recurrence), crdn and erdn (rhs row factors).
 //
 // One thread owns the column.  The solve reads only its own column of w, pp
-// and the new t, so w and pp are updated in place:
+// and the new t, so K3 updates w and pp in place; K1 writes them to fresh
+// buffers (w_backward's wout / ppout), reading the old ones as they are:
 //   * w_forward_level (w_forward_step on values the caller loaded) rides
 //     the caller's ascending k loop (the theta pass), one call per level
 //     k0..k1 right after t(k) is final.  It forms
@@ -24,9 +25,9 @@
 //     pp and writes neither.
 //   * w_backward then runs k descending: w'(k) = dpw(k) - cpv(k)*w'(k+1),
 //     the old and new dvz(k), pp(k) -= c_w*(beta*dvz'(k) + alfa*dvz(k)).
-//     It re-reads the old w(k) and pp(k) before it overwrites them (the old
-//     w(k+1) it needs is kept in a register), so each field is read twice
-//     and written once per solve.  It loads a few levels ahead of its
+//     It re-reads the old w(k) and pp(k) before it writes the new ones (the
+//     old w(k+1) it needs is kept in a register), so each field is read
+//     twice and written once per solve.  It loads a few levels ahead of its
 //     arithmetic (see w_backward).
 // The sweep buffer is addressed as dpw[k*stride]: K1 passes its per-thread
 // shared-memory slice, K3 a column of an output buffer that is dead until
@@ -98,15 +99,18 @@ __device__ __forceinline__ void w_forward_level(
 // Levels the descending loop loads ahead of its arithmetic.
 constexpr int kBackwardChunk = 4;
 
-// Back-substitution and the pp update, k descending; writes w and pp.
+// Back-substitution and the pp update, k descending: reads the old w and pp
+// at wcol / ppcol and writes the new ones at wout / ppout (the same column,
+// or another buffer's).
 // The loop is a chain of dependent steps with three loads each, and a store
 // to w or pp may alias the next level's loads as far as the compiler can
 // tell, so level by level every step waits out a full memory latency.  It
 // therefore works in chunks: load dpw, w and pp of kBackwardChunk levels,
 // then do their arithmetic and stores in order.  Same operations, same
 // order, same bits; on an H100 it halves K1's time with the solve (PERF.md).
-__device__ __forceinline__ void w_backward(const Coef& c, float* wcol,
-                                           float* ppcol, size_t I, int k0,
+__device__ __forceinline__ void w_backward(const Coef& c, const float* wcol,
+                                           const float* ppcol, float* wout,
+                                           float* ppout, size_t I, int k0,
                                            int k1, const float* dpw,
                                            size_t stride) {
   constexpr int U = kBackwardChunk;
@@ -134,17 +138,25 @@ __device__ __forceinline__ void w_backward(const Coef& c, float* wcol,
         if (k > k0) {
           wn = (k == k1) ? d[q] : d[q] - c.cpv[k] * wn_up;
           wold = wo[q];
-          wcol[(size_t)k * I] = wn;
+          wout[(size_t)k * I] = wn;
         }
         const float dvz_new = c.rdnw[k] * (wn_up - wn);
         const float dvz = c.rdnw[k] * (wold_up - wold);
-        ppcol[(size_t)k * I] =
+        ppout[(size_t)k * I] =
             pv[q] - c.c_w * (c.beta * dvz_new + c.alfa * dvz);
         wn_up = wn;
         wold_up = wold;
       }
     }
   }
+}
+
+// The same, in place: w and pp read and written at wcol / ppcol (K3).
+__device__ __forceinline__ void w_backward(const Coef& c, float* wcol,
+                                           float* ppcol, size_t I, int k0,
+                                           int k1, const float* dpw,
+                                           size_t stride) {
+  w_backward(c, wcol, ppcol, wcol, ppcol, I, k0, k1, dpw, stride);
 }
 
 }  // namespace wsolve

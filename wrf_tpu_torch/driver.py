@@ -261,8 +261,8 @@ def _run_single_tile(case, steps, tier, device, capture=False):
                                      kde=b.mem(b.kde, "k"),
                                      capture_intermediates=cap)
 
-    # warm-up on copies: K1 updates t, t_ave and ww in place
-    step({**arr, **{k: arr[k].clone() for k in _STATE}}, capture)
+    # warm-up (K1 writes no operand; the eager core's results are new too)
+    step(arr, capture)
     _sync(device)
     state = {k: arr[k] for k in _STATE}
     t0 = time.perf_counter()

@@ -3,7 +3,10 @@
 Port of ``wrf_tpu/models/small_step.py::SmallStepLoop``.  Every substep
 is ONE launch per shard of the fused K1 kernel
 (``advance_mu_t_fused(fuse_uv=True)``): the wind update runs inside it from
-mu's neighbours, so u and v stream once per substep.  The loop pads every
+mu's neighbours, so u and v stream once per substep.  K1 writes every
+field it updates to a fresh buffer, which the loop carries into the next
+substep, so the padded blocks a call starts from (the memo's) are never
+written.  The loop pads every
 block by a 1-cell halo (the neighbours' edge cells on sharded axes, zeros
 elsewhere) and takes the lean constants and the Thomas K-vectors through
 its memo (``models/stage_memo.py``, shared by the three stages of an RK3

@@ -2,7 +2,9 @@
 
 The three stages of an RK3 step restart from one state, and a step's
 constants keep their tensors from step to step, so most of what a stage
-builds before its first launch was built before.  The three loops of an
+builds before its first launch was built before: on the fused path a
+warm step builds the blocks of the inputs the step changed in stage 1,
+and nothing in stages 2 and 3.  The three loops of an
 ``RK3Integrator`` share one :class:`StageMemo`, which keeps the halo pads
 (:meth:`StageMemo.pad`, an entry a field), the lean constants
 (:meth:`StageMemo.lean`, an entry a part of :data:`LEAN_PARTS`) and the
@@ -12,11 +14,13 @@ An entry is keyed by plain values and by the identity and ``_version`` of
 every block it was built from (weak references: an id is not reused while
 its entry can match), and checks each block it built at its stored
 ``_version``: an in-place write to either is a miss, which drops the entry
-before new blocks are built.  The kernel wrappers mark what they write
-through device pointers (``ops/advance_mu_t_cuda.py::mark_in_place``), so
-the state K1 carries misses too; K5's j halo refresh before the first
-substep on a mesh in one process is the one unmarked write, and it writes
-the rows the pad wrote.  A hit costs no device work and no host
+before new blocks are built.  K1 writes the state it carries to fresh
+buffers, so the blocks it starts from stay as they were and hit in every
+stage; the wrappers of K2 and K3, which update their state in place,
+mark what they write through device pointers
+(``ops/advance_mu_t_cuda.py::mark_in_place``); K5's j halo refresh before
+the first substep on a mesh in one process is the one unmarked write, and
+it writes the rows the pad wrote.  A hit costs no device work and no host
 synchronisation.  ``keep=False`` keeps nothing: a mesh over processes,
 whose blocks cannot be keyed here, a self-exchange that writes the halo,
 and a cold run, which sets it on a shared memo before its first step.

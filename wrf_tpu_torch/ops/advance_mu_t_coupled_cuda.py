@@ -22,7 +22,7 @@ from :func:`coupled_lean_kwargs`, ``tconst``, ``dvdxi_const`` and
 both computed on the widened inputs.  Returns ``{"t", "mu", "ww_row",
 "u", "v"}`` (+ ``w``/``pp`` under ``fuse_w``): t, ww_row, w and pp are read
 only at their own column and are updated IN PLACE (the dispatchers raise
-their ``_version`` after the launch, as K1's does); u, v and mu are read
+their ``_version`` after the launch); u, v and mu are read
 at neighbour rows while other blocks update them, so they come back in
 fresh tensors whose S ring rows pass through from the inputs.
 

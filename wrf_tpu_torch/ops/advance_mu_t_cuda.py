@@ -54,16 +54,20 @@ hand-written kernel (``csrc/advance_mu_t_kernel.cuh``) and count one in
 whole-array transcription of the same arithmetic.  There is no fallback
 from one to the other.
 
-Buffers: the operands :func:`in_place` names are updated IN PLACE and
-returned — the TPU kernel donates them the same way — on both devices,
-and the dispatcher raises their ``_version`` (:func:`mark_in_place`): the
-kernel writes through their pointers, which no version counter sees.
-``mu``, ``u`` and ``v`` are read at neighbour cells while they are
-updated, so their results are fresh tensors; a loop passes them back as
-the next substep's inputs, and PyTorch's caching allocator hands the freed
-buffers out again, so nothing is copied.  A buffer updated in place may
-not overlap one that is only read (:func:`check_no_alias` raises): the
-kernel loads levels ahead of its stores.
+Buffers: a launch writes none of its operands, on either device.  Every
+field it updates comes back in a fresh tensor: ``mu``, ``u`` and ``v``
+(read at neighbour cells while they are updated), and ``t``, ``ww``
+(full/final), ``ww_row`` (lite), ``t_ave`` (with_tave), ``w`` and ``pp``
+(fuse_w), which the TPU kernel donates and updates in place.  A loop
+passes the results back as the next substep's inputs, and PyTorch's
+caching allocator hands the freed buffers out again, so nothing is
+copied; the blocks a loop started from keep their contents and their
+``_version``, so what a memo built from them (``models/stage_memo.py``)
+still holds after the launch.  Outside the cells a launch computes (rows
+0 and J-1, the columns outside the window, the levels outside its k
+range) the state passes through into the fresh outputs.
+:func:`mark_in_place` and :func:`check_no_alias` serve the wrappers of K2
+and K3, which still update their state in place.
 """
 
 from __future__ import annotations
@@ -97,9 +101,6 @@ def _f32(x) -> float:
 #: the 3-D operands that may arrive as bf16 (plus u and v without fuse_uv)
 CONST_STREAMS = ("t_1", "tconst", "dvdxi_const", "ww_1", "u_1", "v_1", "ft")
 
-#: the operands a launch may update in place (:func:`in_place` says which)
-IN_PLACE = ("t", "ww", "ww_row", "t_ave", "w", "pp")
-
 #: the neighbour rows ``overlap`` names (the mudf rows only under damping)
 OVERLAP_ROWS = ("mu_lo", "mu_hi", "v_hi", "mudf_lo", "mudf_hi")
 
@@ -124,15 +125,6 @@ def widen(x):
 #: the five phase-A outputs of ``capture`` (the 2-D ones, then ww's)
 CAPTURE_NAMES = ("muave_before_theta", "mu_before_theta",
                  "mudf_before_theta", "muts_before_theta", "ww_before_theta")
-
-
-def in_place(operands: dict, *, ww_mode, with_tave, fuse_w) -> dict:
-    """The operands of :data:`IN_PLACE` a launch in these modes updates, by
-    name: ``t`` always, ``ww`` under full/final, ``ww_row`` under lite,
-    ``t_ave`` under with_tave, ``w`` and ``pp`` under fuse_w."""
-    on = dict(t=True, ww=ww_mode != "lite", ww_row=ww_mode == "lite",
-              t_ave=with_tave, w=fuse_w, pp=fuse_w)
-    return {n: operands[n] for n in IN_PLACE if on[n]}
 
 
 def mark_in_place(tensors) -> None:
@@ -165,23 +157,14 @@ def check_no_alias(written: dict, read: dict) -> None:
 
 def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                  fuse_w, w, pp, rdn, capture, overlap, with_tave, ww_mode,
-                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0, written,
-                 reads):
+                 ww_row, ww, lean, tconst, dvdxi_const, ww1_k0):
     """The TPU wrapper's argument checks (``tensors``: the 3-D operands by
-    name), and the port's own on the buffers a launch updates in place
-    (``written``; ``reads``: the 2-D and vertical operands it only reads)."""
+    name), and the port's own on the ``overlap`` rows."""
     if fuse_w and (w is None or pp is None or rdn is None):
         raise ValueError("fuse_w requires w, pp and rdn")
     if capture and (ww_mode != "full" or lean):
         raise ValueError("capture requires the plain full-ww path "
                          "(ww_mode='full', lean=False)")
-    # the final substep's seed row is held to the same rule
-    guarded = {**written, "ww_row": ww_row if ww_mode != "full" else None}
-    check_no_alias(
-        written=guarded,
-        read={**{n: x for n, x in tensors.items()
-                 if n not in ("t", "t_ave", "ww")},
-              **reads})
     if overlap is not None:
         if not fuse_uv:
             raise ValueError("overlap requires fuse_uv (the coupled "
@@ -189,7 +172,7 @@ def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
                              "substep exchange to hide)")
         want = OVERLAP_ROWS[:3] + (OVERLAP_ROWS[3:] if mudf_in is not None
                                    else ())
-        check_overlap_rows(overlap, want, OVERLAP_ROWS, in_place=guarded)
+        check_overlap_rows(overlap, want, OVERLAP_ROWS)
     if fuse_uv and wind_scale != 1.0:
         # both model the wind->mass coupling; combined, the scaled winds
         # would be written back out and the scale compound every substep
@@ -214,18 +197,19 @@ def _check_modes(*, tensors, t_ave, wind_scale, fuse_uv, mudf_in,
             raise ValueError("lean mode requires tconst, dvdxi_const, ww1_k0")
 
 
-def check_overlap_rows(overlap: dict, want, known, in_place: dict) -> None:
+def check_overlap_rows(overlap: dict, want, known,
+                       in_place: dict | None = None) -> None:
     """``overlap`` names the neighbour rows ``want`` and nothing outside
     ``known``, and none of them lies in a buffer the launch updates in
-    place (``in_place``: name -> tensor or None): the kernel reads them
-    while other blocks write those."""
+    place (``in_place``: name -> tensor or None; K3's state, K1 has none):
+    the kernel reads them while other blocks write those."""
     missing = [n for n in want if overlap.get(n) is None]
     extra = sorted(set(overlap) - set(known))
     if missing or extra:
         raise ValueError(f"overlap names the neighbours' rows {tuple(want)}; "
                          f"missing {missing}, unknown {extra}")
     for n in want:
-        for name, buf in in_place.items():
+        for name, buf in (in_place or {}).items():
             if (buf is not None
                     and overlap[n].untyped_storage().data_ptr()
                     == buf.untyped_storage().data_ptr()):
@@ -290,16 +274,13 @@ def advance_mu_t_fused(
     through there and ``muave``/``muts``/``mudf`` are zero.  Returns
     ``muave, muts, mudf, mu, t``, plus ``ww`` (full/final) or ``ww_row``
     (lite), ``t_ave`` (with_tave), ``u``/``v`` (fuse_uv), ``w``/``pp``
-    (fuse_w) and the five :data:`CAPTURE_NAMES` (capture).  See the module
-    docstring for which inputs are updated in place.  ``thomas`` (not in
-    the TPU contract) lets a loop pass the
+    (fuse_w) and the five :data:`CAPTURE_NAMES` (capture), each in a
+    fresh tensor: no operand is written (the module docstring).
+    ``thomas`` (not in the TPU contract) lets a loop pass the
     :func:`~wrf_tpu_torch.ops.thomas.thomas_vectors` bundle it computed
     once; without it the wrapper computes the bundle from ``rdn``.
     """
     del kde   # API parity
-    written = in_place(dict(t=t, ww=ww, ww_row=ww_row, t_ave=t_ave, w=w,
-                            pp=pp), ww_mode=ww_mode, with_tave=with_tave,
-                       fuse_w=fuse_w)
     _check_modes(tensors=dict(u=u, v=v, t=t, t_1=t_1, ww_1=ww_1, u_1=u_1,
                               v_1=v_1, ft=ft, tconst=tconst,
                               dvdxi_const=dvdxi_const, ww=ww, t_ave=t_ave),
@@ -308,12 +289,7 @@ def advance_mu_t_fused(
                  rdn=rdn, capture=capture,
                  overlap=overlap, with_tave=with_tave, ww_mode=ww_mode,
                  ww_row=ww_row, ww=ww, lean=lean, tconst=tconst,
-                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0, written=written,
-                 reads=dict(mu=mu, mudf_in=mudf_in, mut=mut, muu=muu,
-                            muv=muv, mu_tend=mu_tend, msfuy=msfuy,
-                            msfvx_inv=msfvx_inv, msftx=msftx, msfty=msfty,
-                            ww1_k0=ww1_k0, dnw=dnw, fnm=fnm, fnp=fnp,
-                            rdnw=rdnw))
+                 dvdxi_const=dvdxi_const, ww1_k0=ww1_k0)
     kw = dict(ww=ww, ww_1=ww_1, u=u, u_1=u_1, v=v, v_1=v_1, mu=mu, mut=mut,
               muu=muu, muv=muv, t=t, t_1=t_1, ft=ft, mu_tend=mu_tend,
               rdx=rdx, rdy=rdy, dts=dts, epssm=epssm, dnw=dnw, fnm=fnm,
@@ -330,13 +306,10 @@ def advance_mu_t_fused(
                                     cw=cw, gw=gw, k0=k0, k1=k1)
         kw.update(fuse_w=True, w=w, pp=pp, thomas=thomas)
     if t.device.type == "cpu":
-        res = advance_mu_t_fused_plain(**kw)
-    elif t.device.type == "cuda":
-        res = _launch(**kw)
-    else:
-        raise ValueError(f"advance_mu_t_fused: unsupported device {t.device}")
-    mark_in_place(written.values())
-    return res
+        return advance_mu_t_fused_plain(**kw)
+    if t.device.type == "cuda":
+        return _launch(**kw)
+    raise ValueError(f"advance_mu_t_fused: unsupported device {t.device}")
 
 
 def advance_mu_t_fused_plain(
@@ -361,8 +334,9 @@ def advance_mu_t_fused_plain(
     kernel's rolls; the masks make the wrapped values unused), and the
     dmdt column sum and the ww scan as k loops.  The column sum runs in k
     order (the oracle's and the CUDA kernel's order; the TPU kernel leaves
-    the order of its jnp.sum to the compiler).  Same in-place contract as
-    :func:`advance_mu_t_fused`.  bf16 constant streams are widened on entry;
+    the order of its jnp.sum to the compiler).  Same buffer contract as
+    :func:`advance_mu_t_fused`: every result is a new tensor and no operand
+    is written.  bf16 constant streams are widened on entry;
     under ``overlap`` the halo rows of copies of ``mu``, ``v`` and
     ``mudf_in`` take the neighbours' rows before the rolls (the caller's
     tensors are not written, and the pass-through rows of the outputs keep
@@ -497,19 +471,19 @@ def advance_mu_t_fused_plain(
     res = {"muave": muave[:, 0], "muts": muts[:, 0], "mudf": mudf[:, 0],
            "mu": mu_val[:, 0]}
     if with_tave:
-        res["t_ave"] = t_ave.copy_(torch.where(upd, t, t_ave))
-    res["t"] = t.copy_(t_full)
+        res["t_ave"] = torch.where(upd, t, t_ave)
+    res["t"] = t_full
     if ww_mode == "lite":
-        res["ww_row"] = ww_row.copy_(ww_row_new[:, 0])
+        res["ww_row"] = ww_row_new[:, 0]
     else:
-        res["ww"] = ww.copy_(ww_new)
+        res["ww"] = ww_new
     if fuse_uv:
         res["u"] = torch.where(computed, u, u_in)
         res["v"] = torch.where(computed, v, v_in)
     if fuse_w:
         w_new, pp_new = w_step_plain(w, pp, t_full, thomas, lev(rdnw),
                                      kmask, kint, mask, k0, k1)
-        res["w"], res["pp"] = w.copy_(w_new), pp.copy_(pp_new)
+        res["w"], res["pp"] = w_new, pp_new
     if capture:
         # the phase-A values the outputs hold, taken before theta; the
         # never-computed rows 0 and J-1 are zero in all five
@@ -659,7 +633,7 @@ def _kernel():
     global _kernel_fn
     if _kernel_fn is None:
         fn = _build.load().wrf_tpu_torch_advance_mu_t
-        fn.argtypes = ([ctypes.c_void_p] * 51 + [ctypes.c_float] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 57 + [ctypes.c_float] * 11
                        + [ctypes.c_int] * 18 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
@@ -774,18 +748,19 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         "mudf_lo": (I,) if use_damp else None,
         "mudf_hi": (I,) if use_damp else None}, dev)
 
-    res = {n: torch.empty((J, I), dtype=torch.float32, device=dev)
-           for n in ("mu", "muave", "muts", "mudf")}
-    if fuse_uv:
-        res["u"] = torch.empty_like(u)
-        res["v"] = torch.empty_like(v)
-    if capture:   # fresh buffers; the kernel writes every element
-        for n in CAPTURE_NAMES:
-            res[n] = torch.empty(shapes[3 if n.startswith("ww") else 2],
-                                 dtype=torch.float32, device=dev)
-    outs = [res[n].data_ptr() if n in res else None
-            for n in ("mu", "muave", "muts", "mudf", "u", "v")
-            + CAPTURE_NAMES]
+    # a fresh buffer for every output of the mode (the kernel writes every
+    # element), by its ndim, in the C entry's order; None: not an output
+    ndims = dict(mu=2, muave=2, muts=2, mudf=2,
+                 u=3 if fuse_uv else None, v=3 if fuse_uv else None, t=3,
+                 ww=3 if ww_mode != "lite" else None,
+                 t_ave=3 if with_tave else None,
+                 ww_row=2 if ww_mode == "lite" else None,
+                 w=3 if fuse_w else None, pp=3 if fuse_w else None,
+                 **{n: (3 if n.startswith("ww") else 2) if capture else None
+                    for n in CAPTURE_NAMES})
+    res = {n: torch.empty(shapes[d], dtype=torch.float32, device=dev)
+           for n, d in ndims.items() if d is not None}
+    outs = [res[n].data_ptr() if n in res else None for n in ndims]
     i0, i1, j0, j1 = (int(x) for x in window)
     j_off, i_off = (int(x) for x in offsets)
     fn = _kernel()
@@ -803,14 +778,4 @@ def _launch(*, ww, ww_1, u, u_1, v, v_1, mu, mut, muu, muv, t, t_1, ft,
         raise RuntimeError(f"advance_mu_t kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
-
-    res["t"] = t
-    if ww_mode == "lite":
-        res["ww_row"] = ww_row
-    else:
-        res["ww"] = ww
-    if with_tave:
-        res["t_ave"] = t_ave
-    if fuse_w:
-        res["w"], res["pp"] = w, pp
     return res

@@ -335,7 +335,7 @@ if "host" in phases:
     import time, torch
     from wrf_tpu_torch.ops.advance_mu_t_cuda import advance_mu_t_fused
     arr, static = c.padded_inputs(c.case_at(c.SHARD_GRID), "cuda")
-    a, m = c.fresh(arr, c.mode_kwargs("scan", arr, static))
+    a, m = arr, c.mode_kwargs("scan", arr, static)
     best = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -371,7 +371,7 @@ if "k3" in phases:
         print(f"[k3 bf16 time exact S={S}] ms per substep: "
               f"{res['k3 bf16'][f'exact S={S}']} ({smi})")
         del ins, a
-    a1, m1 = c.fresh(arr, c.mode_kwargs("scan", arr, static))
+    a1, m1 = arr, c.mode_kwargs("scan", arr, static)
 
     def four_k1():
         for _ in range(4):
